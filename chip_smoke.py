@@ -6,21 +6,35 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card: nvidia-smi name and power limit; no CUDA device -> exit;
   2. build the CUDA kernels from minimap2_tpu_torch/ops/csrc;
-  3. the main path: a 100 Mb, 8-contig repeat-bearing genome and 1024
+  3. the PAF path: a 100 Mb, 8-contig repeat-bearing genome and 1024
      ONT-like 8-11 kb reads through ``minimap2_tpu_torch.cli.main(
-     ["--batch", "-x", "map-ont", ...])``; every kernel must have launched,
-     >= 90% of reads must land on their source interval and no mapq-60
-     primary may be wrong;
-  4. each kernel against its plain PyTorch version on the card at the
-     main path's shapes (bit-equal), timed with CUDA events;
-  5. where one 512-read batch spends its time (host read/encode/emit,
-     device step with CUDA events and torch.profiler);
-  6. the first 128 reads through PafStep on the card and on the CPU (plain
-     versions): identical (10, K, 128) records;
-  7. a ``kernels`` JSON line, then the ``ok`` line.
+     ["--batch", "-x", "map-ont", ...])``; every kernel of the path must
+     have launched, >= 90% of reads must land on their source interval and
+     no mapq-60 primary may be wrong;
+  4. the -a path: the same genome and reads through ``cli.main(["--batch",
+     "-a", "-x", "map-ont", ...])``; all five kernels launched, >= 90% of
+     primaries on their source interval (fallback reads count as wrong),
+     no wrong mapq-60 primary, <= 3% fallback reads (the JAX package's
+     decisions, which the port takes, give 2.25% on these reads), and
+     every primary's CIGAR spans the read and its aligned reference
+     interval;
+  5. each kernel against its plain PyTorch version on the card at its
+     path's shapes (bit-equal; extd2 and traceback on the first align
+     sub-batch of phase 4), timed with CUDA events; extd2's DP
+     cell-updates/s as bench.py defines them;
+  6. where one 512-read batch spends its time, for the PAF path (host
+     read/encode/emit, device step with CUDA events and torch.profiler)
+     and the -a path (mapping step, extd2, traceback, ops download, host
+     regs + SAM emit);
+  7. card vs CPU (plain versions): the first 128 reads through PafStep give
+     identical records, the first 32 reads through the -a path identical
+     SAM;
+  8. a ``kernels`` JSON line, then the ``ok`` line.
 """
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -63,6 +77,36 @@ def cuda_ms(fn, reps=10, warmup=2):
 def max_abs_err(got, want):
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                for g, w in zip(got, want))
+
+
+def max_abs_err_u8(got, want):
+    """max |got - want| over uint8 (or same-typed) tensors, no widening."""
+    return max(int((torch.maximum(g, w) - torch.minimum(g, w)).max())
+               for g, w in zip(got, want))
+
+
+def timed_once(fn):
+    """(fn(), milliseconds) of one call, CUDA events."""
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def band_cells(lens, w):
+    """Cells the approx-max extd2 updates: per job, the band width
+    en0 - st0 + 1 of every diagonal until the job's band ends."""
+    tot = 0
+    for ql, tl in lens:
+        r = np.arange(ql + tl - 1)
+        st0 = np.maximum(np.maximum(0, r - ql + 1), (r - w + 1) >> 1)
+        en0 = np.minimum(np.minimum(tl - 1, r), (r + w) >> 1)
+        width = en0 - st0 + 1
+        dead = np.flatnonzero(width <= 0)
+        tot += int(width[:dead[0] if len(dead) else len(width)].sum())
+    return tot
 
 
 def bound(nbytes, nops):
@@ -185,7 +229,119 @@ def phase_main_path(tmp):
         f"{n_q60} at mapq 60 of which {n_q60_wrong} wrong")
     require(frac >= 0.90, f"only {100 * frac:.1f}% of reads correct")
     require(n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 primaries")
-    return dict(seen, launches=counts, reads_per_s=reads_per_s, rd=rd)
+    return dict(seen, launches=counts, reads_per_s=reads_per_s, rd=rd,
+                ref=ref, rnames=rnames)
+
+
+def phase_align_path(main, tmp):
+    """The -a path through the CLI on the same genome and reads.  Records
+    the step and batcher the CLI builds, each primary's Reg extent, and the
+    first align sub-batch's inputs (for phase 5)."""
+    from collections import Counter
+
+    from minimap2_tpu_torch import cli
+    from minimap2_tpu_torch.ops._build import launches
+    from minimap2_tpu_torch.parallel import align_batch, engine
+    sam = os.path.join(tmp, "out.sam")
+    seen, prim_regs, first_job = {}, {}, {}
+    align_queries = engine.align_queries
+    batch_build_regs = engine.batch_build_regs
+    align_step = align_batch._align_step
+
+    def timed_align_queries(step, ab, mi, opt, queries, out, batch_reads):
+        torch.cuda.synchronize()
+        t = time.time()
+        res = align_queries(step, ab, mi, opt, queries, out, batch_reads)
+        torch.cuda.synchronize()
+        seen.update(step=step, ab=ab, mi=mi, opt=opt, res=res,
+                    align_s=time.time() - t)
+        return res
+
+    def recording_build_regs(recs, *a, **kw):
+        res = batch_build_regs(recs, *a, **kw)
+        for rec, regs in res[0].values():
+            r = regs[0]
+            prim_regs[rec.name] = (r.rs, r.re, len(rec.seq))
+        return res
+
+    def capturing_step(qr, sf, lens, **kw):
+        if not first_job:
+            first_job.update(args=[x.clone() for x in (qr, sf, lens)], kw=kw)
+        return align_step(qr, sf, lens, **kw)
+
+    engine.align_queries = timed_align_queries
+    engine.batch_build_regs = recording_build_regs
+    align_batch._align_step = capturing_step
+    launches.clear()
+    t1 = time.time()
+    try:
+        rc = cli.main(["--batch", "-a", "-x", "map-ont", "-o", sam,
+                       main["ref"], main["rd"]])
+    finally:
+        engine.align_queries = align_queries
+        engine.batch_build_regs = batch_build_regs
+        align_batch._align_step = align_step
+    total_s = time.time() - t1
+    counts = dict(launches)
+    require(rc == 0, f"cli.main -a returned {rc}")
+    n_reads, fallbacks = seen["res"]
+    reads_per_s = n_reads / seen["align_s"]
+    causes = dict(Counter(c for _, c in fallbacks))
+    log(f"[align] index build + upload {total_s - seen['align_s']:.1f}s; "
+        f"aligned {n_reads} reads in {seen['align_s']:.2f}s "
+        f"({reads_per_s:.1f} reads/s); launches {counts}")
+    log(f"[align] fallback reads (no record written): {len(fallbacks)} "
+        f"({100 * len(fallbacks) / n_reads:.2f}%) by cause {causes}")
+    for name in ("sketch", "sort3", "chain", "extd2", "traceback"):
+        require(counts.get(name, 0) > 0, f"kernel {name} never launched "
+                "on the -a path")
+
+    prim = {}
+    with open(sam) as f:
+        for ln in f:
+            t = ln.rstrip("\n").split("\t")
+            if not ln.startswith("@") and int(t[1]) & 0x904 == 0:
+                prim.setdefault(t[0], t)
+    n_ok = n_q60 = n_q60_wrong = 0
+    idents, bad_cigar = [], []
+    for nm in main["rnames"]:
+        t = prim.get(nm)
+        if t is None:
+            continue
+        _, chrom, st, en, strand = nm.split("!")
+        ops = re.findall(r"(\d+)([MIDNSHP=X])", t[5])
+        q_len = sum(int(n) for n, o in ops if o in "MIS=XH")
+        r_len = sum(int(n) for n, o in ops if o in "MDN=X")
+        rs, re_, qlen = prim_regs[nm]
+        pos = int(t[3]) - 1
+        if q_len != qlen or r_len != re_ - rs or pos != rs:
+            bad_cigar.append(nm)
+        ok = (t[2] == chrom and ("-" if int(t[1]) & 16 else "+") == strand
+              and pos < int(en) and pos + r_len > int(st))
+        n_ok += ok
+        if int(t[4]) == 60:
+            n_q60 += 1
+            n_q60_wrong += not ok
+        idents += [1.0 - float(x[5:]) for x in t if x.startswith("de:f:")]
+    frac = n_ok / len(main["rnames"])
+    mean_ident = statistics.fmean(idents) if idents else 0.0
+    log(f"[align] {n_ok}/{len(main['rnames'])} primaries correct "
+        f"({100 * frac:.1f}%), {n_q60} at mapq 60 of which {n_q60_wrong} "
+        f"wrong; mean identity of the primaries {mean_ident:.4f}; "
+        f"{len(prim) - len(bad_cigar)}/{len(prim)} CIGARs span read and "
+        "reference interval")
+    # checked after the later phases, so that a run that fails them still
+    # measures the kernels
+    gates = [(not bad_cigar, f"CIGAR lengths disagree for {bad_cigar[:5]}"),
+             (frac >= 0.90, f"only {100 * frac:.1f}% of primaries correct"),
+             (n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 primaries"),
+             # the port takes the JAX package's fallback decisions; on
+             # these seeded reads they come to 2.25% (PERF.md, PR 2)
+             (len(fallbacks) <= 0.03 * n_reads,
+              f"{len(fallbacks)} fallback reads (> 3%)")]
+    return dict(seen, launches=counts, reads_per_s=reads_per_s,
+                first_job=first_job, fallbacks=fallbacks,
+                mean_identity=mean_ident, gates=gates)
 
 
 def _first_batch(step, rd, n):
@@ -315,6 +471,212 @@ def phase_kernels(main):
     return rows
 
 
+def phase_align_kernels(aln):
+    """extd2 and traceback against their plain versions on the first align
+    sub-batch of the -a run, at the path's shapes; extd2's DP
+    cell-updates/s on bench.py's 64 x 10,240 x 10,240 random pairs."""
+    from minimap2_tpu_torch.ops import extend, traceback
+    qr, sf, lens = aln["first_job"]["args"]
+    kw = aln["first_job"]["kw"]
+    N, QP = qr.shape
+    G, W, RB, w = kw["G"], kw["W"], kw["RB"], kw["w"]
+    ext_kw = dict(G=G, W=W, RB=RB, R=kw["R"], QP=QP, TP=kw["TP"], q=kw["q"],
+                  e=kw["e"], q2=kw["q2"], e2=kw["e2"], w=w, zdrop=-1,
+                  right_mode=False, approx_max=True, approx_drop=False,
+                  sc_mch=kw["sc_mch"], sc_mis=kw["sc_mis"], sc_N=0)
+    p, ez = extend.extd2_batch2(qr, sf, lens, **ext_kw)
+    RT = p.shape[1]
+
+    def extd2_plain():
+        pp, ezp = extend.extd2_batch2_plain(
+            qr, sf, lens, W=W, RB=RB, RT=RT, q=kw["q"], e=kw["e"],
+            q2=kw["q2"], e2=kw["e2"], w=w, sc_mch=kw["sc_mch"],
+            sc_mis=kw["sc_mis"], sc_N=0)
+        return pp, extend._ez_dead(ezp, lens, G, RB, RT)
+    (pp, ezp), ext_plain_ms = timed_once(extd2_plain)
+    err = max(max_abs_err_u8([p], [pp]), max_abs_err([ez], [ezp]))
+    require(err == 0, f"extd2 differs from its plain version ({err})")
+    del pp
+    lens_h = lens.cpu().numpy()
+    cells = band_cells(lens_h, w)
+    bms, by = bound(N * RT * W + N * (QP + kw["TP"]) + N * 8
+                    + N * extend.EZ_N * 4, 40 * cells)
+    ext_ms = cuda_ms(lambda: extend.extd2_batch2(qr, sf, lens, **ext_kw),
+                     reps=5)
+    # bench.py:262-292: 64 x 10,240 x 10,240 random pairs, band 500
+    rng = np.random.default_rng(0)
+    NB, QB, w_b = 64, 10240, 500
+    b_args = [torch.from_numpy(x).cuda() for x in (
+        rng.integers(0, 4, (NB, QB)).astype(np.uint8),
+        rng.integers(0, 4, (NB, QB)).astype(np.uint8),
+        np.full((NB, 2), QB, np.int32))]
+    b_kw = dict(ext_kw, G=64, W=640, RB=64, R=(2 * QB + 127) // 128 * 128,
+                QP=QB, TP=QB, q=4, e=2, q2=24, e2=1, w=w_b, sc_mch=2,
+                sc_mis=-4)
+    b_ms = cuda_ms(lambda: extend.extd2_batch2(*b_args, **b_kw), reps=3)
+    rr = np.arange(2 * QB - 1)
+    b_cells = int(np.minimum.reduce([np.full_like(rr, w_b), rr + 1,
+                                     2 * QB - 1 - rr]).sum()) * NB
+    dp_rate = b_cells / (b_ms / 1e3)
+    log(f"[kernels] extd2 on {N} jobs (QP={QP}, TP={kw['TP']}, W={W}, "
+        f"R={RT}, {cells} band cells): {ext_ms:.3f} ms, plain "
+        f"{ext_plain_ms:.0f} ms; bench.py's 64 x 10,240^2 pairs: "
+        f"{b_ms:.3f} ms = {dp_rate:.4g} DP cell-updates/s")
+    rows = [dict(
+        name="extd2", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/extd2.cu",
+        replaces="minimap2_tpu/ops/extend_pallas2.py:658",
+        launches=aln["launches"].get("extd2", 0), max_abs_err=err,
+        ms=ext_ms, plain_ms=ext_plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None, shape=[N, QP, kw["TP"], W, RT], band_cells=cells,
+        dp_cells_per_s=dp_rate, dp_bench_ms=b_ms)]
+    del b_args
+
+    ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
+    (ops2, fin2), tb_plain_ms = timed_once(
+        lambda: traceback.traceback_batch_plain(p, lens, RB=RB, w=w))
+    err = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
+    require(err == 0, f"traceback differs from its plain version ({err})")
+    visited = int((ops != 0).sum())
+    bms, by = bound(visited + N * RT + N * 8 + N * 8, 0)
+    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, RB=RB, w=w),
+                    reps=5)
+    log(f"[kernels] traceback on the same p: {tb_ms:.3f} ms, plain "
+        f"{tb_plain_ms:.0f} ms, {visited} diagonals visited")
+    rows.append(dict(
+        name="traceback", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/traceback.cu",
+        replaces="minimap2_tpu/ops/traceback_pallas.py:155",
+        launches=aln["launches"].get("traceback", 0), max_abs_err=err,
+        ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None, shape=[N, RT, W], visited=visited))
+    return rows
+
+
+def _records(path, n):
+    from minimap2_tpu_torch.io.fastx import FastxReader
+    rd = FastxReader(path)
+    recs = []
+    while len(recs) < n:
+        rec = rd.read1()
+        if rec is None:
+            break
+        recs.append(rec)
+    rd.close()
+    return recs
+
+
+def phase_align_breakdown(main, aln):
+    """Where one 512-read -a batch spends its time: the mapping step
+    (CUDA events), extd2 and traceback per sub-batch (CUDA events), the
+    ops download, the host's regs (trim, audits, fix_cigar, mapq) and the
+    SAM emit.  The sub-batches run one at a time here."""
+    from minimap2_tpu_torch.io import format as fmt
+    from minimap2_tpu_torch.map.align_engine import gen_ts_mat
+    from minimap2_tpu_torch.ops.traceback import decode_ops
+    from minimap2_tpu_torch.parallel import align_batch, engine
+    step, ab, mi, opt = aln["step"], aln["ab"], aln["mi"], aln["opt"]
+    recs = _records(main["rd"], 512)
+    seqs = [r.seq for r in recs]
+    codes, lens = engine.encode_batch(seqs, step.p.L)
+    packed, nbits = engine.pack_codes(codes)
+    batch = [torch.from_numpy(x).cuda() for x in (packed, nbits, lens)]
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: step(*batch), reps=3)
+        map_out = step(*batch)
+    evs = {"extd2": [], "traceback": []}
+    dl = [0.0]
+    wrapped = {}
+    for name in ("extd2_batch2", "traceback_batch"):
+        fn = getattr(align_batch, name)
+        key = "extd2" if name.startswith("extd2") else "traceback"
+
+        def timed(*a, _fn=fn, _key=key, **k):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = _fn(*a, **k)
+            e.record()
+            evs[_key].append((s, e))
+            return out
+        wrapped[name] = fn
+        setattr(align_batch, name, timed)
+
+    def timed_collect(fut, n):
+        ops, fin = fut
+        torch.cuda.synchronize()
+        t = time.time()
+        fin_h = fin.cpu().numpy()
+        mx = align_batch._ops_extent(ops)
+        ops_h = ops[:, :max(mx, 1)].cpu().numpy()
+        dl[0] += time.time() - t
+        return [decode_ops(ops_h[i], int(fin_h[i, 0]), int(fin_h[i, 1]))
+                for i in range(n)]
+
+    ab.collect = timed_collect
+    mat = gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi)
+    try:
+        t0 = time.time()
+        by_read, fallback, _, _ = engine.batch_build_regs(
+            recs, map_out, ab, mi, opt, mat, step.with_sec)
+        t1 = time.time()
+    finally:
+        del ab.collect
+        for name, fn in wrapped.items():
+            setattr(align_batch, name, fn)
+    torch.cuda.synchronize()
+    ext_ms = sum(s.elapsed_time(e) for s, e in evs["extd2"])
+    tb_ms = sum(s.elapsed_time(e) for s, e in evs["traceback"])
+    out = io.StringIO()
+    t2 = time.time()
+    for rec, regs in by_read.values():
+        for i in range(len(regs)):
+            out.write(fmt.write_sam(mi, rec, 0, i, 1, [len(regs)], [regs],
+                                    opt.flag, 0) + "\n")
+    t3 = time.time()
+    host_s = (t1 - t0) - (ext_ms + tb_ms) / 1e3 - dl[0]
+    log(f"[breakdown] 512-read -a batch: mapping step {step_ms:.2f} ms; "
+        f"{len(evs['extd2'])} align sub-batches of {ab.sub}: extd2 "
+        f"{ext_ms:.2f} ms, traceback {tb_ms:.2f} ms, ops download "
+        f"{1e3 * dl[0]:.2f} ms; host regs (trim, audits, fix_cigar, "
+        f"mapq) {host_s:.3f} s, SAM emit {t3 - t2:.3f} s; "
+        f"{len(fallback)} fallback reads")
+
+
+def phase_align_cross_check(aln, tmp):
+    """The first 32 reads through the -a path on the card and on the CPU
+    (plain versions, CPU copies of the index): identical SAM text."""
+    from minimap2_tpu_torch.parallel.align_batch import AlignBatcher
+    from minimap2_tpu_torch.parallel.batch import DeviceIndex
+    from minimap2_tpu_torch.parallel.engine import PafStep, align_queries
+    from minimap2_tpu_torch.utils.simgenome import write_fasta
+    from minimap2_tpu_torch.utils.intfloat import SEQ_NT4
+    step, ab, mi, opt = aln["step"], aln["ab"], aln["mi"], aln["opt"]
+    recs = _records(aln["rd"], 32)
+    path = os.path.join(tmp, "x32.fa")
+    write_fasta(path, [r.name for r in recs],
+                [SEQ_NT4[np.frombuffer(r.seq, np.uint8)] for r in recs])
+    di = step.di
+    di_cpu = DeviceIndex({n: t.cpu() for n, t in di.named_buffers()},
+                         di.aux_dict())
+    step_cpu = PafStep(di_cpu, step.p, step.K, step.min_sc,
+                       with_sec=step.with_sec, with_wp=step.with_wp)
+    ab_cpu = AlignBatcher(mi, opt, device="cpu", QP=ab.QP, TP=ab.TP, G=ab.G,
+                          W=ab.W, RB=ab.RB, sub=ab.sub)
+    outs, secs = [], []
+    for st_, ab_ in ((step, ab), (step_cpu, ab_cpu)):
+        out = io.StringIO()
+        t = time.time()
+        with torch.no_grad():
+            align_queries(st_, ab_, mi, opt, [path], out, 128)
+        secs.append(time.time() - t)
+        outs.append(out.getvalue())
+    n_rec = len(outs[0].splitlines())
+    require(n_rec >= 24, f"only {n_rec} SAM records for 32 reads")
+    require(outs[0] == outs[1], "card and CPU SAM differ")
+    log(f"[cross] 32-read -a SAM ({n_rec} records) identical on card and "
+        f"CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
+
+
 def phase_breakdown(main):
     """Where one 512-read batch spends its time: host read/encode/pack,
     the device step (CUDA events, and torch.profiler's device time by
@@ -385,12 +747,22 @@ def main():
     phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         main_ = phase_main_path(tmp)
+        aln = phase_align_path(main_, tmp)
+        aln["rd"] = main_["rd"]
         rows = phase_kernels(main_)
+        for r in rows:          # the PAF kernels also run on the -a path
+            r["launches_align"] = aln["launches"].get(r["name"], 0)
+        rows += phase_align_kernels(aln)
         phase_breakdown(main_)
+        phase_align_breakdown(main_, aln)
         phase_cross_check(main_)
+        phase_align_cross_check(aln, tmp)
+    for ok, msg in aln["gates"]:
+        require(ok, msg)
     kinds = torch.cuda.get_device_name(0)
-    log(f"[main] card {card}: {main_['reads_per_s']:.1f} reads/s on the "
-        "100 Mb genome")
+    log(f"[main] card {card}: {main_['reads_per_s']:.1f} reads/s (PAF), "
+        f"{aln['reads_per_s']:.1f} reads/s (-a, mean identity "
+        f"{aln['mean_identity']:.4f}) on the 100 Mb genome")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kinds,

@@ -1,14 +1,15 @@
-"""Command-line entry point of the port: ``--batch`` PAF mapping.
+"""Command-line entry point of the port: ``--batch`` mapping, as PAF or,
+with -c/-a, as PAF with cg:Z or SAM.
 
-    python -m minimap2_tpu_torch.cli --batch [-x map-ont] ref.fa reads.fq
+    python -m minimap2_tpu_torch.cli --batch [-x map-ont] [-a|-c] ref.fa reads.fq
 
 The option parsing is minimap2_tpu.cli's (main.c:24-526: presets first,
 then flags that override them), so IndexOptions/MapOptions come out the
-same.  Then FASTA -> MiniIndex -> mapopt_update -> run_batched_cli on the
-device.  What this slice does not carry raises NotImplementedError naming
-the later slice: HPC, the RMQ tier, -c/-a, splice, sr, paired ends,
-.mmi/.npz targets, -d, a multi-part -I split, and the host (non --batch)
-path.
+same.  Then FASTA -> MiniIndex -> mapopt_update -> run_batched_cli (or
+run_batched_align_cli with -c/-a) on the device.  What the port does not
+carry yet raises NotImplementedError naming the later slice: HPC, the RMQ
+tier, splice, sr, paired ends, --eqx, .mmi/.npz targets, -d, a multi-part
+-I split, and the host (non --batch) path.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from . import config as C
 from . import resolve_device
 from .config import IndexOptions, MapOptions, check_opt, mapopt_update, set_opt
 from .index.index import MiniIndex
+from .io import format as fmt
 from .io.fastx import read_fasta
 from .parallel import engine
 
@@ -48,7 +50,7 @@ LONG_FLAG_OPTS = {
     "--secondary-seq": C.MM_F_SECONDARY_SEQ,
 }
 
-# options whose features live outside the --batch PAF slice
+# options whose features live outside the port's --batch paths
 _OFF_SLICE_ARGS = {
     "-d": "writing an index (-d)", "-R": "SAM read groups (-R)",
     "--junc-bed": "junction BED side data", "--bed": "junction BED side data",
@@ -98,6 +100,7 @@ class Args:
         self.pos = []
         self.verbose = 3
         self.batch = False
+        self.sam = False
         self.out_file = None
 
 
@@ -149,11 +152,12 @@ def parse_args(argv):
         if abase in _OFF_SLICE_ARGS:
             raise NotImplementedError(
                 f"option {abase}: {_OFF_SLICE_ARGS[abase]} is not on the "
-                "--batch PAF slice of the port")
+                "port's --batch paths yet (a later slice)")
         if a == "-x":
             i += 1  # already applied
         elif a == "-a":
             mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+            args.sam = True
         elif a == "-c":
             mo.flag |= C.MM_F_CIGAR | C.MM_F_OUT_CG
         elif a == "-k":
@@ -392,15 +396,15 @@ def parse_args(argv):
 
 
 def check_slice(io: IndexOptions, mo: MapOptions, args: Args) -> None:
-    """Raise NotImplementedError for what the --batch PAF slice does not
+    """Raise NotImplementedError for what the port's --batch paths do not
     carry, naming the later slice that will."""
     off = [
         (not args.batch, "the host (non --batch) mapping path"),
         (io.flag & C.MM_I_HPC,
          "HPC minimizers (-H, map-pb, map-hifi: hpc_compact + sort1_rows)"),
         (mo.flag & C.MM_F_RMQ, "the RMQ chaining tier (asm, lr:hqae, --rmq)"),
-        (mo.flag & (C.MM_F_CIGAR | C.MM_F_OUT_SAM),
-         "base-level alignment (-c/-a: extd2_batch2 + traceback_batch)"),
+        ((mo.flag & C.MM_F_EQX) and (mo.flag & C.MM_F_CIGAR),
+         "--eqx (=/X CIGAR operators, mm_update_cigar_eqx)"),
         (mo.flag & C.MM_F_SPLICE, "spliced alignment (-x splice: exts2_batch)"),
         (mo.flag & (C.MM_F_SR | C.MM_F_SR_RNA), "short-read mode (sr)"),
         (len(args.pos) > 2 and (mo.flag & C.MM_F_FRAG_MODE),
@@ -413,7 +417,7 @@ def check_slice(io: IndexOptions, mo: MapOptions, args: Args) -> None:
 
 
 def main(argv=None, device=None) -> int:
-    """The ``--batch`` PAF CLI.  ``device`` defaults to CUDA."""
+    """The ``--batch`` CLI.  ``device`` defaults to CUDA."""
     orig_argv = list(sys.argv[1:] if argv is None else argv)
     parsed = parse_args(orig_argv)
     if isinstance(parsed, int):
@@ -455,7 +459,15 @@ def main(argv=None, device=None) -> int:
     if args.out_file and args.out_file != "-":
         out = open(args.out_file, "w")
     try:
-        engine.run_batched_cli(mi, mo, queries, out, device=device)
+        if mo.flag & (C.MM_F_CIGAR | C.MM_F_OUT_SAM):
+            if args.sam:
+                out.write(fmt.write_sam_hdr(
+                    mi, None, C.MM_VERSION,
+                    "minimap2 " + " ".join(orig_argv)) + "\n")
+            engine.run_batched_align_cli(mi, mo, queries, out,
+                                         device=device)
+        else:
+            engine.run_batched_cli(mi, mo, queries, out, device=device)
     finally:
         if out is not sys.stdout:
             out.close()

@@ -103,6 +103,19 @@ class MiniIndex:
     def n_seq(self) -> int:
         return len(self.seq)
 
+    def getseq(self, rid: int, st: int, en: int,
+               rev: bool = False) -> np.ndarray:
+        """nt4 codes of reference rid in [st, en) (index.c:164-196),
+        reverse-complemented with rev."""
+        s = self.seq[rid]
+        if st >= s.length:
+            return np.empty(0, dtype=np.uint8)
+        sub = self.S[s.offset + st:s.offset + min(en, s.length)]
+        if rev:
+            sub = sub[::-1]
+            sub = np.where(sub < 4, 3 - sub, sub).astype(np.uint8)
+        return sub
+
     def cal_max_occ(self, f: float) -> int:
         """index.c:198-220: occurrence threshold such that <= f of distinct
         minimizers occur more often."""

@@ -89,6 +89,14 @@ class FastxReader:
         return SeqRecord(name=name, seq=seq, qual=qual, comment=comment)
 
 
+def qname_len(s: str) -> int:
+    """Length of a read name without a trailing /1 or /2."""
+    n = len(s)
+    if n >= 3 and s[n - 2] == "/" and s[n - 1].isdigit():
+        return n - 2
+    return n
+
+
 def read_fasta(path: str) -> tuple[list[str], list[bytes]]:
     """Read an entire FASTA/FASTQ file."""
     r = FastxReader(path)

@@ -35,6 +35,8 @@ SIGNATURES = {
     "mm2_sort3": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "mm2_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "mm2_extd2": [_P, _P, _P, _P, _P] + [_I] * 17 + [_P],
+    "mm2_traceback": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,0 +1,210 @@
+"""Batched base-level alignment of the --batch -c/-a path (port of
+minimap2_tpu.parallel.align_batch).
+
+Each job (a read's chain extent, or one segment of it) runs ONE banded
+global alignment on the extd2 kernel and its CIGAR is walked back on the
+device by the traceback kernel, so the (R x W) direction bytes never cross
+to the host: only the populated prefix of the one-op-per-diagonal plane
+does.  The path is gated statistically, not byte-for-byte against
+minimap2's align.c: chain-internal z-drop splits and end extensions are
+approximated by the global band, and the host trims and audits the result
+(engine.batch_build_regs).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import native
+from ..config import MM_F_SR
+from ..map.align_engine import fix_cigar
+from ..map.hit import Extra, Reg
+from ..ops.extend import extd2_batch2
+from ..ops.traceback import decode_ops, traceback_batch
+from .engine import _mapq
+
+_COMP4 = np.array([3, 2, 1, 0, 4], np.uint8)
+
+
+def _ops_extent(ops: torch.Tensor) -> int:
+    """1 + the last nonzero column of the ops plane, computed on the
+    device so only the populated prefix is downloaded."""
+    col = torch.arange(ops.shape[1], device=ops.device)
+    return int(torch.where(ops != 0, col, 0).max()) + 1
+
+
+def _align_step(qr, sf, lens, *, G, W, RB, R, QP, TP, q, e, q2, e2, w,
+                sc_mch, sc_mis):
+    """extd2 (approx-max, global, with direction bytes) then traceback:
+    (ops (N, RT) uint8, fin (N, 2) int32) on the inputs' device."""
+    p, _ = extd2_batch2(qr, sf, lens, G=G, W=W, RB=RB, R=R, QP=QP, TP=TP,
+                        q=q, e=e, q2=q2, e2=e2, w=w, zdrop=-1,
+                        right_mode=False, approx_max=True, approx_drop=False,
+                        sc_mch=sc_mch, sc_mis=sc_mis, sc_N=0,
+                        with_cigar=True)
+    return traceback_batch(p, lens, RB=RB, w=w)
+
+
+class AlignBatcher:
+    """Aligns (read segment, reference interval) jobs in fixed-shape
+    sub-batches of ``sub`` jobs on ``device``."""
+
+    def __init__(self, mi, opt, *, device, QP=12800, TP=12800, G=32, W=640,
+                 RB=64, sub=64):
+        self.mi = mi
+        self.opt = opt
+        self.device = torch.device(device)
+        self.QP, self.TP = QP, TP
+        self.G, self.W, self.RB = G, W, RB
+        self.sub = sub
+        # chunk-uniform window: band + 48 + <= RB/2 drift must fit in W
+        drift = -(-(RB // 2) // 16) * 16
+        self.w = min(opt.bw, W - 48 - drift)
+        self.R = (QP + TP + RB - 1) // RB * RB
+        self.S = np.asarray(mi.S, np.uint8)
+        self.seq_off = np.array([s.offset for s in mi.seq] or [0], np.int64)
+
+    def fits(self, qlen_seg: int, tlen_seg: int) -> bool:
+        return (0 < qlen_seg <= self.QP and 0 < tlen_seg <= self.TP
+                and abs(qlen_seg - tlen_seg) <= self.w - 48)
+
+    def upload(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def dispatch(self, chunk):
+        """Enqueue one sub-batch of (qseg, rid, rs, re) jobs; returns the
+        (ops, fin) device tensors without waiting for them."""
+        qr = np.zeros((self.sub, self.QP), np.uint8)
+        sf = np.zeros((self.sub, self.TP), np.uint8)
+        lens = np.ones((self.sub, 2), np.int32)
+        for i, (qseg, rid, rs, re_) in enumerate(chunk):
+            qr[i, :len(qseg)] = qseg[::-1]
+            off = int(self.seq_off[rid])
+            tseg = self.S[off + rs:off + re_]
+            sf[i, :len(tseg)] = tseg
+            lens[i] = (len(qseg), len(tseg))
+        o = self.opt
+        return _align_step(
+            self.upload(qr), self.upload(sf), self.upload(lens), G=self.G,
+            W=self.W, RB=self.RB, R=self.R, QP=self.QP, TP=self.TP, q=o.q,
+            e=o.e, q2=o.q2, e2=o.e2, w=self.w, sc_mch=o.a, sc_mis=-abs(o.b))
+
+    def collect(self, fut, n):
+        """Fetch a dispatched sub-batch and decode its n cigars: fin first,
+        then only the ops columns up to the last populated one."""
+        ops, fin = fut
+        fin = fin.cpu().numpy()
+        mx = _ops_extent(ops)
+        ops = ops[:, :max(mx, 1)].cpu().numpy()
+        return [decode_ops(ops[i], int(fin[i, 0]), int(fin[i, 1]))
+                for i in range(n)]
+
+    def align_jobs(self, jobs):
+        """jobs: list of (qseg u8 codes, rid, rs, re).  Returns one cigar
+        (len<<4|op ints) per job, in order.  Sub-batches are
+        double-buffered: the next one is enqueued before the previous one
+        is fetched."""
+        out = []
+        inflight = []
+        for lo in range(0, len(jobs), self.sub):
+            chunk = jobs[lo:lo + self.sub]
+            inflight.append((len(chunk), self.dispatch(chunk)))
+            while len(inflight) > 1:
+                n, fut = inflight.pop(0)
+                out.extend(self.collect(fut, n))
+        while inflight:
+            n, fut = inflight.pop(0)
+            out.extend(self.collect(fut, n))
+        return out
+
+
+def split_extent(qs, qe, rs, re_, wq, wr, w_thr, qp_max, tp_max):
+    """Anchored decomposition of one chain extent (align.c:803-872 as
+    segment planning): walk the chain waypoints and cut the extent where
+    the diagonal jumps by more than w_thr (an SV-scale indel the band
+    cannot absorb) or a segment outgrows the DP capacity.  Returns (segs,
+    joints): segs = [(qa, ra, qb, rb)], joints[i] between segment i and
+    i+1 is (op, len) with op 1=I, 2=D, 0=plain concatenation.  A jump is
+    attributed to the waypoint before it; the next segment's banded DP
+    re-places the bases within one waypoint spacing."""
+    pts = [(int(qs), int(rs))]
+    for q, r in zip(wq, wr):
+        q, r = int(q), int(r)
+        if q < 0:
+            continue
+        if qs < q < qe and rs < r < re_ and q > pts[-1][0] \
+                and r > pts[-1][1]:
+            pts.append((q, r))
+    pts.append((int(qe), int(re_)))
+    segs, joints = [], []
+    sq, sr = pts[0]
+    for (q1, r1), (q2, r2) in zip(pts, pts[1:]):
+        d = (r2 - r1) - (q2 - q1)
+        if abs(d) > w_thr and q1 > sq and r1 > sr:
+            segs.append((sq, sr, q1, r1))
+            if d > 0:
+                joints.append((2, d))           # deletion joint
+                sq, sr = q1, r1 + d
+            else:
+                joints.append((1, -d))          # insertion joint
+                sq, sr = q1 - d, r1
+        elif (q2 - sq > qp_max - 512 or r2 - sr > tp_max - 512) \
+                and q1 > sq and r1 > sr:
+            segs.append((sq, sr, q1, r1))       # capacity cut, no joint
+            joints.append((0, 0))
+            sq, sr = q1, r1
+    segs.append((sq, sr, int(qe), int(re_)))
+    return segs, joints
+
+
+def build_reg(mi, opt, mat, qlen, qseg, rec, cigar, rep_len, reg_id=0,
+              parent=None):
+    """Chain record + device cigar -> a Reg the SAM/PAF writers accept.
+
+    rec: dict with keys sc, sub, cnt, rev, rid, qs, qe, rs, re in STRAND
+    coordinates (qs/qe on the aligned strand).  parent != reg_id marks a
+    secondary of that parent chain (tp:A:S, SAM 0x100, mapq 0)."""
+    r = Reg()
+    r.id = reg_id
+    r.parent = reg_id if parent is None else parent
+    sec = r.parent != r.id
+    r.rid = int(rec["rid"])
+    r.rev = bool(rec["rev"])
+    r.cnt = int(rec["cnt"])
+    r.qs, r.qe = int(rec["qs"]), int(rec["qe"])
+    r.rs, r.re = int(rec["rs"]), int(rec["re"])
+    if r.rev:       # back to read coordinates (hit.c:23-38)
+        r.qs, r.qe = qlen - int(rec["qe"]), qlen - int(rec["qs"])
+    r.score = r.score0 = int(rec["sc"])
+    r.subsc = max(int(rec["sub"]), 0)
+    r.mapq = (0 if sec else
+              _mapq(int(rec["sc"]), int(rec["sub"]), int(rec["cnt"]),
+                    opt.min_chain_score))
+    r.sam_pri = reg_id == 0
+    p = Extra()
+    p.cigar = list(cigar)
+    p.trans_strand = int(rec.get("ts", 0))
+    r.is_spliced = any((c & 0xF) == 3 for c in p.cigar)
+    off = mi.seq[r.rid].offset
+    tseg = mi.S[off + int(rec["rs"]):off + int(rec["re"])]
+    # canonicalize like the host path: indel left-shift, 5I6D7I merge,
+    # leading-indel removal (mm_fix_cigar align.c:105-181)
+    r.p = p
+    qshift, tshift = fix_cigar(r, qseg, tseg)
+    qseg = qseg[qshift:]
+    tseg = tseg[tshift:]
+    blen, mlen, n_ambi, dp_max, spliced = native.update_extra_scan(
+        qseg, tseg, p.cigar, mat, 5, opt.q, opt.e,
+        not (opt.flag & MM_F_SR))     # log_gap (align.c:906)
+    r.blen, r.mlen, p.n_ambi = blen, mlen, n_ambi
+    r.is_spliced = bool(spliced) or r.is_spliced
+    p.dp_max = p.dp_max0 = p.dp_score = dp_max
+    r.div = -1.0
+    return r
+
+
+def revcomp_codes(codes: np.ndarray) -> np.ndarray:
+    return _COMP4[codes[::-1]]

@@ -576,31 +576,70 @@ def _chain_scan(rev, rid, rpos, qpos, span, av, p: BatchParams):
 
 
 def topk_chains(f, qs_a, rs_a, rev, rid, rpos, qpos, av, K: int,
-                min_sc: int):
+                min_sc: int, with_sec: bool = False):
     """Greedy top-K query-non-overlapping chains per read (mg_chain_
     backtrack + mm_set_parent's primary selection, lchain.c:27-76,
     hit.c:125-186): take the best chain end, mask every anchor inside its
     query span, record the best overlapping non-member as its sub-score.
     Returns 9 planes of shape (K, B): score, sub, qs, qe, rs, re, rev,
-    rid, cnt."""
+    rid, cnt.
+
+    with_sec=True also emits, after each selected chain, its best
+    query-overlapping runner-up as an explicit record (the reference keeps
+    such chains as secondaries) -> (2K, B) planes, slots interleaved
+    [pri0, sec0, pri1, sec1, ...]; a missing secondary has score <= 0."""
     alive = av & (f >= min_sc)
     neg = torch.full_like(f, NEG_INF)
     outs = []
+
+    def chain_of(bi):
+        """The chain ending at anchor bi (B, 1): its start/end/strand/rid
+        and its member anchors."""
+        qs1, rs1 = torch.gather(qs_a, 1, bi), torch.gather(rs_a, 1, bi)
+        qe1, re1 = torch.gather(qpos, 1, bi) + 1, torch.gather(rpos, 1, bi) + 1
+        rev1, rid1 = torch.gather(rev, 1, bi), torch.gather(rid, 1, bi)
+        member = (qs_a == qs1) & (rs_a == rs1) & (rev == rev1) & (rid == rid1)
+        cnt1 = (member & alive).sum(1, dtype=torch.int32)
+        return [x[:, 0] for x in (qs1, qe1, rs1, re1, rev1, rid1)], member, \
+            cnt1
+
     for _ in range(K):
         fm = torch.where(alive, f, neg)
         bi = torch.argmax(fm, dim=1, keepdim=True)
-
-        def take(x):
-            return torch.gather(x, 1, bi)
-        sc1 = take(fm)
-        qs1, rs1 = take(qs_a), take(rs_a)
-        qe1, re1 = take(qpos) + 1, take(rpos) + 1
-        rev1, rid1 = take(rev), take(rid)
-        member = (qs_a == qs1) & (rs_a == rs1) & (rev == rev1) & (rid == rid1)
-        cnt1 = (member & alive).sum(1, dtype=torch.int32)
-        ovlp = (qpos >= qs1) & (qpos < qe1)
-        sub1 = torch.where(alive & ovlp & ~member, f, neg).amax(1)
-        outs.append((sc1[:, 0], sub1, qs1[:, 0], qe1[:, 0], rs1[:, 0],
-                     re1[:, 0], rev1[:, 0], rid1[:, 0], cnt1))
+        sc1 = torch.gather(fm, 1, bi)[:, 0]
+        (qs1, qe1, rs1, re1, rev1, rid1), member, cnt1 = chain_of(bi)
+        ovlp = (qpos >= qs1[:, None]) & (qpos < qe1[:, None])
+        sub_cand = torch.where(alive & ovlp & ~member, f, neg)
+        sub1 = sub_cand.amax(1)
+        outs.append((sc1, sub1, qs1, qe1, rs1, re1, rev1, rid1, cnt1))
+        if with_sec:
+            bi2 = torch.argmax(sub_cand, dim=1, keepdim=True)
+            (qs2, qe2, rs2, re2, rev2, rid2), _, cnt2 = chain_of(bi2)
+            outs.append((sub1, sc1, qs2, qe2, rs2, re2, rev2, rid2, cnt2))
         alive = alive & ~ovlp
     return [torch.stack(x).to(torch.int32) for x in zip(*outs)]
+
+
+def chain_waypoints(qs_a, rs_a, rev, rid, rpos, qpos, av, rec0, WP: int):
+    """Up to WP evenly spaced member anchors of each read's chosen chain
+    (the device side of anchored decomposition, align.c:803-872): the align
+    driver splits the chain extent at waypoint diagonal jumps into
+    band-sized segment DPs.  rec0 = (qs1, rs1, rev1, rid1), each (B,).
+    Returns (wq, wr) int32 (B, WP), -1 = empty; within a chain rpos and
+    qpos are non-decreasing, so a per-bucket max keeps (q, r) paired."""
+    qs1, rs1, rev1, rid1 = rec0
+    B = qs_a.shape[0]
+    member = av & (qs_a == qs1[:, None]) & (rs_a == rs1[:, None]) \
+        & (rev == rev1[:, None]) & (rid == rid1[:, None])
+    rank = torch.cumsum(member.to(torch.int32), dim=1)
+    cnt = rank[:, -1:]
+    j = torch.clamp(torch.div((rank - 1) * (WP - 1),
+                              torch.clamp(cnt - 1, min=1),
+                              rounding_mode="floor"), 0, WP - 1)
+    jm = torch.where(member, j, WP - 1).to(torch.int64)
+    out = []
+    for plane in (qpos, rpos):
+        w_ = torch.full((B, WP), -1, dtype=torch.int32, device=qs_a.device)
+        val = torch.where(member, plane, -1).to(torch.int32)
+        out.append(w_.scatter_reduce(1, jm, val, reduce="amax"))
+    return tuple(out)

@@ -1,15 +1,17 @@
-"""Batched PAF mapping engine (port of minimap2_tpu.parallel.engine's
-``--batch`` PAF path).
+"""Batched mapping engine (port of minimap2_tpu.parallel.engine's
+``--batch`` paths).
 
 A read mega-batch runs sketch -> minimizer compaction -> index probe ->
 anchor sort -> chain DP (+ the long-join rescue pass) -> top-K chain
 selection on the device as one ``PafStep``; only (10, K, B) chain records
-return to the host for PAF emission with ``_mapq``.  The device chain scan
-has a fixed look-back window and the top-K selection approximates
-mm_set_parent, so quality is gated statistically, as in the JAX package.
+return to the host.  The device chain scan has a fixed look-back window
+and the top-K selection approximates mm_set_parent, so quality is gated
+statistically, as in the JAX package.
 
-Corresponds to minimap2's mapping mode without base alignment (no -c/-a:
-seed/chain/mapq only, map.c:227-341).
+Without -c/-a (``run_batched_cli``) the records become PAF with ``_mapq``
+(seed/chain/mapq only, map.c:227-341).  With -c/-a
+(``run_batched_align_cli``) each chosen chain's extent is aligned on the
+device (parallel/align_batch.py) and written as SAM or PAF with cg:Z.
 """
 from __future__ import annotations
 
@@ -18,23 +20,31 @@ import queue
 import sys
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 from torch import nn
 
 from .. import resolve_device
-from ..config import MM_F_NO_LJOIN, MM_F_RMQ, MM_F_SPLICE, MM_F_SR, MM_I_HPC
+from .. import native
+from ..config import (MM_F_EQX, MM_F_NO_LJOIN, MM_F_OUT_SAM, MM_F_RMQ,
+                      MM_F_SAM_HIT_ONLY, MM_F_SPLICE, MM_F_SR, MM_I_HPC)
+from ..io import format as fmt
 from ..io.fastx import FastxReader
+from ..map import hit as hitmod
+from ..map.align_engine import gen_ts_mat
 from ..ops.chain import chain_batch
 from ..ops.sketch import sketch_batch
 from ..utils.intfloat import SEQ_NT4
 from .batch import (BatchParams, DeviceIndex, _chain_scan,
-                    _compact_minimizers, _lookup_anchors, topk_chains)
+                    _compact_minimizers, _lookup_anchors, chain_waypoints,
+                    topk_chains)
 
 # long-join rescue trigger (map.c:283-292): uncovered query and span ratio
 RESCUE_SIZE = 1000
 RESCUE_RATIO = np.float32(0.1)
+WAYPOINTS = 64      # chain waypoints per read for the -c/-a path
 
 
 class PafStep(nn.Module):
@@ -45,14 +55,22 @@ class PafStep(nn.Module):
     interpret=False): the chain kernel iff B % 128 == 0 and A % 256 == 0
     (its ties go to the largest j), else the windowed scan (ties to the
     oldest slot).  On CPU tensors every kernel wrapper runs its plain
-    version, so the CPU and the card compute the same records."""
+    version, so the CPU and the card compute the same records.
 
-    def __init__(self, di: DeviceIndex, p: BatchParams, K: int, min_sc: int):
+    with_sec interleaves each primary with its best overlapping runner-up
+    (2K slots); with_wp also returns the (2, B, WAYPOINTS) waypoints [wq,
+    wr] of each read's chosen chain for the -c/-a path's anchored
+    decomposition."""
+
+    def __init__(self, di: DeviceIndex, p: BatchParams, K: int, min_sc: int,
+                 with_sec: bool = False, with_wp: bool = False):
         super().__init__()
         self.di = di
         self.p = p
         self.K = K
         self.min_sc = min_sc
+        self.with_sec = with_sec
+        self.with_wp = with_wp
 
     def seed(self, packed, nbits, lens):
         """Unpack, sketch, compact and probe: the anchor planes (rev, rid,
@@ -78,12 +96,14 @@ class PafStep(nn.Module):
         return f, qs_a, rs_a
 
     def forward(self, packed, nbits, lens):
-        p, K, min_sc = self.p, self.K, self.min_sc
+        p, K, min_sc, sec = self.p, self.K, self.min_sc, self.with_sec
         rev, rid, rpos, qpos, span, av, rep_len = self.seed(packed, nbits,
                                                             lens)
         planes = (rev, rid, rpos, qpos, span, av)
         f, qs_a, rs_a = self.run_chain(planes, p.bw, p.max_dist_x)
-        recs = topk_chains(f, qs_a, rs_a, rev, rid, rpos, qpos, av, K, min_sc)
+        recs = topk_chains(f, qs_a, rs_a, rev, rid, rpos, qpos, av, K, min_sc,
+                           with_sec=sec)
+        trig = None
         if p.bw_long > p.bw:
             # long-join rescue (map.c:283-292): reads whose best chain
             # leaves > RESCUE_SIZE uncovered query (or spans > 10% of the
@@ -100,11 +120,24 @@ class PafStep(nn.Module):
             f2, qs2_a, rs2_a = self.run_chain(
                 planes, p.bw_long, max(p.max_dist_x, p.bw_long))
             recs2 = topk_chains(f2, qs2_a, rs2_a, rev, rid, rpos, qpos, av,
-                                K, min_sc)
+                                K, min_sc, with_sec=sec)
             recs = [torch.where(trig[None, :], b, a)
                     for a, b in zip(recs, recs2)]
         recs.append(rep_len[None, :].expand(recs[0].shape[0], -1))
-        return torch.stack(recs)
+        stack = torch.stack(recs)
+        if not self.with_wp:
+            return stack
+        # waypoints of the chosen chain, from the chain pass that produced
+        # the chosen record (engine.py:122-134 of the JAX package)
+        rec0 = (recs[2][0], recs[4][0], recs[6][0], recs[7][0])
+        wq, wr = chain_waypoints(qs_a, rs_a, rev, rid, rpos, qpos, av, rec0,
+                                 WAYPOINTS)
+        if trig is not None:
+            wq2, wr2 = chain_waypoints(qs2_a, rs2_a, rev, rid, rpos, qpos, av,
+                                       rec0, WAYPOINTS)
+            wq = torch.where(trig[:, None], wq2, wq)
+            wr = torch.where(trig[:, None], wr2, wr)
+        return stack, torch.stack([wq, wr])
 
 
 def encode_batch(seqs: list[bytes], L: int):
@@ -361,3 +394,349 @@ def map_queries(step: PafStep, mi, queries, out, batch_reads: int) -> int:
           f"({n_reads / max(dt, 1e-9):.1f} reads/s) on "
           f"{step.di.h2r.device}", file=sys.stderr)
     return n_reads
+
+
+def _stitch_segments(ab, opt, mat, meta, segs, joints, seg_cigs, qseg_full):
+    """Audit and join the cigars of a segmented extent (the tail of the
+    anchored decomposition).  Terminal segments may be Kadane-trimmed at
+    their OUTER edge only (the reference's extensions stop at the max
+    score, align.c:779-890); an inner-edge trim or an internal z-drop means
+    the segments were mis-joined -> (None, meta): a fallback read.
+    Returns (cigar, updated_meta)."""
+    off = int(ab.seq_off[meta["rid"]])
+    new_meta = dict(meta)
+    out = []
+    last = len(segs) - 1
+    w_thr_ = max(ab.w // 2, 64)
+    pend = 0        # diagonal seam bases carried into the next joint
+    for si, ((qa, ra, qb, rb), cg) in enumerate(zip(segs, seg_cigs)):
+        qseg_i = qseg_full[qa - meta["qs"]: qb - meta["qs"]]
+        tseg_i = ab.S[off + ra: off + rb]
+        q0, t0, q1, t1, _bsc, tcig = native.cigar_kadane_trim(
+            qseg_i, tseg_i, list(cg), mat, 5, opt.q, opt.e, opt.q2,
+            opt.e2, end_bonus=max(opt.end_bonus, 0))
+        if not tcig:
+            return None, meta
+        if si > 0:
+            # seam repair: a joint can sit up to one waypoint spacing
+            # before the true breakpoint, so this segment's DP left-trims
+            # bases of the PREVIOUS diagonal; a diagonal trim (q0 == t0)
+            # re-attaches as an M run before the joint.  Non-diagonal or
+            # oversized trims mean mis-joined segments.
+            if q0 != t0 or q0 > 4 * w_thr_:
+                return None, meta
+            if pend + q0:
+                out.append(((pend + q0) << 4) | 0)
+            op_, ln_ = joints[si - 1]
+            if op_ and ln_:
+                out.append((ln_ << 4) | op_)
+        elif q0 or t0:          # outer left edge: extension trim
+            new_meta["qs"] = meta["qs"] + q0
+            new_meta["rs"] = meta["rs"] + t0
+        rq_, rt_ = len(qseg_i) - q1, len(tseg_i) - t1
+        if si < last:
+            if rq_ != rt_ or rq_ > 4 * w_thr_:
+                return None, meta
+            pend = rq_          # carried to the next seam's M run
+        elif rq_ or rt_:        # outer right edge
+            new_meta["qe"] = qa + q1
+            new_meta["re"] = ra + t1
+        if opt.zdrop > 0:
+            mz, _pos = native.zdrop_scan(qseg_i[q0:q1], tseg_i[t0:t1],
+                                         tcig, mat, 5, opt.q, opt.e)
+            if mz > opt.zdrop:
+                return None, meta
+        out.extend(tcig)
+    return _merge_cigar(out), new_meta
+
+
+def _merge_cigar(cig):
+    """Merge adjacent same-op entries (seam hygiene after stitching)."""
+    out = []
+    for c in cig:
+        if out and (out[-1] & 0xF) == (c & 0xF):
+            out[-1] = ((out[-1] >> 4) + (c >> 4)) << 4 | (c & 0xF)
+        else:
+            out.append(c)
+    return out
+
+
+def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode):
+    """Chain records + device CIGARs -> per-read Reg lists.
+
+    map_out is the PafStep output: the (10, K, B) records, or (records,
+    (2, B, WP) waypoints).  Returns (by_read: id(rec) -> (rec, [Reg...]),
+    fallback [(rec, cause)], unmapped [rec], fb_ids).  A fallback read is
+    one the JAX package maps on its host parity path, which the port does
+    not carry; its causes are "oversize" (an extent segment exceeds the
+    DP shape), "empty cigar", "stitch" (a segmented extent failed its
+    audit), "kadane" (empty max-scoring trim), "zdrop" (internal z-drop)
+    and "no primary"."""
+    from .align_batch import build_reg, revcomp_codes, split_extent
+    wp = None
+    if isinstance(map_out, tuple):
+        map_out, wp_t = map_out
+        wp = wp_t.cpu().numpy()              # (2, B, WP) [wq, wr]
+    arr = map_out.cpu().numpy()
+    sc, sub, qs, qe, rs, re_, rev, rid, cnt, rep = arr
+    w_thr = max(ab.w // 2, 64)
+    jobs, jmeta = [], []
+    fallback, unmapped = [], []
+    for b, rec in enumerate(recs):
+        qlen = len(rec.seq)
+        if sc[0, b] <= 0:
+            unmapped.append(rec)
+            continue
+        codes_f = SEQ_NT4[np.frombuffer(rec.seq, np.uint8)]
+        codes_r = None
+        for k in range(arr.shape[1]):
+            is_sec = sec_mode and k % 2 == 1
+            if sc[k, b] <= 0:
+                if k == 0:
+                    break
+                continue    # empty interleaved slot
+            # mm_select_sub (hit.c:265): a secondary survives against its
+            # own parent slot's score, with the min_diff escape
+            if is_sec:
+                psc = int(sc[k - 1, b])
+                s_ = int(sc[k, b])
+                if not (s_ >= opt.pri_ratio * psc
+                        or s_ + 2 * mi.k >= psc):
+                    continue
+            r0 = (int(mi.seq[int(rid[k, b])].length)
+                  if int(rid[k, b]) < mi.n_seq else 0)
+            qs_, qe_ = int(max(qs[k, b], 0)), int(min(qe[k, b], qlen))
+            rs_, re2 = int(max(rs[k, b], 0)), int(min(re_[k, b], r0))
+            if qe_ <= qs_ or re2 <= rs_:
+                if k == 0:
+                    unmapped.append(rec)
+                    break
+                continue
+            if rev[k, b]:
+                if codes_r is None:
+                    codes_r = revcomp_codes(codes_f)
+                codes = codes_r
+            else:
+                codes = codes_f
+            # extend the primary's chain extent to the read ends
+            # (align.c:779-890), clamped to the contig so the global band
+            # never force-inserts an overhang
+            if k == 0:
+                dl = min(qs_, rs_)
+                qs_, rs_ = qs_ - dl, rs_ - dl
+                dr = min(qlen - qe_, r0 - re2)
+                qe_, re2 = qe_ + dr, re2 + dr
+            # anchored decomposition (align.c:803-872): split the primary
+            # extent at waypoint diagonal jumps into band-sized segments
+            # joined by explicit I/D ops
+            segs, joints = [(qs_, rs_, qe_, re2)], []
+            if k == 0 and wp is not None:
+                segs, joints = split_extent(
+                    qs_, qe_, rs_, re2, wp[0, b], wp[1, b],
+                    w_thr, ab.QP, ab.TP)
+            if not all(ab.fits(qb - qa, rb - ra)
+                       for qa, ra, qb, rb in segs):
+                if k == 0:
+                    fallback.append((rec, "oversize"))
+                    break
+                continue    # drop oversize secondaries only
+            for qa, ra, qb, rb in segs:
+                jobs.append((codes[qa:qb], int(rid[k, b]), ra, rb))
+            jmeta.append((rec, k, is_sec, codes[qs_:qe_],
+                          {"sc": int(sc[k, b]), "sub": int(sub[k, b]),
+                           "cnt": int(cnt[k, b]), "rev": int(rev[k, b]),
+                           "rid": int(rid[k, b]), "qs": qs_, "qe": qe_,
+                           "rs": rs_, "re": re2, "rep": int(rep[0, b])},
+                          segs, joints))
+    cigs = ab.align_jobs(jobs) if jobs else []
+    by_read = {}        # id(rec) -> (rec, [Reg, ...])
+    fb_ids = set()
+
+    def fall_back(rec, k, cause):
+        if k == 0 and id(rec) not in fb_ids:
+            fallback.append((rec, cause))
+            fb_ids.add(id(rec))
+
+    ci_ = 0
+    for (rec, k, is_sec, qseg, meta, segs, joints) in jmeta:
+        n_seg = len(segs)
+        cres_list = cigs[ci_:ci_ + n_seg]
+        ci_ += n_seg
+        cig = cres_list[0]
+        if any(not c for c in cres_list):
+            fall_back(rec, k, "empty cigar")
+            continue
+        if n_seg > 1:
+            cig, meta2 = _stitch_segments(ab, opt, mat, meta, segs, joints,
+                                          cres_list, qseg)
+            if cig is None:
+                fall_back(rec, k, "stitch")
+                continue
+            qseg = qseg[meta2["qs"] - meta["qs"]:
+                        len(qseg) - (meta["qe"] - meta2["qe"])]
+            meta = meta2
+        else:
+            tseg = ab.S[ab.seq_off[meta["rid"]] + meta["rs"]:
+                        ab.seq_off[meta["rid"]] + meta["re"]]
+            # 1) trim the forced global path at its max-scoring sub-path
+            #    (the reference's extensions STOP at the max score,
+            #    align.c:779-890): junk ends and over-extension fall off
+            q0, t0, q1, t1, _bsc, tcig = native.cigar_kadane_trim(
+                qseg, tseg, cig, mat, 5, opt.q, opt.e, opt.q2, opt.e2,
+                end_bonus=max(opt.end_bonus, 0))
+            if not tcig:
+                fall_back(rec, k, "kadane")
+                continue
+            if q1 > q0 and (q0 or t0 or q1 < len(qseg) or t1 < len(tseg)):
+                meta = dict(meta)
+                meta["qe"] = meta["qs"] + q1
+                meta["qs"] += q0
+                meta["re"] = meta["rs"] + t1
+                meta["rs"] += t0
+                qseg = qseg[q0:q1]
+                tseg = tseg[t0:t1]
+                cig = tcig
+            if k == 0 and id(rec) not in fb_ids and opt.zdrop > 0:
+                # 2) post-hoc z-drop audit (mm_test_zdrop align.c:61-103,
+                #    applied at :843-868): an internal drop means the
+                #    reference would split the chain
+                mz, _pos = native.zdrop_scan(qseg, tseg, cig, mat, 5, opt.q,
+                                             opt.e)
+                if mz > opt.zdrop:
+                    fall_back(rec, k, "zdrop")
+                    continue
+        r = build_reg(mi, opt, mat, len(rec.seq), qseg, meta, cig,
+                      meta["rep"], reg_id=k, parent=k - 1 if is_sec else k)
+        r._rep_len = meta["rep"]
+        by_read.setdefault(id(rec), (rec, []))[1].append(r)
+    # dp_max2 / n_sub from the aligned secondaries (mm_set_parent
+    # hit.c:171-176, 226-237), then the DP-informed mm_set_mapq2
+    sub_diff = opt.a * 2 + opt.b
+    for _rec, regs in by_read.values():
+        by_id = {r.id: r for r in regs}
+        for r in regs:
+            if r.parent == r.id or r.parent not in by_id:
+                continue
+            rp = by_id[r.parent]
+            ident = (r.rid == rp.rid and r.rs == rp.rs and r.re == rp.re)
+            cnt_sub = 1 if r.cnt >= rp.cnt else 0
+            if rp.p is not None and r.p is not None and not ident:
+                rp.p.dp_max2 = max(rp.p.dp_max2, r.p.dp_max)
+                if rp.p.dp_max - r.p.dp_max <= sub_diff:
+                    cnt_sub = 1
+            if cnt_sub:
+                rp.n_sub += 1
+        hitmod.set_mapq(regs, opt.min_chain_score, opt.a,
+                        regs[0]._rep_len if regs else 0,
+                        bool(opt.flag & MM_F_SR), bool(opt.flag & MM_F_SPLICE))
+    return by_read, fallback, unmapped, fb_ids
+
+
+def run_batched_align_cli(mi, opt, queries, out, batch_reads: int = 512,
+                          L: int = 12288, align_kw: dict | None = None,
+                          device=None):
+    """--batch with -c/-a: device mapping + device base-level alignment.
+
+    The mapping step (with secondaries and waypoints) picks each read's
+    chains, then their extents run through extd2 + traceback on the device
+    (AlignBatcher, QP = L, TP = L + 512 unless align_kw says otherwise).
+    Returns (reads, [(name, cause)] of the fallback reads)."""
+    from .align_batch import AlignBatcher
+    if opt.flag & MM_F_SPLICE:
+        raise NotImplementedError("spliced alignment (SpliceAlignBatcher, "
+                                  "exts2_batch) is a later slice of the "
+                                  "PyTorch/CUDA port")
+    if opt.flag & MM_F_EQX:
+        raise NotImplementedError("--eqx (mm_update_cigar_eqx) is a later "
+                                  "slice of the PyTorch/CUDA port")
+    dev = resolve_device(device)
+    # with secondaries, each selection round yields [primary, overlapping
+    # secondary] slot pairs (mm_select_sub, hit.c:255-281)
+    sec_mode = opt.best_n > 0 and opt.pri_ratio > 0
+    step = PafStep(DeviceIndex.from_host(mi, dev), batch_params(mi, opt, L),
+                   K=3 if sec_mode else 1, min_sc=opt.min_chain_score,
+                   with_sec=sec_mode, with_wp=True)
+    ab = AlignBatcher(mi, opt, device=dev,
+                      **{"QP": L, "TP": L + 512, **(align_kw or {})})
+    return align_queries(step, ab, mi, opt, queries, out, batch_reads)
+
+
+def align_queries(step: PafStep, ab, mi, opt, queries, out,
+                  batch_reads: int):
+    """Map and align FASTA/FASTQ files in read mega-batches and write SAM
+    (-a) or PAF with cg:Z (-c).  The next batch's mapping step is enqueued
+    before the previous batch is aligned and written.  Reads the JAX
+    package would send to its host path get no record: they are counted
+    by cause on the [M::batch] line and returned as (reads, [(name,
+    cause)])."""
+    mat = gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi)
+    sam = bool(opt.flag & MM_F_OUT_SAM)
+    t0 = time.time()
+    n_reads = 0
+    fallbacks = []
+
+    def emit_batch(recs, map_out):
+        nonlocal n_reads
+        n_reads += len(recs)
+        by_read, fallback, unmapped, fb_ids = batch_build_regs(
+            recs, map_out, ab, mi, opt, mat, step.with_sec)
+        for rec, regs in by_read.values():
+            if id(rec) in fb_ids or not regs:
+                continue
+            if regs[0].id != 0:     # the primary failed
+                fallback.append((rec, "no primary"))
+                continue
+            if sam:
+                for i in range(len(regs)):
+                    out.write(fmt.write_sam(mi, rec, 0, i, 1, [len(regs)],
+                                            [regs], opt.flag, 0))
+                    out.write("\n")
+            else:
+                for r in regs:
+                    out.write(fmt.write_paf(mi, rec.name, len(rec.seq), r,
+                                            opt.flag, 0, qseq=rec.seq,
+                                            comment=rec.comment))
+                    out.write("\n")
+        fallbacks.extend((rec.name, cause) for rec, cause in fallback)
+        for rec in unmapped:
+            if sam and not (opt.flag & MM_F_SAM_HIT_ONLY):
+                out.write(fmt.write_sam(mi, rec, 0, -1, 1, [0], [[]],
+                                        opt.flag, 0))
+                out.write("\n")
+
+    pending = []    # [(recs, map output)]
+
+    def queue_batch(recs):
+        pending.append((recs, dispatch_batch(step, [r.seq for r in recs],
+                                             step.p, pad_to=batch_reads)))
+        while len(pending) > 1:
+            emit_batch(*pending.pop(0))
+
+    recs = []
+    for qf in queries:
+        rd = FastxReader(qf)
+        try:
+            while True:
+                rec = rd.read1()
+                if rec is None:
+                    break
+                recs.append(rec)
+                if len(recs) >= batch_reads:
+                    queue_batch(recs)
+                    recs = []
+        finally:
+            rd.close()
+    if recs:
+        queue_batch(recs)
+    while pending:
+        emit_batch(*pending.pop(0))
+    dt = time.time() - t0
+    n_fb = len(fallbacks)
+    why = ", ".join(f"{c} {n}" for c, n in
+                    sorted(Counter(c for _, c in fallbacks).items()))
+    print(f"[M::batch] aligned {n_reads} reads in {dt:.2f}s "
+          f"({n_reads / max(dt, 1e-9):.1f} reads/s) on {ab.device}; "
+          f"fallback reads (host path not ported, no record): {n_fb} "
+          f"({100.0 * n_fb / max(n_reads, 1):.1f}%)"
+          + (f" [{why}]" if why else ""), file=sys.stderr)
+    return n_reads, fallbacks

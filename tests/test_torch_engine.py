@@ -2,7 +2,8 @@
 
 (a) PafStep's (10, K, B) records equal make_paf_step(interpret=False)'s,
     the on-chip dispatch with every Pallas kernel in interpret mode
-    (chain kernel route: B % 128 == 0, A % 256 == 0, long-join pass on);
+    (chain kernel route: B % 128 == 0, A % 256 == 0, long-join pass on),
+    also with secondaries and waypoints (the -c/-a path's step);
 (b) run_batched_cli's PAF is byte-identical to the JAX engine's;
 (c) cli.main parses options as the JAX CLI does, and off-slice options
     raise NotImplementedError;
@@ -93,6 +94,44 @@ def test_paf_step_records_match_jax_kernel_route(monkeypatch):
     assert (want[0, 0] > 100).sum() > 100           # the reads do map
 
 
+def test_paf_step_sec_wp_match_jax_kernel_route(monkeypatch):
+    """PafStep(with_sec, with_wp) == make_paf_step(with_sec, with_wp) on
+    the on-chip route (chain kernel: B % 128 == 0, A % 256 == 0; Pallas
+    kernels in interpret mode), long-join pass on."""
+    g, reads = _kernel_world()
+    shape = dict(k=15, w=10, L=1024, M=256, A=256, occ_cap=16,
+                 chain_window=64, bw=500, bw_long=20000)
+    sk, s3, ch = (sketch_pallas.sketch_batch, sort_pallas.sort3_rows,
+                  chain_pallas.chain_batch)
+    monkeypatch.setattr(sketch_pallas, "sketch_batch",
+                        functools.partial(sk, interpret=True))
+    monkeypatch.setattr(sort_pallas, "sort3_rows",
+                        lambda a, b, c, G=8, interpret=False:
+                        s3(a, b, c, G=G, interpret=True))
+    monkeypatch.setattr(chain_pallas, "chain_batch",
+                        functools.partial(ch, interpret=True))
+    jdi = JaxDeviceIndex.from_host(
+        JaxMiniIndex.build_codes(["g"], [g], w=10, k=15), 1)[0]
+    jstep = jax_engine.make_paf_step(jdi, JaxBatchParams(**shape), K=3,
+                                     min_sc=40, interpret=False,
+                                     with_sec=True, with_wp=True)
+    codes, lens = engine.encode_batch(reads, 1024)
+    packed, nbits = engine.pack_codes(codes)
+    want = [np.asarray(x) for x in jstep(jnp.asarray(packed),
+                                         jnp.asarray(nbits),
+                                         jnp.asarray(lens))]
+    di = DeviceIndex.from_host(
+        MiniIndex.build_codes(["g"], [g], w=10, k=15), "cpu")
+    step = engine.PafStep(di, BatchParams(**shape), K=3, min_sc=40,
+                          with_sec=True, with_wp=True)
+    got = step(*(torch.from_numpy(x) for x in (packed, nbits, lens)))
+    assert got[0].shape == (10, 6, 128) and got[1].shape == (2, 128, 64)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_.numpy(), w_)
+    assert (want[0][0, 1] > 0).sum() >= 3            # secondaries found
+    assert (want[1][0] >= 0).sum(1).min() > 1        # waypoints per read
+
+
 @pytest.fixture(scope="module")
 def conc_world(tmp_path_factory):
     """The world of tests/test_concurrency.py."""
@@ -161,7 +200,7 @@ def test_cli_options_match_jax(conc_world, monkeypatch, opts):
 
 
 @pytest.mark.parametrize("opts", [
-    ["--batch", "-H"], ["--batch", "-c"], ["--batch", "-x", "splice"],
+    ["--batch", "-H"], ["--batch", "-c", "--eqx"], ["--batch", "-x", "splice"],
     ["--batch", "-x", "asm5"], ["--batch", "-x", "sr"], ["-x", "map-ont"],
 ])
 def test_cli_off_slice_options_raise(conc_world, opts):
