@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught; each prints its
+seconds):
   1. the card: nvidia-smi name and power limit; no CUDA device -> exit;
   2. build the CUDA kernels from minimap2_tpu_torch/ops/csrc;
   3. the PAF path: a 100 Mb, 8-contig repeat-bearing genome and 1024
@@ -18,18 +19,30 @@ Phases (any failure exits non-zero; nothing is caught):
      decisions, which the port takes, give 2.25% on these reads), and
      every primary's CIGAR spans the read and its aligned reference
      interval;
-  5. each kernel against its plain PyTorch version on the card at its
+  5. the HPC path: 1024 PacBio-CLR-like reads (2% sub, 3% del, 5% ins)
+     through ``cli.main(["--batch", "-x", "map-pb", ...])`` on the same
+     genome; sort1 launched, >= 90% of primaries on their source interval,
+     no wrong mapq-60 primary;
+  6. the splice path: the genome with 1024 planted multi-exon genes (half
+     on each strand, canonical splice signals) and one cDNA read per gene
+     through ``cli.main(["--batch", "-a", "-x", "splice", ...])``; sketch,
+     sort3, chain, exts2 and the splice traceback launched, >= 90% of
+     primaries on their gene (fallback reads count as wrong), no wrong
+     mapq-60 primary, every primary CIGAR spans its read and reference
+     interval, >= 80% of the true introns matched exactly by an N op;
+  7. each kernel against its plain PyTorch version on the card at its
      path's shapes (bit-equal; extd2 and traceback on the first align
-     sub-batch of phase 4), timed with CUDA events; extd2's DP
-     cell-updates/s as bench.py defines them;
-  6. where one 512-read batch spends its time, for the PAF path (host
-     read/encode/emit, device step with CUDA events and torch.profiler)
-     and the -a path (mapping step, extd2, traceback, ops download, host
-     regs + SAM emit);
-  7. card vs CPU (plain versions): the first 128 reads through PafStep give
-     identical records, the first 32 reads through the -a path identical
-     SAM;
-  8. a ``kernels`` JSON line, then the ``ok`` line.
+     sub-batch of phase 4, sort1 on phase 5's first batch, exts2 and the
+     splice traceback on phase 6's first sub-batch), timed with CUDA
+     events; extd2's DP cell-updates/s as bench.py defines them;
+  8. where one 512-read batch spends its time, for the PAF and HPC paths
+     (host read/encode/emit, device step with CUDA events and
+     torch.profiler), the -a path and the splice path (mapping step, DP
+     kernel, traceback, ops download, host regs + SAM emit);
+  9. card vs CPU (plain versions): the first 128 reads of phases 3 and 5
+     through PafStep give identical records, the first 8 reads of phases
+     4 and 6 through their -a paths identical SAM;
+ 10. a ``kernels`` JSON line, then the ``ok`` line.
 """
 import io
 import json
@@ -157,9 +170,6 @@ def phase_build():
 
 
 def phase_main_path(tmp):
-    from minimap2_tpu_torch import cli
-    from minimap2_tpu_torch.ops._build import launches
-    from minimap2_tpu_torch.parallel import engine
     from minimap2_tpu_torch.utils.simgenome import (simulate_genome,
                                                     simulate_reads,
                                                     write_fasta)
@@ -171,41 +181,34 @@ def phase_main_path(tmp):
                     ("ref.fa", "reads.fa", "out.paf"))
     write_fasta(ref, names, seqs)
     write_fasta(rd, rnames, reads)
+    # phase 5's PacBio-CLR-like reads and phase 6's spliced world
+    hnames, hreads = simulate_reads(seqs, N_READS, np.random.default_rng(2),
+                                    sub=0.02, dele=0.03, ins=0.05,
+                                    name_seqs=names)
+    hpc_rd = os.path.join(tmp, "hpc_reads.fa")
+    write_fasta(hpc_rd, hnames, hreads)
+    gseqs, gnames, greads, introns = simulate_spliced(
+        names, seqs, N_READS, np.random.default_rng(4))
+    spl_ref, spl_rd = (os.path.join(tmp, f) for f in
+                       ("splice_ref.fa", "splice_reads.fa"))
+    write_fasta(spl_ref, names, gseqs)
+    write_fasta(spl_rd, gnames, greads)
     log(f"[main] simulated {GENOME_LEN / 1e6:.0f} Mb genome + {N_READS} "
-        f"reads in "
+        f"ONT-like, {N_READS} PacBio-like and {N_READS} cDNA reads in "
         f"{time.time() - t0:.1f}s")
-    del seqs, reads
+    del seqs, reads, hreads, gseqs, greads
 
-    # record the step and index the CLI builds, and time its mapping loop
-    seen = {}
-    map_queries = engine.map_queries
+    run = _paf_run("main", ["--batch", "-x", "map-ont", "-o", paf, ref, rd],
+                   ("sketch", "sort3", "chain"))
+    paf_accuracy("main", paf, rnames)
+    return dict(run, rd=rd, ref=ref, rnames=rnames, hpc_rd=hpc_rd,
+                hnames=hnames, spl_ref=spl_ref, spl_rd=spl_rd, gnames=gnames,
+                introns=introns)
 
-    def timed_map_queries(step, mi, queries, out, batch_reads):
-        torch.cuda.synchronize()
-        t = time.time()
-        n = map_queries(step, mi, queries, out, batch_reads)
-        torch.cuda.synchronize()
-        seen.update(step=step, mi=mi, n=n, map_s=time.time() - t)
-        return n
 
-    engine.map_queries = timed_map_queries
-    launches.clear()
-    t1 = time.time()
-    try:
-        rc = cli.main(["--batch", "-x", "map-ont", "-o", paf, ref, rd])
-    finally:
-        engine.map_queries = map_queries
-    total_s = time.time() - t1
-    counts = dict(launches)
-    require(rc == 0, f"cli.main returned {rc}")
-    reads_per_s = seen["n"] / seen["map_s"]
-    log(f"[main] index build + upload {total_s - seen['map_s']:.1f}s; "
-        f"mapped {seen['n']} reads in {seen['map_s']:.2f}s "
-        f"({reads_per_s:.1f} reads/s); launches {counts}")
-    for name in ("sketch", "sort3", "chain"):
-        require(counts.get(name, 0) > 0, f"kernel {name} never launched")
-
-    # accuracy against the simulated truth (paftools mapeval's rule)
+def paf_accuracy(tag, paf, rnames):
+    """Gate PAF primaries against the simulated truth (paftools mapeval's
+    rule): >= 90% on their source interval, no wrong mapq-60 primary."""
     prim = {}
     with open(paf) as f:
         for ln in f:
@@ -225,83 +228,80 @@ def phase_main_path(tmp):
             n_q60 += 1
             n_q60_wrong += not ok
     frac = n_ok / len(rnames)
-    log(f"[main] {n_ok}/{len(rnames)} reads correct ({100 * frac:.1f}%), "
+    log(f"[{tag}] {n_ok}/{len(rnames)} reads correct ({100 * frac:.1f}%), "
         f"{n_q60} at mapq 60 of which {n_q60_wrong} wrong")
-    require(frac >= 0.90, f"only {100 * frac:.1f}% of reads correct")
-    require(n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 primaries")
-    return dict(seen, launches=counts, reads_per_s=reads_per_s, rd=rd,
-                ref=ref, rnames=rnames)
+    require(frac >= 0.90, f"{tag}: only {100 * frac:.1f}% of reads correct")
+    require(n_q60_wrong == 0, f"{tag}: {n_q60_wrong} wrong mapq-60 primaries")
+
+
+def simulate_spliced(names, seqs, n_genes, rng):
+    """A copy of the genome with n_genes planted genes at random
+    non-overlapping loci, half on each strand: 4-8 exons of 80-300 bp,
+    introns of 60-1200 bp (log-uniform), transcripts <= 2000 bp and gene
+    spans <= 7000 bp; each intron gets GT..AG on the gene's strand (CT..AC
+    on the forward sequence of a - gene).  One cDNA read per gene, the
+    spliced transcript in either orientation, with 1.5% substitutions,
+    0.75% deletions and 0.75% insertions.  Returns (genome copy, read
+    names '<id>!<contig>!<gene start>!<gene end>!<gene strand>', read
+    codes, {read name: [(intron start, intron end), ...]})."""
+    seqs = [s.copy() for s in seqs]
+    lens = np.array([len(s) for s in seqs], np.float64)
+    taken = [[] for _ in seqs]
+    rnames, reads, introns = [], [], {}
+    while len(reads) < n_genes:
+        n_ex = int(rng.integers(4, 9))
+        ex = rng.integers(80, 301, n_ex)
+        itr = np.exp(rng.uniform(np.log(60), np.log(1200), n_ex - 1)) \
+            .astype(np.int64)
+        span = int(ex.sum() + itr.sum())
+        if ex.sum() > 2000 or span > 7000:
+            continue
+        ci = int(rng.choice(len(seqs), p=lens / lens.sum()))
+        st = int(rng.integers(1000, len(seqs[ci]) - span - 1000))
+        if any(st < b + 500 and a < st + span + 500 for a, b in taken[ci]):
+            continue
+        taken[ci].append((st, st + span))
+        minus = len(reads) % 2 == 1
+        g = seqs[ci]
+        exons, pos = [], st
+        for j in range(n_ex):
+            exons.append((pos, pos + int(ex[j])))
+            pos += int(ex[j]) + (int(itr[j]) if j < n_ex - 1 else 0)
+        ivs = [(a[1], b[0]) for a, b in zip(exons, exons[1:])]
+        for a, b in ivs:
+            g[a:a + 2], g[b - 2:b] = ((1, 3), (0, 1)) if minus \
+                else ((2, 3), (0, 2))
+        tx = np.concatenate([g[a:b] for a, b in exons]).astype(np.uint8)
+        r = rng.random(len(tx))
+        msub = r < 0.015
+        tx[msub] = (tx[msub] + rng.integers(1, 4, int(msub.sum()),
+                                            dtype=np.uint8)) % 4
+        tx = tx[~((r >= 0.015) & (r < 0.0225))]
+        mins = np.flatnonzero(rng.random(len(tx)) < 0.0075)
+        tx = np.insert(tx, mins, rng.integers(0, 4, len(mins))
+                       .astype(np.uint8))
+        if rng.random() < 0.5:
+            tx = (3 - tx)[::-1].astype(np.uint8)
+        nm = (f"G{len(reads)}!{names[ci]}!{st}!{st + span}!"
+              f"{'-' if minus else '+'}")
+        rnames.append(nm)
+        reads.append(tx)
+        introns[nm] = ivs
+    return seqs, rnames, reads, introns
 
 
 def phase_align_path(main, tmp):
     """The -a path through the CLI on the same genome and reads.  Records
-    the step and batcher the CLI builds, each primary's Reg extent, and the
-    first align sub-batch's inputs (for phase 5)."""
-    from collections import Counter
-
-    from minimap2_tpu_torch import cli
-    from minimap2_tpu_torch.ops._build import launches
-    from minimap2_tpu_torch.parallel import align_batch, engine
+    the first align sub-batch's inputs (for phase 7)."""
+    from minimap2_tpu_torch.parallel import align_batch
     sam = os.path.join(tmp, "out.sam")
-    seen, prim_regs, first_job = {}, {}, {}
-    align_queries = engine.align_queries
-    batch_build_regs = engine.batch_build_regs
-    align_step = align_batch._align_step
-
-    def timed_align_queries(step, ab, mi, opt, queries, out, batch_reads):
-        torch.cuda.synchronize()
-        t = time.time()
-        res = align_queries(step, ab, mi, opt, queries, out, batch_reads)
-        torch.cuda.synchronize()
-        seen.update(step=step, ab=ab, mi=mi, opt=opt, res=res,
-                    align_s=time.time() - t)
-        return res
-
-    def recording_build_regs(recs, *a, **kw):
-        res = batch_build_regs(recs, *a, **kw)
-        for rec, regs in res[0].values():
-            r = regs[0]
-            prim_regs[rec.name] = (r.rs, r.re, len(rec.seq))
-        return res
-
-    def capturing_step(qr, sf, lens, **kw):
-        if not first_job:
-            first_job.update(args=[x.clone() for x in (qr, sf, lens)], kw=kw)
-        return align_step(qr, sf, lens, **kw)
-
-    engine.align_queries = timed_align_queries
-    engine.batch_build_regs = recording_build_regs
-    align_batch._align_step = capturing_step
-    launches.clear()
-    t1 = time.time()
-    try:
-        rc = cli.main(["--batch", "-a", "-x", "map-ont", "-o", sam,
-                       main["ref"], main["rd"]])
-    finally:
-        engine.align_queries = align_queries
-        engine.batch_build_regs = batch_build_regs
-        align_batch._align_step = align_step
-    total_s = time.time() - t1
-    counts = dict(launches)
-    require(rc == 0, f"cli.main -a returned {rc}")
-    n_reads, fallbacks = seen["res"]
-    reads_per_s = n_reads / seen["align_s"]
-    causes = dict(Counter(c for _, c in fallbacks))
-    log(f"[align] index build + upload {total_s - seen['align_s']:.1f}s; "
-        f"aligned {n_reads} reads in {seen['align_s']:.2f}s "
-        f"({reads_per_s:.1f} reads/s); launches {counts}")
-    log(f"[align] fallback reads (no record written): {len(fallbacks)} "
-        f"({100 * len(fallbacks) / n_reads:.2f}%) by cause {causes}")
-    for name in ("sketch", "sort3", "chain", "extd2", "traceback"):
-        require(counts.get(name, 0) > 0, f"kernel {name} never launched "
-                "on the -a path")
-
-    prim = {}
-    with open(sam) as f:
-        for ln in f:
-            t = ln.rstrip("\n").split("\t")
-            if not ln.startswith("@") and int(t[1]) & 0x904 == 0:
-                prim.setdefault(t[0], t)
+    first_job = {}
+    run = _align_run(
+        "align", ["--batch", "-a", "-x", "map-ont", "-o", sam, main["ref"],
+                  main["rd"]], ("sketch", "sort3", "chain", "extd2",
+                                "traceback"),
+        [_capture_first(align_batch, "_align_step", first_job)])
+    prim, prim_regs = run["prim"], run["prim_regs"]
     n_ok = n_q60 = n_q60_wrong = 0
     idents, bad_cigar = [], []
     for nm in main["rnames"]:
@@ -309,9 +309,7 @@ def phase_align_path(main, tmp):
         if t is None:
             continue
         _, chrom, st, en, strand = nm.split("!")
-        ops = re.findall(r"(\d+)([MIDNSHP=X])", t[5])
-        q_len = sum(int(n) for n, o in ops if o in "MIS=XH")
-        r_len = sum(int(n) for n, o in ops if o in "MDN=X")
+        q_len, r_len, _ = _cigar_spans(t[5])
         rs, re_, qlen = prim_regs[nm]
         pos = int(t[3]) - 1
         if q_len != qlen or r_len != re_ - rs or pos != rs:
@@ -336,12 +334,217 @@ def phase_align_path(main, tmp):
              (frac >= 0.90, f"only {100 * frac:.1f}% of primaries correct"),
              (n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 primaries"),
              # the port takes the JAX package's fallback decisions; on
-             # these seeded reads they come to 2.25% (PERF.md, PR 2)
-             (len(fallbacks) <= 0.03 * n_reads,
-              f"{len(fallbacks)} fallback reads (> 3%)")]
+             # these seeded reads they come to 2.25% (PERF.md, section 6)
+             (len(run["fallbacks"]) <= 0.03 * run["n_reads"],
+              f"{len(run['fallbacks'])} fallback reads (> 3%)")]
+    return dict(run, first_job=first_job, mean_identity=mean_ident,
+                gates=gates)
+
+
+def _run_cli(argv, hooks):
+    """cli.main(argv) with module attributes swapped for the run: hooks =
+    [(module, name, replacement)].  Returns (rc, launches, seconds)."""
+    from minimap2_tpu_torch import cli
+    from minimap2_tpu_torch.ops._build import launches
+    saved = [(m, n, getattr(m, n)) for m, n, _ in hooks]
+    for m, n, f in hooks:
+        setattr(m, n, f)
+    launches.clear()
+    t1 = time.time()
+    try:
+        rc = cli.main(argv)
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    return rc, dict(launches), time.time() - t1
+
+
+def _capture_first(mod, name, store):
+    """A hook for mod.name that records the first call's arguments
+    (tensors cloned) in store, then calls the original."""
+    fn = getattr(mod, name)
+
+    def capturing(*args, **kw):
+        if not store:
+            store.update(args=[x.clone() for x in args], kw=kw)
+        return fn(*args, **kw)
+    return mod, name, capturing
+
+
+def _paf_run(tag, argv, kernels, hooks=()):
+    """cli.main(argv) on a PAF path with its mapping loop timed; fails
+    unless every kernel named launched.  Returns the step, index, reads,
+    seconds, launches and reads/s."""
+    from minimap2_tpu_torch.parallel import engine
+    seen = {}
+    map_queries = engine.map_queries
+
+    def timed(step, mi, queries, out, batch_reads):
+        torch.cuda.synchronize()
+        t = time.time()
+        n = map_queries(step, mi, queries, out, batch_reads)
+        torch.cuda.synchronize()
+        seen.update(step=step, mi=mi, n=n, map_s=time.time() - t)
+        return n
+    rc, counts, total_s = _run_cli(
+        argv, [(engine, "map_queries", timed), *hooks])
+    require(rc == 0, f"{tag}: cli.main returned {rc}")
+    reads_per_s = seen["n"] / seen["map_s"]
+    log(f"[{tag}] index build + upload {total_s - seen['map_s']:.1f}s; "
+        f"mapped {seen['n']} reads in {seen['map_s']:.2f}s "
+        f"({reads_per_s:.1f} reads/s); launches {counts}")
+    for name in kernels:
+        require(counts.get(name, 0) > 0,
+                f"kernel {name} never launched on the {tag} path")
+    return dict(seen, launches=counts, reads_per_s=reads_per_s)
+
+
+def _align_run(tag, argv, kernels, hooks=()):
+    """cli.main(argv) on an -a path with its align loop timed, each
+    primary's Reg extent recorded and the SAM's primary records read
+    back; fails unless every kernel named launched.  Returns the step,
+    batcher, index, options, launches, reads/s and fallback reads."""
+    from collections import Counter
+
+    from minimap2_tpu_torch.parallel import engine
+    seen, prim_regs = {}, {}
+    align_queries = engine.align_queries
+    batch_build_regs = engine.batch_build_regs
+
+    def timed(step, ab, mi, opt, queries, out, batch_reads):
+        torch.cuda.synchronize()
+        t = time.time()
+        res = align_queries(step, ab, mi, opt, queries, out, batch_reads)
+        torch.cuda.synchronize()
+        seen.update(step=step, ab=ab, mi=mi, opt=opt, res=res,
+                    align_s=time.time() - t)
+        return res
+
+    def recording(recs, *a, **kw):
+        res = batch_build_regs(recs, *a, **kw)
+        for rec, regs in res[0].values():
+            r = regs[0]
+            prim_regs[rec.name] = (r.rs, r.re, len(rec.seq))
+        return res
+    rc, counts, total_s = _run_cli(
+        argv, [(engine, "align_queries", timed),
+               (engine, "batch_build_regs", recording), *hooks])
+    require(rc == 0, f"{tag}: cli.main returned {rc}")
+    n_reads, fallbacks = seen["res"]
+    reads_per_s = n_reads / seen["align_s"]
+    causes = dict(Counter(c for _, c in fallbacks))
+    log(f"[{tag}] index build + upload {total_s - seen['align_s']:.1f}s; "
+        f"aligned {n_reads} reads in {seen['align_s']:.2f}s "
+        f"({reads_per_s:.1f} reads/s); launches {counts}")
+    log(f"[{tag}] fallback reads (no record written): {len(fallbacks)} "
+        f"({100 * len(fallbacks) / n_reads:.2f}%) by cause {causes}")
+    for name in kernels:
+        require(counts.get(name, 0) > 0,
+                f"kernel {name} never launched on the {tag} path")
+    prim = {}
+    with open(argv[argv.index("-o") + 1]) as f:
+        for ln in f:
+            t = ln.rstrip("\n").split("\t")
+            if not ln.startswith("@") and int(t[1]) & 0x904 == 0:
+                prim.setdefault(t[0], t)
     return dict(seen, launches=counts, reads_per_s=reads_per_s,
-                first_job=first_job, fallbacks=fallbacks,
-                mean_identity=mean_ident, gates=gates)
+                n_reads=n_reads, fallbacks=fallbacks, prim=prim,
+                prim_regs=prim_regs)
+
+
+def phase_hpc_path(main, tmp):
+    """The HPC path (map-pb: k19 w10 HPC minimizers) through the CLI on
+    the same genome, with PacBio-CLR-like reads; records the first sort1
+    input (the run-end keys of the first batch) for phase 7."""
+    from minimap2_tpu_torch.parallel import batch
+    paf = os.path.join(tmp, "hpc.paf")
+    keys = {}
+    run = _paf_run("hpc", ["--batch", "-x", "map-pb", "-o", paf, main["ref"],
+                           main["hpc_rd"]], ("sort1", "sketch", "sort3",
+                                             "chain"),
+                   [_capture_first(batch, "sort1_rows", keys)])
+    require(run["step"].p.hpc, "the map-pb step is not an HPC step")
+    paf_accuracy("hpc", paf, main["hnames"])
+    return dict(run, sort1_keys=keys["args"][0], rd=main["hpc_rd"])
+
+
+def _cigar_spans(cigar):
+    ops = re.findall(r"(\d+)([MIDNSHP=X])", cigar)
+    return (sum(int(n) for n, o in ops if o in "MIS=XH"),
+            sum(int(n) for n, o in ops if o in "MDN=X"), ops)
+
+
+def phase_splice_path(main, tmp):
+    """The spliced -a path through the CLI on the genome with planted
+    genes; records the first sub-batch's FOR-round exts2 inputs (for
+    phase 7)."""
+    from collections import Counter
+
+    from minimap2_tpu_torch.parallel import align_batch
+    sam = os.path.join(tmp, "splice.sam")
+    first = {}
+    run = _align_run(
+        "splice", ["--batch", "-a", "-x", "splice", "-o", sam,
+                   main["spl_ref"], main["spl_rd"]],
+        ("sketch", "sort3", "chain", "exts2", "traceback_splice"),
+        [_capture_first(align_batch, "exts2_batch", first)])
+    prim, prim_regs = run["prim"], run["prim_regs"]
+    n_ok = n_q60 = n_q60_wrong = n_in = n_in_ok = 0
+    bad_cigar = []
+    missed = Counter()      # why a true intron has no exact N op
+    for nm in main["gnames"]:
+        true_in = main["introns"][nm]
+        n_in += len(true_in)
+        t = prim.get(nm)
+        if t is None:
+            missed["read without a primary"] += len(true_in)
+            continue
+        _, chrom, st, en, _ = nm.split("!")
+        q_len, r_len, ops = _cigar_spans(t[5])
+        rs, re_, qlen = prim_regs[nm]
+        pos = int(t[3]) - 1
+        if q_len != qlen or r_len != re_ - rs or pos != rs:
+            bad_cigar.append(nm)
+        ok = t[2] == chrom and pos < int(en) and pos + r_len > int(st)
+        n_ok += ok
+        if int(t[4]) == 60:
+            n_q60 += 1
+            n_q60_wrong += not ok
+        got_in, x = set(), pos
+        for n_, o in ops:
+            if o == "N":
+                got_in.add((x, x + int(n_)))
+            if o in "MDN=X":
+                x += int(n_)
+        n_in_ok += sum(iv in got_in for iv in true_in)
+        for a, b in true_in:
+            if (a, b) in got_in:
+                continue
+            if not ok:
+                missed["primary off its gene"] += 1
+            elif a < pos or b > pos + r_len:
+                missed["outside the aligned interval"] += 1
+            else:
+                missed["inside it, not matched"] += 1
+    frac = n_ok / len(main["gnames"])
+    in_frac = n_in_ok / max(n_in, 1)
+    log(f"[splice] {n_ok}/{len(main['gnames'])} primaries on their gene "
+        f"({100 * frac:.1f}%), {n_q60} at mapq 60 of which {n_q60_wrong} "
+        f"wrong; {n_in_ok}/{n_in} true introns matched exactly by an N op "
+        f"({100 * in_frac:.1f}%); {len(prim) - len(bad_cigar)}/{len(prim)} "
+        "CIGARs span read and reference interval")
+    log(f"[splice] true introns without an exact N op, by where they lie: "
+        f"{dict(missed)}")
+    gates = [(not bad_cigar, f"splice CIGAR lengths disagree for "
+              f"{bad_cigar[:5]}"),
+             (frac >= 0.90, f"only {100 * frac:.1f}% of splice primaries "
+              "on their gene"),
+             (n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 splice "
+              "primaries"),
+             (in_frac >= 0.80, f"only {100 * in_frac:.1f}% of the true "
+              "introns matched")]
+    return dict(run, first=first, gates=gates, intron_share=in_frac,
+                rd=main["spl_rd"])
 
 
 def _first_batch(step, rd, n):
@@ -553,6 +756,90 @@ def phase_align_kernels(aln):
     return rows
 
 
+def phase_new_kernels(hpc, spl):
+    """sort1 on the HPC phase's first run-end keys (beside torch.sort);
+    exts2 (FOR round) and the splice traceback on the splice phase's first
+    sub-batch; each against its plain version, bit-equal."""
+    from minimap2_tpu_torch.ops import exts, sort, traceback
+    rows = []
+    keys = hpc["sort1_keys"]
+    B, A = keys.shape
+    got = sort.sort1_rows(keys)
+    err = max_abs_err([got], [sort.sort1_rows_plain(keys)])
+    require(err == 0, f"sort1 differs from its plain version ({err})")
+    require(torch.equal(got, torch.sort(keys, dim=1).values),
+            "sort1 differs from torch.sort")
+    bms, by = bound(8 * B * A, B * (A // 2) * sort_stages(A) * 8)
+    rows.append(dict(
+        name="sort1", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/sort1.cu",
+        replaces="minimap2_tpu/ops/sort_pallas.py:130",
+        launches=hpc["launches"].get("sort1", 0), max_abs_err=err,
+        ms=cuda_ms(lambda: sort.sort1_rows(keys)),
+        plain_ms=cuda_ms(lambda: sort.sort1_rows_plain(keys), reps=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.sort(keys, dim=1), reps=5),
+        shape=[B, A]))
+    del got
+
+    qr, sf, dn, ac, lens = spl["first"]["args"]
+    kw = spl["first"]["kw"]
+    N, QP = qr.shape
+    TP, W, RB, G = kw["TP"], kw["W"], kw["RB"], kw["G"]
+    p, ez = exts.exts2_batch(qr, sf, dn, ac, lens, **kw)
+    RT = p.shape[1]
+
+    def exts2_plain():
+        pp, ezp = exts.exts2_batch_plain(
+            qr, sf, dn, ac, lens, W=W, RT=RT, QP=QP, q=kw["q"], e=kw["e"],
+            q2=kw["q2"], sc_mch=kw["sc_mch"], sc_mis=kw["sc_mis"],
+            sc_N=kw["sc_N"])
+        return pp, exts._ez_dead(ezp, lens, G, RB, RT)
+    (pp, ezp), ext_plain_ms = timed_once(exts2_plain)
+    err = max(max_abs_err_u8([p], [pp]), max_abs_err([ez], [ezp]))
+    require(err == 0, f"exts2 differs from its plain version ({err})")
+    del pp
+    lens_h = lens.cpu().numpy().astype(np.int64)
+    cells = int((lens_h[:, 0] * lens_h[:, 1]).sum())
+    bms, by = bound(N * RT * W + N * (QP + 3 * TP) + N * 8 + N * 16 * 4,
+                    45 * cells)
+    ext_ms = cuda_ms(lambda: exts.exts2_batch(qr, sf, dn, ac, lens, **kw),
+                     reps=5)
+    log(f"[kernels] exts2 on {N} jobs (QP={QP}, TP={TP}, W={W}, R={RT}, "
+        f"{cells} DP cells): {ext_ms:.3f} ms, plain {ext_plain_ms:.0f} ms")
+    rows.append(dict(
+        name="exts2", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/exts2.cu",
+        replaces="minimap2_tpu/ops/exts_pallas.py:525",
+        launches=spl["launches"].get("exts2", 0), max_abs_err=err,
+        ms=ext_ms, plain_ms=ext_plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None, shape=[N, QP, TP, W, RT], dp_cells=cells))
+
+    tkw = dict(RB=RB, w=0, splice=True, QP=QP)
+    ops, fin = traceback.traceback_batch(p, lens, **tkw)
+    (ops2, fin2), tb_plain_ms = timed_once(
+        lambda: traceback.traceback_batch_plain(p, lens, **tkw))
+    err = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
+    require(err == 0, f"splice traceback differs from its plain version "
+            f"({err})")
+    visited = int((ops != 0).sum())
+    n_intron_ops = int((ops == 4).sum())
+    bms, by = bound(visited + N * RT + N * 8 + N * 8, 0)
+    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, **tkw),
+                    reps=5)
+    log(f"[kernels] splice traceback on the same p: {tb_ms:.3f} ms, plain "
+        f"{tb_plain_ms:.0f} ms, {visited} diagonals visited, "
+        f"{n_intron_ops} of them N")
+    rows.append(dict(
+        name="traceback_splice", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/traceback.cu",
+        replaces="minimap2_tpu/ops/traceback_pallas.py:155",
+        launches=spl["launches"].get("traceback_splice", 0),
+        max_abs_err=err, ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, shape=[N, RT, W], visited=visited))
+    return rows
+
+
 def _records(path, n):
     from minimap2_tpu_torch.io.fastx import FastxReader
     rd = FastxReader(path)
@@ -566,17 +853,18 @@ def _records(path, n):
     return recs
 
 
-def phase_align_breakdown(main, aln):
+def phase_align_breakdown(aln, splice=False):
     """Where one 512-read -a batch spends its time: the mapping step
-    (CUDA events), extd2 and traceback per sub-batch (CUDA events), the
-    ops download, the host's regs (trim, audits, fix_cigar, mapq) and the
-    SAM emit.  The sub-batches run one at a time here."""
+    (CUDA events), the DP kernel (extd2, or exts2's two strand rounds) and
+    the traceback per sub-batch (CUDA events), the ops download, the host's
+    regs (trim, audits, fix_cigar, mapq) and the SAM emit.  The sub-batches
+    run one at a time here."""
     from minimap2_tpu_torch.io import format as fmt
     from minimap2_tpu_torch.map.align_engine import gen_ts_mat
     from minimap2_tpu_torch.ops.traceback import decode_ops
     from minimap2_tpu_torch.parallel import align_batch, engine
     step, ab, mi, opt = aln["step"], aln["ab"], aln["mi"], aln["opt"]
-    recs = _records(main["rd"], 512)
+    recs = _records(aln["rd"], 512)
     seqs = [r.seq for r in recs]
     codes, lens = engine.encode_batch(seqs, step.p.L)
     packed, nbits = engine.pack_codes(codes)
@@ -584,14 +872,14 @@ def phase_align_breakdown(main, aln):
     with torch.no_grad():
         step_ms = cuda_ms(lambda: step(*batch), reps=3)
         map_out = step(*batch)
-    evs = {"extd2": [], "traceback": []}
+    dp = "exts2_batch" if splice else "extd2_batch2"
+    evs = {dp: [], "traceback_batch": []}
     dl = [0.0]
     wrapped = {}
-    for name in ("extd2_batch2", "traceback_batch"):
+    for name in evs:
         fn = getattr(align_batch, name)
-        key = "extd2" if name.startswith("extd2") else "traceback"
 
-        def timed(*a, _fn=fn, _key=key, **k):
+        def timed(*a, _fn=fn, _key=name, **k):
             s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s.record()
             out = _fn(*a, **k)
@@ -601,31 +889,41 @@ def phase_align_breakdown(main, aln):
         wrapped[name] = fn
         setattr(align_batch, name, timed)
 
-    def timed_collect(fut, n):
-        ops, fin = fut
-        torch.cuda.synchronize()
-        t = time.time()
-        fin_h = fin.cpu().numpy()
-        mx = align_batch._ops_extent(ops)
-        ops_h = ops[:, :max(mx, 1)].cpu().numpy()
-        dl[0] += time.time() - t
-        return [decode_ops(ops_h[i], int(fin_h[i, 0]), int(fin_h[i, 1]))
-                for i in range(n)]
+    if splice:
+        fetch_round = ab.fetch_round
 
-    ab.collect = timed_collect
+        def timed_fetch(rnd):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fetch_round(rnd)
+            dl[0] += time.time() - t
+            return out
+        ab.fetch_round = timed_fetch
+    else:
+        def timed_collect(fut, n):
+            ops, fin = fut
+            torch.cuda.synchronize()
+            t = time.time()
+            fin_h = fin.cpu().numpy()
+            mx = align_batch._ops_extent(ops)
+            ops_h = ops[:, :max(mx, 1)].cpu().numpy()
+            dl[0] += time.time() - t
+            return [decode_ops(ops_h[i], int(fin_h[i, 0]), int(fin_h[i, 1]))
+                    for i in range(n)]
+        ab.collect = timed_collect
     mat = gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi)
     try:
         t0 = time.time()
         by_read, fallback, _, _ = engine.batch_build_regs(
-            recs, map_out, ab, mi, opt, mat, step.with_sec)
+            recs, map_out, ab, mi, opt, mat, step.with_sec, splice)
         t1 = time.time()
     finally:
-        del ab.collect
+        ab.__dict__.pop("fetch_round" if splice else "collect")
         for name, fn in wrapped.items():
             setattr(align_batch, name, fn)
     torch.cuda.synchronize()
-    ext_ms = sum(s.elapsed_time(e) for s, e in evs["extd2"])
-    tb_ms = sum(s.elapsed_time(e) for s, e in evs["traceback"])
+    dp_ms = sum(s.elapsed_time(e) for s, e in evs[dp])
+    tb_ms = sum(s.elapsed_time(e) for s, e in evs["traceback_batch"])
     out = io.StringIO()
     t2 = time.time()
     for rec, regs in by_read.values():
@@ -633,37 +931,49 @@ def phase_align_breakdown(main, aln):
             out.write(fmt.write_sam(mi, rec, 0, i, 1, [len(regs)], [regs],
                                     opt.flag, 0) + "\n")
     t3 = time.time()
-    host_s = (t1 - t0) - (ext_ms + tb_ms) / 1e3 - dl[0]
-    log(f"[breakdown] 512-read -a batch: mapping step {step_ms:.2f} ms; "
-        f"{len(evs['extd2'])} align sub-batches of {ab.sub}: extd2 "
-        f"{ext_ms:.2f} ms, traceback {tb_ms:.2f} ms, ops download "
-        f"{1e3 * dl[0]:.2f} ms; host regs (trim, audits, fix_cigar, "
-        f"mapq) {host_s:.3f} s, SAM emit {t3 - t2:.3f} s; "
-        f"{len(fallback)} fallback reads")
+    host_s = (t1 - t0) - (dp_ms + tb_ms) / 1e3 - dl[0]
+    tag = "splice" if splice else "-a"
+    log(f"[breakdown] 512-read {tag} batch: mapping step {step_ms:.2f} ms; "
+        f"{len(evs[dp])} {dp.split('_')[0]} launches on sub-batches of "
+        f"{ab.sub}: {dp.split('_')[0]} {dp_ms:.2f} ms, traceback "
+        f"{tb_ms:.2f} ms, ops download {1e3 * dl[0]:.2f} ms; host regs "
+        f"(trim, audits, fix_cigar, mapq) {host_s:.3f} s, SAM emit "
+        f"{t3 - t2:.3f} s; {len(fallback)} fallback reads")
 
 
-def phase_align_cross_check(aln, tmp):
-    """The first 32 reads through the -a path on the card and on the CPU
-    (plain versions, CPU copies of the index): identical SAM text."""
-    from minimap2_tpu_torch.parallel.align_batch import AlignBatcher
+def phase_align_cross_check(aln, tmp, n, splice=False):
+    """The first n reads through the -a path on the card and on the CPU
+    (plain versions, CPU copies of the index): identical SAM text.  The
+    splice path runs both sides at QP 2048, TP 8192 and 8 jobs a
+    sub-batch."""
+    from minimap2_tpu_torch.map.align_engine import gen_ts_mat
+    from minimap2_tpu_torch.parallel.align_batch import (AlignBatcher,
+                                                         SpliceAlignBatcher)
     from minimap2_tpu_torch.parallel.batch import DeviceIndex
     from minimap2_tpu_torch.parallel.engine import PafStep, align_queries
     from minimap2_tpu_torch.utils.simgenome import write_fasta
     from minimap2_tpu_torch.utils.intfloat import SEQ_NT4
     step, ab, mi, opt = aln["step"], aln["ab"], aln["mi"], aln["opt"]
-    recs = _records(aln["rd"], 32)
-    path = os.path.join(tmp, "x32.fa")
+    recs = _records(aln["rd"], n)
+    path = os.path.join(tmp, f"x{n}{'s' if splice else ''}.fa")
     write_fasta(path, [r.name for r in recs],
                 [SEQ_NT4[np.frombuffer(r.seq, np.uint8)] for r in recs])
     di = step.di
-    di_cpu = DeviceIndex({n: t.cpu() for n, t in di.named_buffers()},
+    di_cpu = DeviceIndex({nm: t.cpu() for nm, t in di.named_buffers()},
                          di.aux_dict())
     step_cpu = PafStep(di_cpu, step.p, step.K, step.min_sc,
                        with_sec=step.with_sec, with_wp=step.with_wp)
-    ab_cpu = AlignBatcher(mi, opt, device="cpu", QP=ab.QP, TP=ab.TP, G=ab.G,
-                          W=ab.W, RB=ab.RB, sub=ab.sub)
+    if splice:
+        mat = gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi)
+        ab_card, ab_cpu = (SpliceAlignBatcher(
+            mi, opt, mat, device=d, QP=2048, TP=8192, G=ab.G, RB=ab.RB,
+            sub=8) for d in ("cuda", "cpu"))
+    else:
+        ab_card = ab
+        ab_cpu = AlignBatcher(mi, opt, device="cpu", QP=ab.QP, TP=ab.TP,
+                              G=ab.G, W=ab.W, RB=ab.RB, sub=ab.sub)
     outs, secs = [], []
-    for st_, ab_ in ((step, ab), (step_cpu, ab_cpu)):
+    for st_, ab_ in ((step, ab_card), (step_cpu, ab_cpu)):
         out = io.StringIO()
         t = time.time()
         with torch.no_grad():
@@ -671,13 +981,15 @@ def phase_align_cross_check(aln, tmp):
         secs.append(time.time() - t)
         outs.append(out.getvalue())
     n_rec = len(outs[0].splitlines())
-    require(n_rec >= 24, f"only {n_rec} SAM records for 32 reads")
-    require(outs[0] == outs[1], "card and CPU SAM differ")
-    log(f"[cross] 32-read -a SAM ({n_rec} records) identical on card and "
-        f"CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
+    tag = "splice" if splice else "-a"
+    require(n_rec >= n * 3 // 4, f"only {n_rec} {tag} SAM records for {n} "
+            "reads")
+    require(outs[0] == outs[1], f"card and CPU {tag} SAM differ")
+    log(f"[cross] {n}-read {tag} SAM ({n_rec} records) identical on card "
+        f"and CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
 
 
-def phase_breakdown(main):
+def phase_breakdown(main, tag="PAF"):
     """Where one 512-read batch spends its time: host read/encode/pack,
     the device step (CUDA events, and torch.profiler's device time by
     kernel), the host PAF emit."""
@@ -713,7 +1025,7 @@ def phase_breakdown(main):
     engine.map_batch_paf(mi, step, names, seqs, step.p, io.StringIO(),
                          pending=rec)
     t4 = time.time()
-    log(f"[breakdown] 512-read batch: host read (1024 reads) "
+    log(f"[breakdown] 512-read {tag} batch: host read (1024 reads) "
         f"{t1 - t0:.3f}s, encode+pack {t2 - t1:.3f}s, device step "
         f"{step_ms:.2f} ms ({dev_ms:.2f} ms of it in kernels, profiler), "
         f"PAF emit {t4 - t3:.3f}s")
@@ -721,7 +1033,7 @@ def phase_breakdown(main):
         log(f"[breakdown]   {t:8.3f} ms  {k[:90]}")
 
 
-def phase_cross_check(main):
+def phase_cross_check(main, tag="PAF"):
     from minimap2_tpu_torch.parallel.batch import DeviceIndex
     from minimap2_tpu_torch.parallel.engine import PafStep
     step = main["step"]
@@ -737,32 +1049,53 @@ def phase_cross_check(main):
         cpu = step_cpu(*batch)
     t2 = time.time()
     require(gpu.shape == (10, step.K, 128), f"records shape {gpu.shape}")
-    require(torch.equal(gpu, cpu), "card and CPU records differ")
-    log(f"[cross] 128-read records identical on card and CPU "
+    require(torch.equal(gpu, cpu), f"card and CPU {tag} records differ")
+    log(f"[cross] 128-read {tag} records identical on card and CPU "
         f"(card {t1 - t0:.2f}s, CPU plain versions {t2 - t1:.1f}s)")
 
 
 def main():
-    card = phase_card()
-    phase_build()
+    t_start = time.time()
+    secs = {}
+
+    def timed(name, fn, *a):
+        t = time.time()
+        out = fn(*a)
+        secs[name] = round(time.time() - t, 1)
+        log(f"[time] {name}: {secs[name]}s")
+        return out
+    card = timed("card", phase_card)
+    timed("build", phase_build)
     with tempfile.TemporaryDirectory() as tmp:
-        main_ = phase_main_path(tmp)
-        aln = phase_align_path(main_, tmp)
+        main_ = timed("paf", phase_main_path, tmp)
+        aln = timed("align", phase_align_path, main_, tmp)
         aln["rd"] = main_["rd"]
-        rows = phase_kernels(main_)
-        for r in rows:          # the PAF kernels also run on the -a path
+        hpc = timed("hpc", phase_hpc_path, main_, tmp)
+        spl = timed("splice", phase_splice_path, main_, tmp)
+        rows = timed("kernels", phase_kernels, main_)
+        for r in rows:          # the PAF kernels also run on the other paths
             r["launches_align"] = aln["launches"].get(r["name"], 0)
-        rows += phase_align_kernels(aln)
-        phase_breakdown(main_)
-        phase_align_breakdown(main_, aln)
-        phase_cross_check(main_)
-        phase_align_cross_check(aln, tmp)
-    for ok, msg in aln["gates"]:
+            r["launches_hpc"] = hpc["launches"].get(r["name"], 0)
+            r["launches_splice"] = spl["launches"].get(r["name"], 0)
+        rows += timed("align kernels", phase_align_kernels, aln)
+        rows += timed("new kernels", phase_new_kernels, hpc, spl)
+        timed("breakdown", phase_breakdown, main_)
+        timed("hpc breakdown", phase_breakdown, hpc, "HPC")
+        timed("align breakdown", phase_align_breakdown, aln)
+        timed("splice breakdown", phase_align_breakdown, spl, True)
+        timed("cross PAF", phase_cross_check, main_)
+        timed("cross HPC", phase_cross_check, hpc, "HPC")
+        timed("cross -a", phase_align_cross_check, aln, tmp, 8)
+        timed("cross splice", phase_align_cross_check, spl, tmp, 8, True)
+    for ok, msg in aln["gates"] + spl["gates"]:
         require(ok, msg)
     kinds = torch.cuda.get_device_name(0)
     log(f"[main] card {card}: {main_['reads_per_s']:.1f} reads/s (PAF), "
         f"{aln['reads_per_s']:.1f} reads/s (-a, mean identity "
-        f"{aln['mean_identity']:.4f}) on the 100 Mb genome")
+        f"{aln['mean_identity']:.4f}), {hpc['reads_per_s']:.1f} reads/s "
+        f"(map-pb), {spl['reads_per_s']:.1f} reads/s (-a -x splice, "
+        f"{100 * spl['intron_share']:.1f}% of introns exact) on the 100 Mb "
+        f"genome; {time.time() - t_start:.0f}s in all, by phase {secs}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kinds,

@@ -3,13 +3,16 @@ with -c/-a, as PAF with cg:Z or SAM.
 
     python -m minimap2_tpu_torch.cli --batch [-x map-ont] [-a|-c] ref.fa reads.fq
 
-The option parsing is minimap2_tpu.cli's (main.c:24-526: presets first,
-then flags that override them), so IndexOptions/MapOptions come out the
-same.  Then FASTA -> MiniIndex -> mapopt_update -> run_batched_cli (or
+Presets on the --batch paths: map-ont / lr, lr:hq / map-hifi, map-pb (and
+-H: HPC minimizers), splice / splice:hq / cdna (spliced -c/-a).  The
+option parsing is minimap2_tpu.cli's (main.c:24-526: presets first, then
+flags that override them), so IndexOptions/MapOptions come out the same.
+Then FASTA -> MiniIndex -> mapopt_update -> run_batched_cli (or
 run_batched_align_cli with -c/-a) on the device.  What the port does not
-carry yet raises NotImplementedError naming the later slice: HPC, the RMQ
-tier, splice, sr, paired ends, --eqx, .mmi/.npz targets, -d, a multi-part
--I split, and the host (non --batch) path.
+carry yet raises NotImplementedError naming the later slice: the RMQ tier,
+sr and splice:sr, paired ends, --eqx, splice side data (--junc-bed, -j,
+--spsc, --pass1), .mmi/.npz targets, -d, a multi-part -I split, and the
+host (non --batch) path.
 """
 from __future__ import annotations
 
@@ -400,13 +403,11 @@ def check_slice(io: IndexOptions, mo: MapOptions, args: Args) -> None:
     carry, naming the later slice that will."""
     off = [
         (not args.batch, "the host (non --batch) mapping path"),
-        (io.flag & C.MM_I_HPC,
-         "HPC minimizers (-H, map-pb, map-hifi: hpc_compact + sort1_rows)"),
         (mo.flag & C.MM_F_RMQ, "the RMQ chaining tier (asm, lr:hqae, --rmq)"),
         ((mo.flag & C.MM_F_EQX) and (mo.flag & C.MM_F_CIGAR),
          "--eqx (=/X CIGAR operators, mm_update_cigar_eqx)"),
-        (mo.flag & C.MM_F_SPLICE, "spliced alignment (-x splice: exts2_batch)"),
-        (mo.flag & (C.MM_F_SR | C.MM_F_SR_RNA), "short-read mode (sr)"),
+        (mo.flag & (C.MM_F_SR | C.MM_F_SR_RNA),
+         "short-read mode (sr, splice:sr)"),
         (len(args.pos) > 2 and (mo.flag & C.MM_F_FRAG_MODE),
          "paired-end mapping"),
     ]

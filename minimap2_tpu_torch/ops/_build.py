@@ -33,10 +33,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mm2_sketch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mm2_sort3": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "mm2_sort1": [_P, _P, _I, _I, _P],
     "mm2_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mm2_extd2": [_P, _P, _P, _P, _P] + [_I] * 17 + [_P],
-    "mm2_traceback": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mm2_exts2": [_P] * 7 + [_I] * 13 + [_P],
+    "mm2_traceback": [_P, _P, _P, _P] + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -1,0 +1,318 @@
+"""Splice-aware extension with direction bytes (ksw_exts2, approx-max mode):
+CUDA kernel, plain version and the host splice-site planes.
+
+Counterpart of minimap2_tpu.ops.exts_pallas.exts2_batch (exts_pallas.py:
+536-556 -> ``_exts2_call`` :488 -> the Pallas kernel ``_exts2_kernel``
+:111-425), in the mode of the ``--batch -x splice`` path
+(align_batch.py:189-196 of the JAX package): approx-max, no zdrop,
+left-align, with direction bytes.  The Suzuki-Kasahara difference
+recurrence of ksw_exts2_sse runs over anti-diagonals r on int32 lanes with
+int8 wrap arithmetic (``_wrap8``); the second gap state is the intron x2
+(open cost q2, no extension cost) with per-target donor / acceptor
+adjustments; the score comes from the greedy H0 walk.  Both versions keep
+the JAX package's layout, because the result depends on it:
+
+* the DP is unbanded ([st0, en0] = the whole valid diagonal), and lane
+  ``l`` of diagonal ``r`` is target position ``wstart_q(r, QP) + l``: the
+  window follows the query edge, so ``r - ws(r)`` is a sawtooth; whenever
+  ``ws`` steps by 16 the carried rows shift left 16 lanes with the fill
+  values -q-e, -q2 and 0 (:198-211);
+* at lane ``r`` the rows y, x2 and u are reset (:213-217) before the left
+  neighbours are read, so x2's neighbour there is -q2;
+* the score row ``s`` is rewritten on ``[st0, s_hi]`` only (:219-233);
+* a target code past TP is 0; the donor / acceptor planes are i8
+  (:227-228); there is no max_sc clamp (:263-264);
+* continuation bits 0x08 / 0x10 / 0x20 (:290-292), rows 0 outside the
+  updated lanes (:293).
+
+``EZ_DEAD`` depends on the Pallas grid's group skip (:392-394), exactly
+as in extd2; ``extend._ez_dead`` applies that rule.  Outputs: ``p`` (N,
+RC*RB, W) uint8 (JAX's (NG, RC, RB, G, W) block after a transpose), ``ez``
+(N, 16) int32.  ``exts2_batch`` launches the kernel (csrc/exts2.cu) for
+CUDA tensors and runs ``exts2_batch_plain`` for CPU tensors.  Exact-max,
+zdrop, approx-drop, right-align and the no-cigar mode raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+from .extend import (EZ_H0, EZ_H0T, EZ_LASTST, EZ_MAXQ, EZ_MAXT, EZ_MQE,
+                     EZ_MQET, EZ_MTE, EZ_MTEQ, EZ_N, EZ_NR, EZ_SCORE,
+                     EZ_ZDROP, NEG_INF32, _ez_dead, _sext8)
+
+MAX_W = 4096          # 4 lanes a thread, 1024 threads (csrc/exts2.cu)
+
+
+def wstart_q(r: int, QP: int) -> int:
+    """Query-edge window start of diagonal r (16-aligned)."""
+    return max(0, r - QP + 1) // 16 * 16
+
+
+def long_thres_of(q: int, e: int, q2: int) -> tuple[int, int]:
+    """(long_thres, long_diff) of ksw_exts2 (exts_pallas.py:118-122): the
+    gap length from which the intron state is the cheaper deletion."""
+    long_thres = (q2 - q) // e - 1
+    if q2 > q + e + long_thres * e:
+        long_thres += 1
+    return long_thres, long_thres * e - (q2 - q)
+
+
+def _wrap8(x):
+    """int8 wrap of an int tensor (x mod 256 in [-128, 127])."""
+    return ((x + 128) & 255) - 128
+
+
+def splice_site_arrays(tseqs: np.ndarray, tlens: np.ndarray, flag_for: bool,
+                       noncan: int, cmplx: bool, flank: bool):
+    """Donor / acceptor penalty planes of a (N, TP) target batch
+    (ksw2_exts2_sse.c:120-192, non-REV_CIGAR orientations; a copy of
+    exts_pallas.splice_site_arrays).  Returns (donor, acceptor) (N, TP)
+    int8."""
+    sp0 = [8, 15, 21, 30]
+    if cmplx:
+        sp = [int(v / 3.0 + 0.499) for v in sp0]
+    else:
+        sp = [noncan // 2 if flank else 0, noncan, noncan, noncan]
+    sp = np.array(sp, np.int64)
+    N, TP = tseqs.shape
+    t = tseqs.astype(np.int64)
+    t1 = np.concatenate([t[:, 1:], np.full((N, 1), 4, np.int64)], 1)
+    t2 = np.concatenate([t[:, 2:], np.full((N, 2), 4, np.int64)], 1)
+    t3 = np.concatenate([t[:, 3:], np.full((N, 3), 4, np.int64)], 1)
+    tm1 = np.concatenate([np.full((N, 1), 4, np.int64), t[:, :-1]], 1)
+    tm2 = np.concatenate([np.full((N, 2), 4, np.int64), t[:, :-2]], 1)
+    z_d = np.full((N, TP), 3, np.int64)
+    z_a = np.full((N, TP), 3, np.int64)
+    if flag_for:
+        # donor GT[A/G], acceptor [C/T]AG
+        z_d = np.where((t1 == 2) & (t2 == 3),
+                       np.where((t3 == 0) | (t3 == 2), -1, 0), z_d)
+        z_d = np.where((t1 == 2) & (t2 == 1), 1, z_d)
+        z_d = np.where((t1 == 0) & (t2 == 3), 2, z_d)
+        z_a = np.where((tm1 == 0) & (t == 2),
+                       np.where((tm2 == 1) | (tm2 == 3), -1, 0), z_a)
+        z_a = np.where((tm1 == 0) & (t == 1), 2, z_a)
+    else:
+        # reverse-strand signals (CT..AC)
+        z_d = np.where((t1 == 1) & (t2 == 3),
+                       np.where((t3 == 0) | (t3 == 2), -1, 0), z_d)
+        z_d = np.where((t1 == 2) & (t2 == 3), 2, z_d)
+        z_a = np.where((tm1 == 0) & (t == 1),
+                       np.where((tm2 == 1) | (tm2 == 3), -1, 0), z_a)
+        z_a = np.where((tm1 == 2) & (t == 1), 1, z_a)
+        z_a = np.where((tm1 == 0) & (t == 3), 2, z_a)
+    donor = np.where(z_d < 0, 0, -sp[np.clip(z_d, 0, 3)])
+    acceptor = np.where(z_a < 0, 0, -sp[np.clip(z_a, 0, 3)])
+    # range limits: donor defined for t < tlen-4, acceptor for t >= 2
+    col = np.arange(TP)[None, :]
+    donor = np.where(col < tlens[:, None] - 4, donor, -sp[3])
+    acceptor = np.where((col >= 2) & (col < tlens[:, None]), acceptor,
+                        -sp[3])
+    return donor.astype(np.int8), acceptor.astype(np.int8)
+
+
+def _check(W, QP, right_mode, approx_max, approx_drop, zdrop, with_cigar):
+    if right_mode or not approx_max or approx_drop or zdrop >= 0 \
+            or not with_cigar:
+        raise NotImplementedError(
+            "exts2: only the splice path's mode is ported (approx_max=True, "
+            "approx_drop=False, zdrop=-1, right_mode=False, with_cigar); "
+            "exact-max, zdrop, approx-drop, right-align and no-cigar modes "
+            "are a later slice")
+    if W % 128 or W < QP + 32 or W > MAX_W:
+        raise ValueError(f"exts2: need W % 128 == 0, W >= QP + 32 and "
+                         f"W <= {MAX_W} (W={W}, QP={QP})")
+
+
+def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
+                      sc_mis, sc_N):
+    """Plain version on (N, W) lanes with a loop over anti-diagonals.
+    qr: (N, QP) uint8 REVERSED queries; sf: (N, TP) uint8 targets; dn / ac:
+    (N, TP) int8 donor / acceptor; lens (N, 2) int32.  Returns (p, ez)
+    before the EZ_DEAD rule."""
+    N = qr.shape[0]
+    TP = sf.shape[1]
+    dev = qr.device
+    i32, i64 = torch.int32, torch.int64
+    qe = q + e
+    long_thres, long_diff = long_thres_of(q, e, q2)
+    qlen = lens[:, 0].to(i64)
+    tlen = lens[:, 1].to(i64)
+    rstar = qlen + tlen - 1
+    # qxa[n, c - qpos] = q[n, qpos] (0 outside the query): the query codes
+    # of diagonal r are the contiguous window qxa[:, c - r + ws : + W]
+    c = max(r - wstart_q(r, QP) for r in range(min(RT, QP + 16))) + 8
+    j = torch.arange(c + W, device=dev)[None, :]
+    src = j - (c - qlen[:, None] + 1)
+    qxa = torch.where((src >= 0) & (src < qlen[:, None]),
+                      qr.gather(1, src.clamp(0, QP - 1)).to(i32), 0)
+    CT = max(TP, wstart_q(RT - 1, QP) + W)
+
+    def padT(a):
+        z = torch.zeros((N, CT), dtype=i32, device=dev)
+        z[:, :TP] = a.to(i32)
+        return z
+    sfz, dnz, acz = padT(sf), padT(dn), padT(ac)
+
+    def full(v):
+        return torch.full((N, W), v, dtype=i32, device=dev)
+    u, v, x, y, x2, s = full(-qe), full(-qe), full(-qe), full(-qe), \
+        full(-q2), full(0)
+    zeros = torch.zeros(N, dtype=i64, device=dev)
+    dead, zdr, last_st, nr = (zeros.bool(), zeros.clone(), zeros.clone(),
+                              zeros.clone())
+    H0, h0t = zeros.clone(), zeros.clone()
+    score = torch.full((N,), NEG_INF32, dtype=i64, device=dev)
+    p = torch.zeros((N, RT, W), dtype=torch.uint8, device=dev)
+    lane = torch.arange(W, device=dev)[None, :]
+    rows = torch.arange(N, device=dev)
+    fills = (-qe, -qe, -qe, -qe, -q2, 0)
+    ws = 0
+    for r in range(RT):
+        if not bool((~dead).any()):
+            break
+        ws_prev, ws = ws, wstart_q(r, QP)
+        dead = dead | (r >= rstar)
+        st0 = torch.clamp(r - qlen + 1, min=0)
+        en0 = torch.clamp(tlen - 1, max=r)
+        band_dead = st0 > en0
+        st = st0 // 16 * 16
+        en = (en0 + 16) // 16 * 16 - 1
+        live = ~(dead | band_dead)
+        use_prev = (st - last_st == 16) & live & (st > 0)
+        # boundary scalars at st - 1 of the previous diagonal's window
+        pre = st - 1 - ws_prev
+        okp = (pre >= 0) & (pre < W)
+        prei = pre.clamp(0, W - 1)[:, None]
+
+        def at_pre(a):
+            return torch.where(okp, _sext8(a.gather(1, prei)[:, 0]), 0)
+        x1 = torch.where(use_prev, at_pre(x), -qe)
+        x21 = torch.where(use_prev, at_pre(x2), -q2)
+        v1_edge = (-qe if r == 0 else -e if r < long_thres
+                   else long_diff if r == long_thres else 0)
+        v1 = torch.where(use_prev, at_pre(v),
+                         torch.where(st > 0, -qe, v1_edge))
+        if ws != ws_prev:   # the window stepped 16: shift with fills
+            u, v, x, y, x2, s = (
+                torch.cat([a[:, 16:], torch.full((N, 16), f, dtype=i32,
+                                                 device=dev)], 1)
+                for a, f in zip((u, v, x, y, x2, s), fills))
+        t_abs = lane + ws
+        at_r = (t_abs == r) & (en >= r)[:, None]
+        y = torch.where(at_r, -qe, y)
+        x2 = torch.where(at_r, -q2, x2)
+        u_p = torch.where(at_r, v1_edge, u)
+        s_hi = st0 + (en0 - st0) // 16 * 16 + 15
+        scov = (t_abs >= st0[:, None]) & (t_abs <= s_hi[:, None]) \
+            & live[:, None]
+        tq = sfz[:, ws:ws + W]
+        qq = qxa[:, c - r + ws:c - r + ws + W]
+        dnr, acr = dnz[:, ws:ws + W], acz[:, ws:ws + W]
+        sval = torch.where(tq == qq, sc_mch, sc_mis)
+        sval = torch.where((tq == 4) | (qq == 4), sc_N, sval).to(i32)
+        s = torch.where(scov, sval, s)
+        at_stl = lane == (st - ws)[:, None]
+        xt1 = torch.where(at_stl, x1[:, None].to(i32), x.roll(1, 1))
+        vt1 = torch.where(at_stl, v1[:, None].to(i32), v.roll(1, 1))
+        x2t1 = torch.where(at_stl, x21[:, None].to(i32), x2.roll(1, 1))
+        a = _wrap8(xt1 + vt1)
+        b = _wrap8(y + u_p)
+        a2 = _wrap8(x2t1 + vt1)
+        a2a = _wrap8(a2 + acr)
+        z = s
+        d = (a > z).to(torch.uint8)
+        z = torch.maximum(z, a)
+        d = torch.where(b > z, 2, d)
+        z = torch.maximum(z, b)
+        d = torch.where(a2a > z, 3, d)
+        z = torch.maximum(z, a2a)
+        u_new = _wrap8(z - vt1)
+        v_new = _wrap8(z - u_p)
+        t1 = _wrap8(z - q)
+        a = _wrap8(a - t1)
+        b = _wrap8(b - t1)
+        a2 = _wrap8(a2 - _wrap8(z - q2))
+        ga, gb, g2 = a > 0, b > 0, a2 > dnr
+        m_upd = live[:, None] & (t_abs >= st[:, None]) \
+            & (t_abs <= en[:, None])
+        u = torch.where(m_upd, u_new, u_p)
+        v = torch.where(m_upd, v_new, v)
+        x = torch.where(m_upd, _wrap8(torch.where(ga, a, 0) - qe), x)
+        y = torch.where(m_upd, _wrap8(torch.where(gb, b, 0) - qe), y)
+        x2 = torch.where(m_upd, _wrap8(torch.where(g2, a2, dnr) - q2), x2)
+        d = d | (ga.to(torch.uint8) << 3) | (gb.to(torch.uint8) << 4) \
+            | (g2.to(torch.uint8) << 5)
+        p[:, r] = torch.where(m_upd, d, 0)
+        fin = live & (r == rstar - 1) & (en0 == tlen - 1)
+        # greedy H0 walk: lane lx = h0t + 1 - ws holds (v[t0], u[t0 + 1])
+        lx = h0t + 1 - ws
+        okx = (lx >= 0) & (lx < W)
+        d0 = torch.where(okx, _sext8(v[rows, (lx - 1) % W]), 0)
+        d1 = torch.where(okx, _sext8(u[rows, lx.clamp(0, W - 1)]), 0)
+        in0 = (st0 <= h0t) & (h0t <= en0)
+        in1 = (st0 <= h0t + 1) & (h0t + 1 <= en0)
+        case12 = in0 & in1
+        step_t = case12 & (d1 >= d0)
+        delta = torch.where(case12, torch.where(step_t, d1, d0),
+                            torch.where(in0, d0, d1))
+        if r == 0:
+            H0_new, h0t_new = v[:, 0].to(i64) - qe, zeros
+        else:
+            H0_new, h0t_new = H0 + delta, h0t + (step_t | ~in0).to(i64)
+        H0 = torch.where(live, H0_new, H0)
+        h0t = torch.where(live, h0t_new, h0t)
+        score = torch.where(fin, H0, score)
+        zdr = torch.where(~dead & band_dead, 1, zdr)
+        dead = dead | band_dead
+        last_st = torch.where(live, st, last_st)
+        nr = torch.where(live, r + 1, nr)
+    ez = torch.zeros((N, EZ_N), dtype=i64, device=dev)
+    for lane_i, val in ((EZ_MAXQ, -1), (EZ_MAXT, -1), (EZ_MQE, NEG_INF32),
+                        (EZ_MQET, -1), (EZ_MTE, NEG_INF32), (EZ_MTEQ, -1)):
+        ez[:, lane_i] = val
+    for lane_i, val in ((EZ_ZDROP, zdr), (EZ_SCORE, score),
+                        (EZ_LASTST, last_st), (EZ_NR, nr), (EZ_H0, H0),
+                        (EZ_H0T, h0t)):
+        ez[:, lane_i] = val
+    return p, ez.to(i32)
+
+
+def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,
+                zdrop, right_mode, approx_max, approx_drop, sc_mch, sc_mis,
+                sc_N, with_cigar=True):
+    """Batched exts2 (the signature of exts_pallas.exts2_batch).  qr: (N,
+    QP) uint8 reversed queries; sf: (N, TP) uint8 targets; dn / ac: (N,
+    TP) int8 donor / acceptor planes (splice_site_arrays); lens: (N, 2)
+    int32 with 1 <= qlen <= QP, 1 <= tlen <= TP.  Returns (p (N, RC*RB, W)
+    uint8, ez (N, 16) int32).  G only fixes EZ_DEAD's group semantics."""
+    _check(W, QP, right_mode, approx_max, approx_drop, zdrop, with_cigar)
+    N = qr.shape[0]
+    if qr.shape != (N, QP) or sf.shape != (N, TP) or dn.shape != (N, TP) \
+            or ac.shape != (N, TP) or lens.shape != (N, 2):
+        raise ValueError("exts2: qr (N, QP), sf / dn / ac (N, TP), lens "
+                         "(N, 2)")
+    RT = (R + RB - 1) // RB * RB
+    kw = dict(W=W, RT=RT, QP=QP, q=q, e=e, q2=q2, sc_mch=sc_mch,
+              sc_mis=sc_mis, sc_N=sc_N)
+    if qr.device.type == "cpu":
+        p, ez = exts2_batch_plain(qr, sf, dn, ac, lens, **kw)
+        return p, _ez_dead(ez, lens, G, RB, RT)
+    _build.require_cuda("exts2_batch", qr, sf, dn, ac, lens)
+    if qr.dtype != torch.uint8 or sf.dtype != torch.uint8 \
+            or dn.dtype != torch.int8 or ac.dtype != torch.int8 \
+            or lens.dtype != torch.int32:
+        raise ValueError("exts2: uint8 qr/sf, int8 dn/ac and int32 lens")
+    p = torch.empty((N, RT, W), dtype=torch.uint8, device=qr.device)
+    ez = torch.empty((N, EZ_N), dtype=torch.int32, device=qr.device)
+    err = _build.lib().mm2_exts2(
+        qr.data_ptr(), sf.data_ptr(), dn.data_ptr(), ac.data_ptr(),
+        lens.data_ptr(), p.data_ptr(), ez.data_ptr(), N, QP, TP, W, RT, q, e,
+        q2, *long_thres_of(q, e, q2), sc_mch, sc_mis, sc_N,
+        _build.stream_ptr(qr))
+    _build.check(err, "mm2_exts2")
+    _build.launches["exts2"] += 1
+    return p, _ez_dead(ez, lens, G, RB, RT)

@@ -1,14 +1,16 @@
-"""Row-wise 3-plane bitonic sort: CUDA kernel and its plain version.
+"""Row-wise bitonic sorts: CUDA kernels and their plain versions.
 
-Counterpart of minimap2_tpu.ops.sort_pallas.sort3_rows (sort_pallas.py:
-22-73) and sort3_chunked (:76-97): each row is sorted ascending by the
-lexicographic (k1, k2, k3) u32 triple.  The planes are int32 tensors
-holding u32 bit patterns.  Every plane takes part in the key, so any
-correct sort gives the same planes; the plain version runs the same
+Counterparts of minimap2_tpu.ops.sort_pallas.sort3_rows (sort_pallas.py:
+22-73), sort3_chunked (:76-97) and sort1_rows (:120-138, kernel
+``_sort1_kernel`` :100): each row is sorted ascending by the lexicographic
+(k1, k2, k3) u32 triple, or by one u32 plane.  The planes are int32
+tensors holding u32 bit patterns.  Every plane takes part in the key, so
+any correct sort gives the same planes; the plain versions run the same
 bitonic network (partner = i ^ j) in torch.
 
-``sort3_rows`` launches the kernel (csrc/sort3.cu) for CUDA tensors and
-runs ``sort3_rows_plain`` for CPU tensors.
+``sort3_rows`` / ``sort1_rows`` launch their kernels (csrc/sort3.cu,
+csrc/sort1.cu) for CUDA tensors and run ``sort3_rows_plain`` /
+``sort1_rows_plain`` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -18,19 +20,22 @@ from ..utils.u32 import i32, u32
 from . import _build
 
 MAX_WIDTH = 16384      # A * 12 bytes of shared memory per row (192 KB)
+SORT1_MAX_WIDTH = 32768  # A * 4 bytes of shared memory per row (128 KB)
 
 
 def _lex_gt(a, b):
-    """(a1, a2, a3) > (b1, b2, b3), lexicographic."""
-    return (a[0] > b[0]) | ((a[0] == b[0])
-                            & ((a[1] > b[1]) | ((a[1] == b[1])
-                                               & (a[2] > b[2]))))
+    """(a1, ..., an) > (b1, ..., bn), lexicographic."""
+    gt = a[-1] > b[-1]
+    for x, y in zip(a[-2::-1], b[-2::-1]):
+        gt = (x > y) | ((x == y) & gt)
+    return gt
 
 
-def sort3_rows_plain(k1, k2, k3):
-    """Bitonic network on (B, A) planes, A a power of two."""
-    B, A = k1.shape
-    planes = [u32(x) for x in (k1, k2, k3)]
+def _bitonic_rows_plain(*keys):
+    """Bitonic network on (B, A) planes, A a power of two, ascending by the
+    lexicographic tuple of the planes."""
+    B, A = keys[0].shape
+    planes = [u32(x) for x in keys]
     kk = 2
     while kk <= A:
         j = kk >> 1
@@ -41,7 +46,7 @@ def sort3_rows_plain(k1, k2, k3):
             v = [x.view(B, A // (2 * j), 2, j) for x in planes]
             lo = [x[:, :, 0] for x in v]
             hi = [x[:, :, 1] for x in v]
-            q = torch.arange(A // (2 * j), device=k1.device)
+            q = torch.arange(A // (2 * j), device=keys[0].device)
             asc = (((q * 2 * j) & kk) == 0)[None, :, None]
             swap = torch.where(asc, _lex_gt(lo, hi), _lex_gt(hi, lo))
             planes = [torch.stack([torch.where(swap, h, l),
@@ -51,6 +56,37 @@ def sort3_rows_plain(k1, k2, k3):
             j >>= 1
         kk <<= 1
     return tuple(i32(x) for x in planes)
+
+
+def sort3_rows_plain(k1, k2, k3):
+    """Plain version of sort3_rows."""
+    return _bitonic_rows_plain(k1, k2, k3)
+
+
+def sort1_rows_plain(k1):
+    """Plain version of sort1_rows."""
+    return _bitonic_rows_plain(k1)[0]
+
+
+def sort1_rows(k1):
+    """Row-wise ascending sort of one u32 plane (int32 bit pattern, shape
+    (B, A), A a power of two): the HPC run-end compaction."""
+    B, A = k1.shape
+    if A & (A - 1) or A < 2:
+        raise ValueError(f"sort1_rows: width {A} is not a power of two")
+    if k1.device.type == "cpu":
+        return sort1_rows_plain(k1)
+    _build.require_cuda("sort1_rows", k1)
+    if k1.dtype != torch.int32:
+        raise ValueError("sort1_rows: one (B, A) int32 plane")
+    if A > SORT1_MAX_WIDTH:
+        raise ValueError(f"sort1_rows: width {A} > {SORT1_MAX_WIDTH}")
+    out = torch.empty_like(k1)
+    err = _build.lib().mm2_sort1(k1.data_ptr(), out.data_ptr(), B, A,
+                                 _build.stream_ptr(k1))
+    _build.check(err, "mm2_sort1")
+    _build.launches["sort1"] += 1
+    return out
 
 
 def sort3_rows(k1, k2, k3):

@@ -8,7 +8,9 @@ to the host: only the populated prefix of the one-op-per-diagonal plane
 does.  The path is gated statistically, not byte-for-byte against
 minimap2's align.c: chain-internal z-drop splits and end extensions are
 approximated by the global band, and the host trims and audits the result
-(engine.batch_build_regs).
+(engine.batch_build_regs).  With -x splice, SpliceAlignBatcher runs each
+job through the unbanded exts2 kernel twice, once per transcript strand,
+and the splice-mode traceback labels introns N.
 """
 from __future__ import annotations
 
@@ -16,10 +18,11 @@ import numpy as np
 import torch
 
 from .. import native
-from ..config import MM_F_SR
+from ..config import MM_F_SPLICE_OLD, MM_F_SR
 from ..map.align_engine import fix_cigar
 from ..map.hit import Extra, Reg
-from ..ops.extend import extd2_batch2
+from ..ops.extend import EZ_SCORE, extd2_batch2
+from ..ops.exts import exts2_batch, long_thres_of, splice_site_arrays
 from ..ops.traceback import decode_ops, traceback_batch
 from .engine import _mapq
 
@@ -45,6 +48,28 @@ def _align_step(qr, sf, lens, *, G, W, RB, R, QP, TP, q, e, q2, e2, w,
     return traceback_batch(p, lens, RB=RB, w=w)
 
 
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _pack_jobs(ab, chunk):
+    """(qr, sf, lens) host arrays of one sub-batch of (qseg, rid, rs, re)
+    jobs: reversed queries, targets, and lens (1, 1) for the pad jobs."""
+    qr = np.zeros((ab.sub, ab.QP), np.uint8)
+    sf = np.zeros((ab.sub, ab.TP), np.uint8)
+    lens = np.ones((ab.sub, 2), np.int32)
+    for i, (qseg, rid, rs, re_) in enumerate(chunk):
+        qr[i, :len(qseg)] = qseg[::-1]
+        off = int(ab.seq_off[rid])
+        tseg = ab.S[off + rs:off + re_]
+        sf[i, :len(tseg)] = tseg
+        lens[i] = (len(qseg), len(tseg))
+    return qr, sf, lens
+
+
 class AlignBatcher:
     """Aligns (read segment, reference interval) jobs in fixed-shape
     sub-batches of ``sub`` jobs on ``device``."""
@@ -68,27 +93,14 @@ class AlignBatcher:
         return (0 < qlen_seg <= self.QP and 0 < tlen_seg <= self.TP
                 and abs(qlen_seg - tlen_seg) <= self.w - 48)
 
-    def upload(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def dispatch(self, chunk):
         """Enqueue one sub-batch of (qseg, rid, rs, re) jobs; returns the
         (ops, fin) device tensors without waiting for them."""
-        qr = np.zeros((self.sub, self.QP), np.uint8)
-        sf = np.zeros((self.sub, self.TP), np.uint8)
-        lens = np.ones((self.sub, 2), np.int32)
-        for i, (qseg, rid, rs, re_) in enumerate(chunk):
-            qr[i, :len(qseg)] = qseg[::-1]
-            off = int(self.seq_off[rid])
-            tseg = self.S[off + rs:off + re_]
-            sf[i, :len(tseg)] = tseg
-            lens[i] = (len(qseg), len(tseg))
+        qr, sf, lens = (_upload(a, self.device)
+                        for a in _pack_jobs(self, chunk))
         o = self.opt
         return _align_step(
-            self.upload(qr), self.upload(sf), self.upload(lens), G=self.G,
+            qr, sf, lens, G=self.G,
             W=self.W, RB=self.RB, R=self.R, QP=self.QP, TP=self.TP, q=o.q,
             e=o.e, q2=o.q2, e2=o.e2, w=self.w, sc_mch=o.a, sc_mis=-abs(o.b))
 
@@ -118,6 +130,87 @@ class AlignBatcher:
         while inflight:
             n, fut = inflight.pop(0)
             out.extend(self.collect(fut, n))
+        return out
+
+
+class SpliceAlignBatcher:
+    """Splice-aware alignment for --batch -x splice: per sub-batch the
+    exts2 kernel runs the two-round transcript-strand trial of
+    mm_align_skeleton (align.c:1068-1096), once with the SPLICE_FOR donor /
+    acceptor planes and once with SPLICE_REV, and per job the round with
+    the higher score gives the CIGAR (with N introns), the transcript
+    strand and the score.  Unbanded: W = QP + 32 lanes rounded up to 128
+    cover every diagonal's valid cells."""
+
+    def __init__(self, mi, opt, mat=None, *, device, QP=2048, TP=8192, G=8,
+                 RB=64, sub=32):
+        self.mi = mi
+        self.opt = opt
+        self.device = torch.device(device)
+        self.QP, self.TP = QP, TP
+        self.G, self.RB, self.sub = G, RB, sub
+        self.W = (QP + 32 + 127) // 128 * 128
+        self.R = (QP + TP + RB - 1) // RB * RB
+        self.S = np.asarray(mi.S, np.uint8)
+        self.seq_off = np.array([s.offset for s in mi.seq] or [0], np.int64)
+        self.cmplx = not (opt.flag & MM_F_SPLICE_OLD)
+        self.long_thres = long_thres_of(opt.q, opt.e, opt.q2)[0]
+        # sc_N from the scoring matrix's ambiguous entry (ksw2_exts.py:128)
+        self.sc_N = -opt.e if (mat is None or int(mat[-1]) == 0) \
+            else int(mat[-1])
+
+    def fits(self, qlen_seg: int, tlen_seg: int) -> bool:
+        return 0 < qlen_seg <= self.QP and 0 < tlen_seg <= self.TP
+
+    def dispatch_round(self, qr, sf, lens, flag_for: bool):
+        """One strand round of a packed sub-batch: exts2 then the
+        splice-mode traceback; (ops, fin, ez) on the device."""
+        o = self.opt
+        dn, ac = splice_site_arrays(sf, lens[:, 1], flag_for, o.noncan,
+                                    self.cmplx, False)
+        qr_t, sf_t, dn_t, ac_t, lens_t = (_upload(a, self.device)
+                                          for a in (qr, sf, dn, ac, lens))
+        p, ez = exts2_batch(
+            qr_t, sf_t, dn_t, ac_t, lens_t, G=self.G, W=self.W, RB=self.RB,
+            R=self.R, QP=self.QP, TP=self.TP, q=o.q, e=o.e, q2=o.q2,
+            zdrop=-1, right_mode=False, approx_max=True, approx_drop=False,
+            sc_mch=o.a, sc_mis=-abs(o.b), sc_N=self.sc_N, with_cigar=True)
+        ops, fin = traceback_batch(p, lens_t, RB=self.RB, w=0, splice=True,
+                                   QP=self.QP)
+        return ops, fin, ez
+
+    def fetch_round(self, rnd):
+        """Download one round: fin and ez, then the ops columns up to the
+        last populated one."""
+        ops, fin, ez = rnd
+        fin = fin.cpu().numpy()
+        mx = _ops_extent(ops)
+        return ops[:, :max(mx, 1)].cpu().numpy(), fin, ez.cpu().numpy()
+
+    def align_jobs(self, jobs):
+        """Returns [(cigar, trans_strand, score)] per job: the better of
+        the FOR / REV rounds, a tie giving ts = 3 and the round of
+        mm_align_skeleton's pseudo-random pick (align.c:1078-1080)."""
+        out = []
+        for lo in range(0, len(jobs), self.sub):
+            chunk = jobs[lo:lo + self.sub]
+            packed = _pack_jobs(self, chunk)
+            rounds = [self.fetch_round(self.dispatch_round(*packed, ff))
+                      for ff in (True, False)]
+            for i in range(len(chunk)):
+                sc_f = int(rounds[0][2][i, EZ_SCORE])
+                sc_r = int(rounds[1][2][i, EZ_SCORE])
+                if sc_f > sc_r:
+                    ridx, ts = 0, 1
+                elif sc_f < sc_r:
+                    ridx, ts = 1, 2
+                else:
+                    ts = 3
+                    ridx = (len(chunk[i][0]) + sc_f) & 1
+                ops, fin, ez = rounds[ridx]
+                cig = decode_ops(ops[i], int(fin[i, 0]), int(fin[i, 1]),
+                                 splice=True, long_thres=self.long_thres)
+                out.append((cig, ts, int(ez[i, EZ_SCORE])))
         return out
 
 
@@ -165,8 +258,9 @@ def build_reg(mi, opt, mat, qlen, qseg, rec, cigar, rep_len, reg_id=0,
     """Chain record + device cigar -> a Reg the SAM/PAF writers accept.
 
     rec: dict with keys sc, sub, cnt, rev, rid, qs, qe, rs, re in STRAND
-    coordinates (qs/qe on the aligned strand).  parent != reg_id marks a
-    secondary of that parent chain (tp:A:S, SAM 0x100, mapq 0)."""
+    coordinates (qs/qe on the aligned strand), and on the splice path ts
+    (transcript strand) and dsc (device DP score).  parent != reg_id marks
+    a secondary of that parent chain (tp:A:S, SAM 0x100, mapq 0)."""
     r = Reg()
     r.id = reg_id
     r.parent = reg_id if parent is None else parent
@@ -202,6 +296,13 @@ def build_reg(mi, opt, mat, qlen, qseg, rec, cigar, rep_len, reg_id=0,
     r.blen, r.mlen, p.n_ambi = blen, mlen, n_ambi
     r.is_spliced = bool(spliced) or r.is_spliced
     p.dp_max = p.dp_max0 = p.dp_score = dp_max
+    if "dsc" in rec:            # the device DP score of the splice path:
+        p.dp_score = int(rec["dsc"])      # the AS:i of the ksw run
+    if r.is_spliced and p.trans_strand:   # align.c:1090-1094
+        if p.trans_strand in (1, 2):
+            p.dp_max += (opt.a + opt.b) + ((opt.a + opt.b) >> 1)
+        elif p.trans_strand == 3:
+            p.dp_max -= opt.a + opt.b
     r.div = -1.0
     return r
 

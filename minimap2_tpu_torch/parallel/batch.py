@@ -22,7 +22,7 @@ from torch import nn
 from .. import resolve_device
 from ..ops.chain import NEG_INF, comput_sc, last_valid
 from ..ops.sketch import hash64_t
-from ..ops.sort import sort3_chunked, sort3_rows
+from ..ops.sort import sort1_rows, sort3_chunked, sort3_rows
 from ..utils.u32 import M32, i32, u32, umax_where
 
 
@@ -55,7 +55,7 @@ def _mulhi_u32(a: torch.Tensor, nb: int) -> torch.Tensor:
 class BatchParams:
     """Fixed shapes + chaining scores for one mapping step (the PAF
     fields of minimap2_tpu.parallel.batch.BatchParams, same defaults;
-    HPC and the RMQ tier are later slices)."""
+    the RMQ tier is a later slice)."""
     k: int = 15
     w: int = 10
     L: int = 2048          # max read length in batch
@@ -70,6 +70,7 @@ class BatchParams:
     chn_pen_skip: float = 0.0
     # long-join rescue (map.c:283-292) band; 0 = off
     bw_long: int = 0
+    hpc: bool = False      # homopolymer-compressed minimizers (map-pb, -H)
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +350,32 @@ def _compact_minimizers(hhi, hlo, strand, is_mini, M: int):
     return mh_hi, mh_lo, mz, mpos, mvalid
 
 
+def hpc_compact(codes, lens):
+    """Homopolymer-run compression (sketch.c:94-105 HPC mode), the sort1
+    route of the JAX package's hpc_compact (batch.py:873-910).  Each run
+    contributes one symbol at the position of its LAST base.  Returns
+    (hcodes (B, L) uint8, 4 past the compacted read; hpos (B, L) int32 run
+    end positions in the read, L past the compacted read; lc (B,) int32
+    compacted lengths).  Spans >= 256 are not dropped (the reference drops
+    such k-mers; the span plane clips them)."""
+    B, L = codes.shape
+    dev = codes.device
+    posi = torch.arange(L, device=dev, dtype=torch.int32)[None, :]
+    c32 = codes.to(torch.int32)
+    nxt = torch.cat([c32[:, 1:], c32.new_full((B, 1), 4)], dim=1)
+    ln = lens.to(torch.int32)[:, None]
+    run_end = (posi < ln) & ((c32 != nxt) | (posi == ln - 1))
+    lc = run_end.sum(1, dtype=torch.int32)
+    A = 1 << (L - 1).bit_length()
+    key = torch.where(run_end, posi, KEY_NONE)
+    if A > L:
+        key = torch.cat([key, key.new_full((B, A - L), KEY_NONE)], dim=1)
+    hpos = torch.clamp(sort1_rows(key)[:, :L], max=L)
+    hcodes = torch.where(hpos < L, torch.gather(
+        c32, 1, torch.clamp(hpos, max=L - 1).to(torch.int64)), 4)
+    return hcodes.to(torch.uint8), hpos, lc
+
+
 def _probe_h2r(di: DeviceIndex, mh_hi, mh_lo, mvalid, occ_cap: int):
     """The h2r probe: two row gathers per minimizer -> (start, cnt, flt)
     with cnt zeroed above the occurrence cap and flt marking seeds the
@@ -401,13 +428,15 @@ def _probe_h2r(di: DeviceIndex, mh_hi, mh_lo, mvalid, occ_cap: int):
 
 
 def _lookup_anchors(di: DeviceIndex, mh_hi, mh_lo, mz, mpos, mvalid, qlen,
-                    p: BatchParams):
+                    p: BatchParams, mspan=None):
     """Seed lookup + anchor expansion (seed.c:30-52, map.c:168-204): the
-    h2r branch of the JAX package's _lookup_anchors.  Returns int32 anchor
+    h2r branch of the JAX package's _lookup_anchors.  mspan is the (B, M)
+    query span of each minimizer (k unless HPC).  Returns int32 anchor
     planes sorted by (rev, rid, rpos, qpos) -- rev, rid, rpos, qpos, span
     -- the valid mask, and the per-read rep_len."""
     start, cnt, flt = _probe_h2r(di, mh_hi, mh_lo, mvalid, p.occ_cap)
-    mspan = torch.full_like(mpos, p.k)
+    if mspan is None:
+        mspan = torch.full_like(mpos, p.k)
     return _expand_anchors(di, start, cnt, flt, mz, mpos, mspan, qlen, p)
 
 

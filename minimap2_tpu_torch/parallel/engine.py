@@ -39,7 +39,7 @@ from ..ops.sketch import sketch_batch
 from ..utils.intfloat import SEQ_NT4
 from .batch import (BatchParams, DeviceIndex, _chain_scan,
                     _compact_minimizers, _lookup_anchors, chain_waypoints,
-                    topk_chains)
+                    hpc_compact, topk_chains)
 
 # long-join rescue trigger (map.c:283-292): uncovered query and span ratio
 RESCUE_SIZE = 1000
@@ -77,9 +77,29 @@ class PafStep(nn.Module):
         rpos, qpos, span, av) and rep_len."""
         p = self.p
         codes = unpack_codes(packed, nbits, p.L)
-        hhi, hlo, z, is_mini = sketch_batch(codes, lens, p.k, p.w)
-        front = _compact_minimizers(hhi, hlo, z, is_mini, p.M)
-        return _lookup_anchors(self.di, *front, lens, p)
+        if p.hpc:       # homopolymer-compress, sketch the run stream
+            codes_s, hpos, lens_s = hpc_compact(codes, lens)
+        else:
+            codes_s, lens_s = codes, lens
+        hhi, hlo, z, is_mini = sketch_batch(codes_s, lens_s, p.k, p.w)
+        mh_hi, mh_lo, mz, mpos, mvalid = _compact_minimizers(
+            hhi, hlo, z, is_mini, p.M)
+        mspan = None
+        if p.hpc:
+            # minimizer slots back to read coordinates; the HPC span is
+            # hpos[mc] - hpos[mc - k], the k runs' lengths (sketch.c:
+            # 94-105), clipped to [1, 255] (engine.py:57-70)
+            L = codes.shape[1]
+            mc = torch.clamp(mpos, 0, L - 1).to(torch.int64)
+            end_orig = torch.gather(hpos, 1, mc)
+            prev_orig = torch.where(
+                mc >= p.k, torch.gather(hpos, 1, torch.clamp(mc - p.k, min=0)),
+                -1)
+            mspan = torch.where(mvalid, torch.clamp(end_orig - prev_orig, 1,
+                                                    255), p.k).to(torch.int32)
+            mpos = torch.where(mvalid, end_orig, L)
+        return _lookup_anchors(self.di, mh_hi, mh_lo, mz, mpos, mvalid, lens,
+                               p, mspan=mspan)
 
     def run_chain(self, planes, bw: int, max_dist: int):
         p = self.p
@@ -217,11 +237,8 @@ def _bw_long(opt) -> int:
 
 def batch_params(mi, opt, L: int) -> BatchParams:
     """The CLI's step shapes and scores (engine.py:253-263 of the JAX
-    package): M = max(256, L // 4), A = 4096, chain window 64."""
-    if mi.flag & MM_I_HPC:
-        raise NotImplementedError(
-            "HPC minimizers (-H, map-pb, map-hifi) need hpc_compact and "
-            "sort1_rows: a later slice")
+    package): M = max(256, L // 4), A = 4096, chain window 64; HPC
+    minimizers when the index has them."""
     if opt.flag & MM_F_RMQ:
         raise NotImplementedError(
             "MM_F_RMQ (asm, lr:hqae, --rmq) needs the RMQ tier: a later slice")
@@ -229,7 +246,7 @@ def batch_params(mi, opt, L: int) -> BatchParams:
                        occ_cap=_occ_cap(opt), chain_window=64,
                        k=mi.k, w=mi.w, max_dist_x=opt.max_gap,
                        max_dist_y=opt.max_gap, bw=opt.bw,
-                       bw_long=_bw_long(opt))
+                       bw_long=_bw_long(opt), hpc=bool(mi.flag & MM_I_HPC))
 
 
 def dispatch_batch(step: PafStep, seqs, p: BatchParams,
@@ -461,12 +478,15 @@ def _merge_cigar(cig):
     return out
 
 
-def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode):
+def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode,
+                     splice_mode=False):
     """Chain records + device CIGARs -> per-read Reg lists.
 
     map_out is the PafStep output: the (10, K, B) records, or (records,
-    (2, B, WP) waypoints).  Returns (by_read: id(rec) -> (rec, [Reg...]),
-    fallback [(rec, cause)], unmapped [rec], fb_ids).  A fallback read is
+    (2, B, WP) waypoints).  With splice_mode, ab is a SpliceAlignBatcher
+    whose jobs come back as (cigar, transcript strand, score).  Returns
+    (by_read: id(rec) -> (rec, [Reg...]), fallback [(rec, cause)],
+    unmapped [rec], fb_ids).  A fallback read is
     one the JAX package maps on its host parity path, which the port does
     not carry; its causes are "oversize" (an extent segment exceeds the
     DP shape), "empty cigar", "stitch" (a segmented extent failed its
@@ -479,7 +499,6 @@ def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode):
         wp = wp_t.cpu().numpy()              # (2, B, WP) [wq, wr]
     arr = map_out.cpu().numpy()
     sc, sub, qs, qe, rs, re_, rev, rid, cnt, rep = arr
-    w_thr = max(ab.w // 2, 64)
     jobs, jmeta = [], []
     fallback, unmapped = [], []
     for b, rec in enumerate(recs):
@@ -533,7 +552,7 @@ def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode):
             if k == 0 and wp is not None:
                 segs, joints = split_extent(
                     qs_, qe_, rs_, re2, wp[0, b], wp[1, b],
-                    w_thr, ab.QP, ab.TP)
+                    max(ab.w // 2, 64), ab.QP, ab.TP)
             if not all(ab.fits(qb - qa, rb - ra)
                        for qa, ra, qb, rb in segs):
                 if k == 0:
@@ -562,10 +581,16 @@ def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode):
         n_seg = len(segs)
         cres_list = cigs[ci_:ci_ + n_seg]
         ci_ += n_seg
-        cig = cres_list[0]
-        if any(not c for c in cres_list):
-            fall_back(rec, k, "empty cigar")
-            continue
+        if splice_mode:         # one segment: (cigar, ts, device score)
+            cig, ts_, dsc_ = cres_list[0]
+            if meta["rev"] and ts_:
+                ts_ ^= 3        # flip to the read strand (align.c:907)
+            meta = dict(meta, ts=ts_, dsc=dsc_)
+        else:
+            cig = cres_list[0]
+            if any(not c for c in cres_list):
+                fall_back(rec, k, "empty cigar")
+                continue
         if n_seg > 1:
             cig, meta2 = _stitch_segments(ab, opt, mat, meta, segs, joints,
                                           cres_list, qseg)
@@ -580,9 +605,11 @@ def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode):
                         ab.seq_off[meta["rid"]] + meta["re"]]
             # 1) trim the forced global path at its max-scoring sub-path
             #    (the reference's extensions STOP at the max score,
-            #    align.c:779-890): junk ends and over-extension fall off
+            #    align.c:779-890): junk ends and over-extension fall off;
+            #    the intron penalty is the flat q2 (e2 = 0) in splice mode
             q0, t0, q1, t1, _bsc, tcig = native.cigar_kadane_trim(
-                qseg, tseg, cig, mat, 5, opt.q, opt.e, opt.q2, opt.e2,
+                qseg, tseg, cig, mat, 5, opt.q, opt.e, opt.q2,
+                0 if splice_mode else opt.e2,
                 end_bonus=max(opt.end_bonus, 0))
             if not tcig:
                 fall_back(rec, k, "kadane")
@@ -596,10 +623,12 @@ def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode):
                 qseg = qseg[q0:q1]
                 tseg = tseg[t0:t1]
                 cig = tcig
-            if k == 0 and id(rec) not in fb_ids and opt.zdrop > 0:
+            if k == 0 and id(rec) not in fb_ids and opt.zdrop > 0 \
+                    and not splice_mode:
                 # 2) post-hoc z-drop audit (mm_test_zdrop align.c:61-103,
                 #    applied at :843-868): an internal drop means the
-                #    reference would split the chain
+                #    reference would split the chain (not in splice mode:
+                #    the flat-gap scan would read introns as deletions)
                 mz, _pos = native.zdrop_scan(qseg, tseg, cig, mat, 5, opt.q,
                                              opt.e)
                 if mz > opt.zdrop:
@@ -637,15 +666,14 @@ def run_batched_align_cli(mi, opt, queries, out, batch_reads: int = 512,
                           device=None):
     """--batch with -c/-a: device mapping + device base-level alignment.
 
-    The mapping step (with secondaries and waypoints) picks each read's
-    chains, then their extents run through extd2 + traceback on the device
-    (AlignBatcher, QP = L, TP = L + 512 unless align_kw says otherwise).
-    Returns (reads, [(name, cause)] of the fallback reads)."""
-    from .align_batch import AlignBatcher
-    if opt.flag & MM_F_SPLICE:
-        raise NotImplementedError("spliced alignment (SpliceAlignBatcher, "
-                                  "exts2_batch) is a later slice of the "
-                                  "PyTorch/CUDA port")
+    The mapping step (with secondaries, and waypoints outside splice mode)
+    picks each read's chains, then their extents run through extd2 +
+    traceback on the device (AlignBatcher, QP = L, TP = L + 512 unless
+    align_kw says otherwise), or with -x splice through the two-round exts2
+    + splice traceback (SpliceAlignBatcher, QP = min(L, 2048), TP = 8192;
+    align_kw's QP, TP, G, RB and sub apply).  Returns (reads, [(name,
+    cause)] of the fallback reads)."""
+    from .align_batch import AlignBatcher, SpliceAlignBatcher
     if opt.flag & MM_F_EQX:
         raise NotImplementedError("--eqx (mm_update_cigar_eqx) is a later "
                                   "slice of the PyTorch/CUDA port")
@@ -653,11 +681,21 @@ def run_batched_align_cli(mi, opt, queries, out, batch_reads: int = 512,
     # with secondaries, each selection round yields [primary, overlapping
     # secondary] slot pairs (mm_select_sub, hit.c:255-281)
     sec_mode = opt.best_n > 0 and opt.pri_ratio > 0
+    splice_mode = bool(opt.flag & MM_F_SPLICE)
+    # waypoints feed the anchored decomposition (genomic modes only: the
+    # splice path's introns are the exts2 kernel's business)
     step = PafStep(DeviceIndex.from_host(mi, dev), batch_params(mi, opt, L),
                    K=3 if sec_mode else 1, min_sc=opt.min_chain_score,
-                   with_sec=sec_mode, with_wp=True)
-    ab = AlignBatcher(mi, opt, device=dev,
-                      **{"QP": L, "TP": L + 512, **(align_kw or {})})
+                   with_sec=sec_mode, with_wp=not splice_mode)
+    if splice_mode:
+        skw = {k: v for k, v in (align_kw or {}).items()
+               if k in ("QP", "TP", "G", "RB", "sub")}
+        ab = SpliceAlignBatcher(
+            mi, opt, gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi),
+            device=dev, **{"QP": min(L, 2048), "TP": 8192, **skw})
+    else:
+        ab = AlignBatcher(mi, opt, device=dev,
+                          **{"QP": L, "TP": L + 512, **(align_kw or {})})
     return align_queries(step, ab, mi, opt, queries, out, batch_reads)
 
 
@@ -679,7 +717,8 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
         nonlocal n_reads
         n_reads += len(recs)
         by_read, fallback, unmapped, fb_ids = batch_build_regs(
-            recs, map_out, ab, mi, opt, mat, step.with_sec)
+            recs, map_out, ab, mi, opt, mat, step.with_sec,
+            bool(opt.flag & MM_F_SPLICE))
         for rec, regs in by_read.values():
             if id(rec) in fb_ids or not regs:
                 continue

@@ -200,7 +200,8 @@ def test_cli_options_match_jax(conc_world, monkeypatch, opts):
 
 
 @pytest.mark.parametrize("opts", [
-    ["--batch", "-H"], ["--batch", "-c", "--eqx"], ["--batch", "-x", "splice"],
+    ["--batch", "-x", "splice:sr"], ["--batch", "-c", "--eqx"],
+    ["--batch", "-x", "splice", "--junc-bed", "junc.bed"],
     ["--batch", "-x", "asm5"], ["--batch", "-x", "sr"], ["-x", "map-ont"],
 ])
 def test_cli_off_slice_options_raise(conc_world, opts):

@@ -1,0 +1,324 @@
+"""The port's spliced alignment path (-x splice) vs the JAX package,
+tolerance 0:
+
+(a) splice_site_arrays (both strands, both site models);
+(b) exts2_batch_plain vs exts_pallas.exts2_batch in interpret mode: p and
+    ez bit-equal, on pairs with planted GT..AG / CT..AC introns, N codes,
+    N not a multiple of G, and pairs that end on a chunk boundary inside
+    and at the end of their group (the EZ_DEAD lane);
+(c) the splice-mode traceback plain vs traceback_batch(splice=True) in
+    interpret mode, and decode_ops with long_thres;
+(d) run_batched_align_cli -x splice: PAF (cg:Z, ts:A, AS:i) and SAM
+    byte-identical to the JAX package's on tests/data/x3s-* and on
+    simulated 3-4 exon cDNA of both strands (splice, splice:hq, cdna); the
+    CLI's --batch -x splice PAF and -a SAM.
+"""
+import functools
+import io
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import minimap2_tpu.cli as jax_cli
+import minimap2_tpu.map.driver as jax_driver
+import minimap2_tpu.parallel.engine as jax_engine
+from minimap2_tpu import config as jax_config
+from minimap2_tpu.index.index import MiniIndex as JaxMiniIndex
+from minimap2_tpu.io.fastx import read_fasta as jax_read_fasta
+from minimap2_tpu.ops import exts_pallas, traceback_pallas
+import minimap2_tpu_torch.cli as port_cli
+from minimap2_tpu_torch import config as port_config
+from minimap2_tpu_torch.index.index import MiniIndex
+from minimap2_tpu_torch.ops import exts, traceback
+from minimap2_tpu_torch.parallel import engine
+
+jax.config.update("jax_platforms", "cpu")
+
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+Q, E, Q2, NONCAN = 2, 1, 32, 9
+# (qlen, tlen): #2 ends on a chunk boundary (qlen + tlen - 1 = 256 = 8 * 32)
+# inside its group (pair 0 is longer); #8 (224) is the longest of the last
+# group for G = 4 and G = 8; #5 has the longer query, #6 is 1 x 1
+LENS = [(90, 300), (60, 150), (80, 177), (40, 44), (96, 250), (70, 60),
+        (1, 1), (50, 200), (64, 161), (30, 100), (45, 90)]
+
+
+def _spliced_pairs(seed, lens_list, QP, TP):
+    """Pairs of the given lengths: a planted canonical intron of tlen -
+    qlen bases (GT..AG on even pairs, CT..AC on odd ones) where that is
+    >= 20, else the query with indels; 3% substitutions, N runs."""
+    rng = np.random.default_rng(seed)
+    N = len(lens_list)
+    qr = np.zeros((N, QP), np.uint8)
+    sf = np.zeros((N, TP), np.uint8)
+    lens = np.array(lens_list, np.int32)
+    for n, (ql, tl) in enumerate(lens_list):
+        q = rng.integers(0, 4, ql).astype(np.uint8)
+        intron = tl - ql
+        if intron >= 20:
+            ex1 = int(rng.integers(min(10, ql - 1), max(ql - 10, 11)))
+            iv = rng.integers(0, 4, intron).astype(np.uint8)
+            if n % 2 == 0:
+                iv[:2], iv[-2:] = (2, 3), (0, 2)        # GT..AG
+            else:
+                iv[:2], iv[-2:] = (1, 3), (0, 1)        # CT..AC
+            t = np.concatenate([q[:ex1], iv, q[ex1:]])
+        else:
+            t = np.concatenate([q, rng.integers(0, 4, max(intron, 0))])
+            t = np.delete(t, rng.integers(0, len(t), max(-intron, 0)))[:tl]
+        t = t.astype(np.uint8)
+        mm = rng.random(ql) < 0.03
+        q[mm] = (q[mm] + 1) % 4
+        if n % 4 == 3 and ql > 12:
+            q[5:9] = 4
+        if n % 4 == 1 and tl > 12:
+            t[3:6] = 4
+        qr[n, :ql] = q[::-1]
+        sf[n, :tl] = t
+    return qr, sf, lens
+
+
+def _jax_p(p, N):
+    NG, RC, RB, G, W = p.shape
+    return np.asarray(p).transpose(0, 3, 1, 2, 4).reshape(
+        NG * G, RC * RB, W)[:N]
+
+
+@pytest.mark.parametrize("flag_for", [True, False])
+@pytest.mark.parametrize("cmplx", [True, False])
+def test_splice_site_arrays_match_jax(flag_for, cmplx):
+    rng = np.random.default_rng(5)
+    ts = rng.integers(0, 5, (6, 300)).astype(np.uint8)
+    tl = np.array([300, 150, 64, 5, 1, 299], np.int32)
+    for flank in (False, True):
+        got = exts.splice_site_arrays(ts, tl, flag_for, NONCAN, cmplx, flank)
+        want = exts_pallas.splice_site_arrays(ts, tl, flag_for, NONCAN,
+                                              cmplx, flank)
+        for g, w in zip(got, want):
+            assert g.dtype == np.int8
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("flag_for,G,sc_N", [(True, 8, -1), (False, 4, -2)])
+def test_exts2_and_traceback_match_jax(flag_for, G, sc_N):
+    QP, TP, W, RB = 96, 320, 128, 32
+    R = QP + TP
+    qr, sf, lens = _spliced_pairs(7 + G, LENS, QP, TP)
+    dn, ac = exts.splice_site_arrays(sf, lens[:, 1], flag_for, NONCAN, True,
+                                     False)
+    kw = dict(G=G, W=W, RB=RB, R=R, QP=QP, TP=TP, q=Q, e=E, q2=Q2, zdrop=-1,
+              right_mode=False, approx_max=True, approx_drop=False,
+              sc_mch=1, sc_mis=-2, sc_N=sc_N, with_cigar=True)
+    jp, jez = exts_pallas.exts2_batch(qr, sf, dn, ac, lens, interpret=True,
+                                      **kw)
+    p, ez = exts.exts2_batch(*(torch.from_numpy(x)
+                               for x in (qr, sf, dn, ac, lens)), **kw)
+    N = len(LENS)
+    want_ez = np.asarray(jez)
+    np.testing.assert_array_equal(ez.numpy(), want_ez)
+    np.testing.assert_array_equal(p.numpy(), _jax_p(jp, N))
+    RT = p.shape[1]
+    # the chunk-boundary pairs: EZ_DEAD set inside its group, not at the end
+    assert (int(want_ez[2, exts_pallas.EZ_NR]), int(want_ez[8,
+            exts_pallas.EZ_NR])) == (256, 224)
+    assert want_ez[2, exts_pallas.EZ_DEAD] == 1
+    assert want_ez[8, exts_pallas.EZ_DEAD] == 0
+
+    jops, jfin = traceback_pallas.traceback_batch(
+        jp, jnp.asarray(lens), G=G, W=W, RB=RB, R=R, w=0, splice=True, QP=QP,
+        interpret=True)
+    ops, fin = traceback.traceback_batch(p, torch.from_numpy(lens), RB=RB,
+                                         w=0, splice=True, QP=QP)
+    np.testing.assert_array_equal(ops.numpy(), np.asarray(jops)[:, :RT])
+    np.testing.assert_array_equal(fin.numpy(), np.asarray(jfin))
+    lt, _ = exts.long_thres_of(Q, E, Q2)
+    n_intron = 0
+    for i in range(N):
+        args = (ops.numpy()[i], int(fin[i, 0]), int(fin[i, 1]))
+        for spl in (False, True):
+            got = traceback.decode_ops(*args, splice=spl, long_thres=lt)
+            assert got == traceback_pallas.decode_ops(
+                *args, splice=spl, long_thres=lt)
+        n_intron += any((c & 0xF) == 3 for c in got)
+    assert n_intron >= 4                       # the planted introns
+
+
+def test_decode_ops_leading_intron():
+    """A leftover i >= long_thres becomes a leading N in splice mode."""
+    ops = np.array([1, 0, 1, 2, 4, 4, 1, 3, 1], np.uint8)
+    for fin_i, fin_j in ((40, -1), (5, -1), (-1, 3), (40, 2)):
+        for spl in (False, True):
+            args = (ops, fin_i, fin_j)
+            assert traceback.decode_ops(*args, splice=spl, long_thres=29) \
+                == traceback_pallas.decode_ops(*args, splice=spl,
+                                               long_thres=29)
+    assert traceback.decode_ops(ops, 40, -1, splice=True,
+                                long_thres=29)[0] == (41 << 4 | 3)
+
+
+def test_exts2_modes_off_the_path_raise():
+    x = torch.zeros((1, 96), dtype=torch.uint8)
+    t = torch.zeros((1, 128), dtype=torch.uint8)
+    d = torch.zeros((1, 128), dtype=torch.int8)
+    lens = torch.ones((1, 2), dtype=torch.int32)
+    kw = dict(G=8, W=128, RB=32, R=224, QP=96, TP=128, q=Q, e=E, q2=Q2,
+              zdrop=-1, right_mode=False, approx_max=True, approx_drop=False,
+              sc_mch=1, sc_mis=-2, sc_N=-1)
+    for bad in (dict(zdrop=200), dict(approx_max=False),
+                dict(right_mode=True), dict(approx_drop=True),
+                dict(with_cigar=False)):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            exts.exts2_batch(x, t, d, d, lens, **{**kw, **bad})
+    with pytest.raises(ValueError, match="W >= QP"):
+        exts.exts2_batch(x, t, d, d, lens, **{**kw, "QP": 100})
+
+
+COMP = bytes.maketrans(b"ACGT", b"TGCA")
+KW_X3S = {"QP": 512, "TP": 1024, "sub": 4, "RB": 32}
+KW_SIM = {"QP": 512, "TP": 2048, "sub": 4, "RB": 32}
+
+
+def _sim_genes(seed, n_genes=4):
+    """A 24 kb genome with n_genes planted 3-4 exon genes (canonical
+    GT..AG on the gene's strand, so CT..AC on the forward sequence for -
+    genes) and one cDNA read per gene, in either orientation, with 1%
+    substitutions.  Returns (genome bytes, reads, [(start, end, introns)])."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, 24000).astype(np.uint8)
+    reads, truth = [], []
+    for i in range(n_genes):
+        pos = 1000 + 5500 * i
+        exons = []
+        for j in range(int(rng.integers(3, 5))):
+            ln = int(rng.integers(60, 130))
+            exons.append((pos, pos + ln))
+            pos += ln + int(rng.integers(80, 450))
+        minus = i % 2 == 1
+        introns = [(a[1], b[0]) for a, b in zip(exons, exons[1:])]
+        for st, en in introns:
+            if minus:
+                g[st:st + 2], g[en - 2:en] = (1, 3), (0, 1)     # CT..AC
+            else:
+                g[st:st + 2], g[en - 2:en] = (2, 3), (0, 2)     # GT..AG
+        tx = np.concatenate([g[a:b] for a, b in exons])
+        m = rng.random(len(tx)) < 0.01
+        tx[m] = (tx[m] + 1) % 4
+        seq = ACGT[tx].tobytes()
+        if minus ^ (i % 4 >= 2):
+            seq = seq.translate(COMP)[::-1]
+        reads.append(seq)
+        truth.append((exons[0][0], exons[-1][1], introns))
+    return ACGT[g].tobytes(), reads, truth
+
+
+def _splice_world(names, seqs, flag, preset):
+    """The same index and options in both packages for a splice preset."""
+    out = []
+    for cfg, MI in ((jax_config, JaxMiniIndex), (port_config, MiniIndex)):
+        io_, mo = cfg.IndexOptions(), cfg.MapOptions()
+        cfg.set_opt(preset, io_, mo)
+        mo.flag |= flag
+        mi = MI.build(names, seqs, w=io_.w, k=io_.k, flag=io_.flag)
+        cfg.mapopt_update(mo, mi)
+        out.append((mi, mo))
+    return out
+
+
+def _run_both_splice(monkeypatch, tmp_path, names, seqs, reads, flag, kw,
+                     preset="splice"):
+    """run_batched_align_cli of both packages; the JAX package's host path
+    is patched to record its reads and write nothing."""
+    (jmi, jmo), (pmi, pmo) = _splice_world(names, seqs, flag, preset)
+    fa = tmp_path / "reads.fa"
+    fa.write_text("".join(f">rd{i}\n{s.decode()}\n"
+                          for i, s in enumerate(reads)))
+    host = []
+    monkeypatch.setattr(jax_driver, "map_fragment",
+                        lambda mi, opt, frag: host.extend(
+                            r.name for r in frag) or [])
+    monkeypatch.setattr(jax_driver, "write_fragment", lambda *a, **k: None)
+    want = io.StringIO()
+    jax_engine.run_batched_align_cli(jmi, jmo, [str(fa)], want,
+                                     batch_reads=4, L=512, align_kw=kw)
+    got = io.StringIO()
+    n, fallbacks = engine.run_batched_align_cli(
+        pmi, pmo, [str(fa)], got, batch_reads=4, L=512, align_kw=kw,
+        device="cpu")
+    assert n == len(reads)
+    assert [name for name, _ in fallbacks] == host
+    return want.getvalue(), got.getvalue()
+
+
+@pytest.mark.parametrize("sam", [False, True], ids=["paf", "sam"])
+def test_splice_x3s_matches_jax(monkeypatch, tmp_path, sam):
+    names, seqs = jax_read_fasta("tests/data/x3s-ref.fa")
+    _, qs = jax_read_fasta("tests/data/x3s-qry.fa")
+    flag = jax_config.MM_F_CIGAR | (jax_config.MM_F_OUT_SAM if sam
+                                    else jax_config.MM_F_OUT_CG)
+    want, got = _run_both_splice(monkeypatch, tmp_path, names, seqs,
+                                 list(qs) * 2, flag, KW_X3S)
+    assert got == want
+    t = got.splitlines()[0].split("\t")
+    assert ("N" in t[5]) if sam else any(x.startswith("cg:Z:") and "N" in x
+                                          for x in t)
+
+
+@pytest.mark.parametrize("preset", ["splice", "splice:hq", "cdna"])
+def test_splice_sim_cdna_matches_jax(monkeypatch, tmp_path, preset):
+    """Both strands and orientations: PAF cg:Z / ts:A / AS:i identical,
+    and the planted introns placed exactly."""
+    genome, reads, truth = _sim_genes(3)
+    want, got = _run_both_splice(
+        monkeypatch, tmp_path, ["chrS"], [genome], reads,
+        jax_config.MM_F_CIGAR | jax_config.MM_F_OUT_CG, KW_SIM, preset)
+    assert got == want
+    lines = [ln.split("\t") for ln in got.splitlines()]
+    prim = {t[0]: t for t in lines if "tp:A:P" in t}
+    assert len(prim) == len(reads)
+    n_exact = 0
+    for i, (st, en, introns) in enumerate(truth):
+        t = prim[f"rd{i}"]
+        assert any(x.startswith("ts:A:") for x in t)
+        assert any(x.startswith("AS:i:") for x in t)
+        cg = [x for x in t if x.startswith("cg:Z:")][0][5:]
+        pos, got_in = int(t[7]), []
+        for n_, op in re.findall(r"(\d+)([MIDN])", cg):
+            if op == "N":
+                got_in.append((pos, pos + int(n_)))
+            if op in "MDN":
+                pos += int(n_)
+        n_exact += got_in == introns
+    assert n_exact >= len(truth) - 1
+
+
+def test_cli_splice_matches_jax(monkeypatch, tmp_path):
+    """cli.main --batch -x splice without -c (PAF) and with -a (SAM)."""
+    genome, reads, _ = _sim_genes(5)
+    refpath, rdpath = tmp_path / "ref.fa", tmp_path / "reads.fa"
+    refpath.write_text(f">chrS\n{genome.decode()}\n")
+    rdpath.write_text("".join(f">rd{i}\n{s.decode()}\n"
+                              for i, s in enumerate(reads)))
+    monkeypatch.setattr(jax_driver, "map_fragment",
+                        lambda *a: pytest.fail("host path reached"))
+    for opts in (["-x", "splice"], ["-a", "-x", "splice"]):
+        outs = []
+        for mod, cli, kw in ((jax_engine, jax_cli, {}),
+                             (engine, port_cli, {"device": "cpu"})):
+            monkeypatch.setattr(mod, "run_batched_cli", functools.partial(
+                mod.run_batched_cli, batch_reads=4, L=512))
+            monkeypatch.setattr(mod, "run_batched_align_cli",
+                                functools.partial(mod.run_batched_align_cli,
+                                                  batch_reads=4, L=512,
+                                                  align_kw=KW_SIM))
+            out = tmp_path / "out"      # the same path: the @PG line has it
+            assert cli.main(["--batch", *opts, "-o", str(out), str(refpath),
+                             str(rdpath)], **kw) == 0
+            outs.append(out.read_text())
+        assert outs[0] == outs[1]
+        body = [ln for ln in outs[1].splitlines() if not ln.startswith("@")]
+        assert len(body) >= len(reads)
