@@ -32,13 +32,15 @@ seconds):
      interval, >= 80% of the true introns matched exactly by an N op;
   7. each kernel against its plain PyTorch version on the card at its
      path's shapes (bit-equal; extd2 and traceback on the first align
-     sub-batch of phase 4, sort1 on phase 5's first batch, exts2 and the
-     splice traceback on phase 6's first sub-batch), timed with CUDA
-     events; extd2's DP cell-updates/s as bench.py defines them;
+     sub-batch of phase 4, sort1 on phase 5's first batch, exts2 on the
+     first 32 jobs of phase 6's first launch and on that whole launch
+     (both strand rounds of a sub-batch), the splice traceback on those 32
+     jobs), timed with CUDA events; extd2's DP cell-updates/s as bench.py
+     defines them; exts2's blocks per SM;
   8. where one 512-read batch spends its time, for the PAF and HPC paths
      (host read/encode/emit, device step with CUDA events and
      torch.profiler), the -a path and the splice path (mapping step, DP
-     kernel, traceback, ops download, host regs + SAM emit);
+     kernel launches, traceback, ops download, host regs + SAM emit);
   9. card vs CPU (plain versions): the first 128 reads of phases 3 and 5
      through PafStep give identical records, the first 8 reads of phases
      4 and 6 through their -a paths identical SAM;
@@ -476,8 +478,7 @@ def _cigar_spans(cigar):
 
 def phase_splice_path(main, tmp):
     """The spliced -a path through the CLI on the genome with planted
-    genes; records the first sub-batch's FOR-round exts2 inputs (for
-    phase 7)."""
+    genes; records the first exts2 launch's inputs (for phase 7)."""
     from collections import Counter
 
     from minimap2_tpu_torch.parallel import align_batch
@@ -758,8 +759,9 @@ def phase_align_kernels(aln):
 
 def phase_new_kernels(hpc, spl):
     """sort1 on the HPC phase's first run-end keys (beside torch.sort);
-    exts2 (FOR round) and the splice traceback on the splice phase's first
-    sub-batch; each against its plain version, bit-equal."""
+    exts2 on the first 32 jobs of the splice phase's first launch (FOR
+    rows) and on the whole launch, the splice traceback on those 32 jobs;
+    each against its plain version, bit-equal."""
     from minimap2_tpu_torch.ops import exts, sort, traceback
     rows = []
     keys = hpc["sort1_keys"]
@@ -782,40 +784,66 @@ def phase_new_kernels(hpc, spl):
         shape=[B, A]))
     del got
 
-    qr, sf, dn, ac, lens = spl["first"]["args"]
+    launch = spl["first"]["args"]        # qr, sf, dn, ac, lens
     kw = spl["first"]["kw"]
-    N, QP = qr.shape
+    NL, QP = launch[0].shape
     TP, W, RB, G = kw["TP"], kw["W"], kw["RB"], kw["G"]
-    p, ez = exts.exts2_batch(qr, sf, dn, ac, lens, **kw)
+    first = [x[:32] for x in launch]
+    N = first[0].shape[0]
+    p, ez = exts.exts2_batch(*first, **kw)
     RT = p.shape[1]
 
-    def exts2_plain():
+    def exts2_plain(args):
         pp, ezp = exts.exts2_batch_plain(
-            qr, sf, dn, ac, lens, W=W, RT=RT, QP=QP, q=kw["q"], e=kw["e"],
-            q2=kw["q2"], sc_mch=kw["sc_mch"], sc_mis=kw["sc_mis"],
-            sc_N=kw["sc_N"])
-        return pp, exts._ez_dead(ezp, lens, G, RB, RT)
-    (pp, ezp), ext_plain_ms = timed_once(exts2_plain)
+            *args, W=W, RT=RT, QP=QP, q=kw["q"], e=kw["e"], q2=kw["q2"],
+            sc_mch=kw["sc_mch"], sc_mis=kw["sc_mis"], sc_N=kw["sc_N"])
+        return pp, exts._ez_dead(ezp, args[4], G, RB, RT)
+
+    def exts2_bound(lens_t):
+        lh = lens_t.cpu().numpy().astype(np.int64)
+        n, cells = len(lh), int((lh[:, 0] * lh[:, 1]).sum())
+        return (cells,) + bound(n * RT * W + n * (QP + 3 * TP) + n * 8
+                                + n * 16 * 4, 45 * cells)
+    (pp, ezp), ext_plain_ms = timed_once(lambda: exts2_plain(first))
     err = max(max_abs_err_u8([p], [pp]), max_abs_err([ez], [ezp]))
     require(err == 0, f"exts2 differs from its plain version ({err})")
     del pp
-    lens_h = lens.cpu().numpy().astype(np.int64)
-    cells = int((lens_h[:, 0] * lens_h[:, 1]).sum())
-    bms, by = bound(N * RT * W + N * (QP + 3 * TP) + N * 8 + N * 16 * 4,
-                    45 * cells)
-    ext_ms = cuda_ms(lambda: exts.exts2_batch(qr, sf, dn, ac, lens, **kw),
-                     reps=5)
+    cells, bms, by = exts2_bound(first[4])
+    ext_ms = cuda_ms(lambda: exts.exts2_batch(*first, **kw), reps=5)
+    # the whole first launch, compared 16 jobs at a time
+    pl, ezl = exts.exts2_batch(*launch, **kw)
+    (ppl, ezpl), launch_plain_ms = timed_once(lambda: exts2_plain(launch))
+    err_l = max([max_abs_err_u8([pl[i:i + 16]], [ppl[i:i + 16]])
+                 for i in range(0, NL, 16)] + [max_abs_err([ezl], [ezpl])])
+    require(err_l == 0, f"exts2 differs from its plain version on the "
+            f"whole first launch ({err_l})")
+    del pl, ppl
+    l_cells, l_bms, l_by = exts2_bound(launch[4])
+    launch_ms = cuda_ms(lambda: exts.exts2_batch(*launch, **kw), reps=3)
+    memset_ms = cuda_ms(lambda: torch.zeros((NL, RT, W), dtype=torch.uint8,
+                                            device="cuda"), reps=3)
+    per_sm = exts.blocks_per_sm(W, QP, TP)
     log(f"[kernels] exts2 on {N} jobs (QP={QP}, TP={TP}, W={W}, R={RT}, "
-        f"{cells} DP cells): {ext_ms:.3f} ms, plain {ext_plain_ms:.0f} ms")
+        f"{cells} DP cells): {ext_ms:.3f} ms, plain {ext_plain_ms:.0f} ms, "
+        f"bound {bms:.4f} ms ({by}); on the first launch, {NL} jobs "
+        f"(both strand rounds), {l_cells} DP cells: {launch_ms:.3f} ms "
+        f"(of it {memset_ms:.3f} ms zeroing p), plain "
+        f"{launch_plain_ms:.0f} ms, bound {l_bms:.4f} ms ({l_by}); "
+        f"{per_sm} blocks per SM")
     rows.append(dict(
         name="exts2", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/exts2.cu",
         replaces="minimap2_tpu/ops/exts_pallas.py:525",
-        launches=spl["launches"].get("exts2", 0), max_abs_err=err,
+        launches=spl["launches"].get("exts2", 0), max_abs_err=max(err, err_l),
         ms=ext_ms, plain_ms=ext_plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[N, QP, TP, W, RT], dp_cells=cells))
+        library_ms=None, shape=[N, QP, TP, W, RT], dp_cells=cells,
+        launch=dict(jobs=NL, blocks_per_sm=per_sm, dp_cells=l_cells,
+                    max_abs_err=err_l, ms=launch_ms, memset_ms=memset_ms,
+                    plain_ms=launch_plain_ms, bound_ms=l_bms,
+                    bound_by=l_by)))
 
     tkw = dict(RB=RB, w=0, splice=True, QP=QP)
+    lens = first[4]
     ops, fin = traceback.traceback_batch(p, lens, **tkw)
     (ops2, fin2), tb_plain_ms = timed_once(
         lambda: traceback.traceback_batch_plain(p, lens, **tkw))
@@ -855,10 +883,10 @@ def _records(path, n):
 
 def phase_align_breakdown(aln, splice=False):
     """Where one 512-read -a batch spends its time: the mapping step
-    (CUDA events), the DP kernel (extd2, or exts2's two strand rounds) and
-    the traceback per sub-batch (CUDA events), the ops download, the host's
-    regs (trim, audits, fix_cigar, mapq) and the SAM emit.  The sub-batches
-    run one at a time here."""
+    (CUDA events), the DP kernel (extd2, or exts2 with both strand rounds
+    in a launch) and the traceback per sub-batch (CUDA events), the ops
+    download, the host's regs (trim, audits, fix_cigar, mapq) and the SAM
+    emit."""
     from minimap2_tpu_torch.io import format as fmt
     from minimap2_tpu_torch.map.align_engine import gen_ts_mat
     from minimap2_tpu_torch.ops.traceback import decode_ops
@@ -874,6 +902,7 @@ def phase_align_breakdown(aln, splice=False):
         map_out = step(*batch)
     dp = "exts2_batch" if splice else "extd2_batch2"
     evs = {dp: [], "traceback_batch": []}
+    jobs = []           # jobs (rows) of each DP launch
     dl = [0.0]
     wrapped = {}
     for name in evs:
@@ -885,20 +914,22 @@ def phase_align_breakdown(aln, splice=False):
             out = _fn(*a, **k)
             e.record()
             evs[_key].append((s, e))
+            if _key == dp:
+                jobs.append(a[0].shape[0])
             return out
         wrapped[name] = fn
         setattr(align_batch, name, timed)
 
     if splice:
-        fetch_round = ab.fetch_round
+        fetch = ab.fetch
 
-        def timed_fetch(rnd):
+        def timed_fetch(fut):
             torch.cuda.synchronize()
             t = time.time()
-            out = fetch_round(rnd)
+            out = fetch(fut)
             dl[0] += time.time() - t
             return out
-        ab.fetch_round = timed_fetch
+        ab.fetch = timed_fetch
     else:
         def timed_collect(fut, n):
             ops, fin = fut
@@ -918,7 +949,7 @@ def phase_align_breakdown(aln, splice=False):
             recs, map_out, ab, mi, opt, mat, step.with_sec, splice)
         t1 = time.time()
     finally:
-        ab.__dict__.pop("fetch_round" if splice else "collect")
+        ab.__dict__.pop("fetch" if splice else "collect")
         for name, fn in wrapped.items():
             setattr(align_batch, name, fn)
     torch.cuda.synchronize()
@@ -935,7 +966,8 @@ def phase_align_breakdown(aln, splice=False):
     tag = "splice" if splice else "-a"
     log(f"[breakdown] 512-read {tag} batch: mapping step {step_ms:.2f} ms; "
         f"{len(evs[dp])} {dp.split('_')[0]} launches on sub-batches of "
-        f"{ab.sub}: {dp.split('_')[0]} {dp_ms:.2f} ms, traceback "
+        f"{ab.sub} (jobs a launch {jobs}): {dp.split('_')[0]} "
+        f"{dp_ms:.2f} ms, traceback "
         f"{tb_ms:.2f} ms, ops download {1e3 * dl[0]:.2f} ms; host regs "
         f"(trim, audits, fix_cigar, mapq) {host_s:.3f} s, SAM emit "
         f"{t3 - t2:.3f} s; {len(fallback)} fallback reads")
@@ -943,9 +975,9 @@ def phase_align_breakdown(aln, splice=False):
 
 def phase_align_cross_check(aln, tmp, n, splice=False):
     """The first n reads through the -a path on the card and on the CPU
-    (plain versions, CPU copies of the index): identical SAM text.  The
-    splice path runs both sides at QP 2048, TP 8192 and 8 jobs a
-    sub-batch."""
+    (plain versions, CPU copies of the index): identical SAM text.  Both
+    sides run the path's widths in small sub-batches (16 jobs; the splice
+    path 8 jobs at QP 2048, TP 8192)."""
     from minimap2_tpu_torch.map.align_engine import gen_ts_mat
     from minimap2_tpu_torch.parallel.align_batch import (AlignBatcher,
                                                          SpliceAlignBatcher)
@@ -968,10 +1000,10 @@ def phase_align_cross_check(aln, tmp, n, splice=False):
         ab_card, ab_cpu = (SpliceAlignBatcher(
             mi, opt, mat, device=d, QP=2048, TP=8192, G=ab.G, RB=ab.RB,
             sub=8) for d in ("cuda", "cpu"))
-    else:
-        ab_card = ab
-        ab_cpu = AlignBatcher(mi, opt, device="cpu", QP=ab.QP, TP=ab.TP,
-                              G=ab.G, W=ab.W, RB=ab.RB, sub=ab.sub)
+    else:       # 16 jobs a sub-batch: the plain extd2 pays per row
+        ab_card, ab_cpu = (AlignBatcher(
+            mi, opt, device=d, QP=ab.QP, TP=ab.TP, G=ab.G, W=ab.W, RB=ab.RB,
+            sub=16) for d in ("cuda", "cpu"))
     outs, secs = [], []
     for st_, ab_ in ((step, ab_card), (step_cpu, ab_cpu)):
         out = io.StringIO()

@@ -37,7 +37,8 @@ SIGNATURES = {
     "mm2_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mm2_extd2": [_P, _P, _P, _P, _P] + [_I] * 17 + [_P],
-    "mm2_exts2": [_P] * 7 + [_I] * 13 + [_P],
+    "mm2_exts2": [_P] * 8 + [_I] * 13 + [_P],
+    "mm2_exts2_occupancy": [_I, _I, _I, _P],
     "mm2_traceback": [_P, _P, _P, _P] + [_I] * 7 + [_P],
 }
 

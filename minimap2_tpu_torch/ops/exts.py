@@ -29,11 +29,14 @@ the JAX package's layout, because the result depends on it:
 as in extd2; ``extend._ez_dead`` applies that rule.  Outputs: ``p`` (N,
 RC*RB, W) uint8 (JAX's (NG, RC, RB, G, W) block after a transpose), ``ez``
 (N, 16) int32.  ``exts2_batch`` launches the kernel (csrc/exts2.cu) for
-CUDA tensors and runs ``exts2_batch_plain`` for CPU tensors.  Exact-max,
-zdrop, approx-drop, right-align and the no-cigar mode raise
+CUDA tensors and runs ``exts2_batch_plain`` for CPU tensors; either way
+the jobs run in ``job_order`` (longest first) and come back in job order.
+Exact-max, zdrop, approx-drop, right-align and the no-cigar mode raise
 NotImplementedError.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -43,7 +46,7 @@ from .extend import (EZ_H0, EZ_H0T, EZ_LASTST, EZ_MAXQ, EZ_MAXT, EZ_MQE,
                      EZ_MQET, EZ_MTE, EZ_MTEQ, EZ_N, EZ_NR, EZ_SCORE,
                      EZ_ZDROP, NEG_INF32, _ez_dead, _sext8)
 
-MAX_W = 4096          # 4 lanes a thread, 1024 threads (csrc/exts2.cu)
+MAX_W = 4096          # 16 lanes a thread, 256 threads (csrc/exts2.cu)
 
 
 def wstart_q(r: int, QP: int) -> int:
@@ -281,6 +284,22 @@ def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
     return p, ez.to(i32)
 
 
+def job_order(lens: torch.Tensor) -> torch.Tensor:
+    """The order in which a launch's blocks take its jobs: longest first
+    (qlen + tlen), ties in job order.  (N,) int32 on lens's device."""
+    tot = lens[:, 0].to(torch.int64) + lens[:, 1].to(torch.int64)
+    return torch.sort(-tot, stable=True).indices.to(torch.int32)
+
+
+def blocks_per_sm(W: int, QP: int, TP: int) -> int:
+    """Blocks of the exts2 kernel one SM holds at once at these widths
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = ctypes.c_int(0)
+    _build.check(_build.lib().mm2_exts2_occupancy(W, QP, TP, ctypes.byref(n)),
+                 "mm2_exts2_occupancy")
+    return n.value
+
+
 def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,
                 zdrop, right_mode, approx_max, approx_drop, sc_mch, sc_mis,
                 sc_N, with_cigar=True):
@@ -298,21 +317,29 @@ def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,
     RT = (R + RB - 1) // RB * RB
     kw = dict(W=W, RT=RT, QP=QP, q=q, e=e, q2=q2, sc_mch=sc_mch,
               sc_mis=sc_mis, sc_N=sc_N)
+    order = job_order(lens)
     if qr.device.type == "cpu":
-        p, ez = exts2_batch_plain(qr, sf, dn, ac, lens, **kw)
+        # the kernel's block -> job mapping: run the jobs in that order,
+        # put each result back in its job's row
+        o = order.long()
+        p_o, ez_o = exts2_batch_plain(qr[o], sf[o], dn[o], ac[o], lens[o],
+                                      **kw)
+        p, ez = torch.empty_like(p_o), torch.empty_like(ez_o)
+        p[o], ez[o] = p_o, ez_o
         return p, _ez_dead(ez, lens, G, RB, RT)
     _build.require_cuda("exts2_batch", qr, sf, dn, ac, lens)
     if qr.dtype != torch.uint8 or sf.dtype != torch.uint8 \
             or dn.dtype != torch.int8 or ac.dtype != torch.int8 \
             or lens.dtype != torch.int32:
         raise ValueError("exts2: uint8 qr/sf, int8 dn/ac and int32 lens")
-    p = torch.empty((N, RT, W), dtype=torch.uint8, device=qr.device)
+    # the kernel stores band rows only: every other byte of p is 0
+    p = torch.zeros((N, RT, W), dtype=torch.uint8, device=qr.device)
     ez = torch.empty((N, EZ_N), dtype=torch.int32, device=qr.device)
     err = _build.lib().mm2_exts2(
         qr.data_ptr(), sf.data_ptr(), dn.data_ptr(), ac.data_ptr(),
-        lens.data_ptr(), p.data_ptr(), ez.data_ptr(), N, QP, TP, W, RT, q, e,
-        q2, *long_thres_of(q, e, q2), sc_mch, sc_mis, sc_N,
-        _build.stream_ptr(qr))
+        lens.data_ptr(), order.data_ptr(), p.data_ptr(), ez.data_ptr(), N,
+        QP, TP, W, RT, q, e, q2, *long_thres_of(q, e, q2), sc_mch, sc_mis,
+        sc_N, _build.stream_ptr(qr))
     _build.check(err, "mm2_exts2")
     _build.launches["exts2"] += 1
     return p, _ez_dead(ez, lens, G, RB, RT)

@@ -9,8 +9,9 @@ does.  The path is gated statistically, not byte-for-byte against
 minimap2's align.c: chain-internal z-drop splits and end extensions are
 approximated by the global band, and the host trims and audits the result
 (engine.batch_build_regs).  With -x splice, SpliceAlignBatcher runs each
-job through the unbanded exts2 kernel twice, once per transcript strand,
-and the splice-mode traceback labels introns N.
+job through the unbanded exts2 kernel twice, once per transcript strand
+(both rounds in one launch), and the splice-mode traceback labels introns
+N.
 """
 from __future__ import annotations
 
@@ -55,12 +56,13 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _pack_jobs(ab, chunk):
+def _pack_jobs(ab, chunk, n):
     """(qr, sf, lens) host arrays of one sub-batch of (qseg, rid, rs, re)
-    jobs: reversed queries, targets, and lens (1, 1) for the pad jobs."""
-    qr = np.zeros((ab.sub, ab.QP), np.uint8)
-    sf = np.zeros((ab.sub, ab.TP), np.uint8)
-    lens = np.ones((ab.sub, 2), np.int32)
+    jobs padded to n rows: reversed queries, targets, and lens (1, 1) for
+    the pad jobs."""
+    qr = np.zeros((n, ab.QP), np.uint8)
+    sf = np.zeros((n, ab.TP), np.uint8)
+    lens = np.ones((n, 2), np.int32)
     for i, (qseg, rid, rs, re_) in enumerate(chunk):
         qr[i, :len(qseg)] = qseg[::-1]
         off = int(ab.seq_off[rid])
@@ -97,7 +99,7 @@ class AlignBatcher:
         """Enqueue one sub-batch of (qseg, rid, rs, re) jobs; returns the
         (ops, fin) device tensors without waiting for them."""
         qr, sf, lens = (_upload(a, self.device)
-                        for a in _pack_jobs(self, chunk))
+                        for a in _pack_jobs(self, chunk, self.sub))
         o = self.opt
         return _align_step(
             qr, sf, lens, G=self.G,
@@ -134,16 +136,19 @@ class AlignBatcher:
 
 
 class SpliceAlignBatcher:
-    """Splice-aware alignment for --batch -x splice: per sub-batch the
-    exts2 kernel runs the two-round transcript-strand trial of
-    mm_align_skeleton (align.c:1068-1096), once with the SPLICE_FOR donor /
-    acceptor planes and once with SPLICE_REV, and per job the round with
-    the higher score gives the CIGAR (with N introns), the transcript
-    strand and the score.  Unbanded: W = QP + 32 lanes rounded up to 128
-    cover every diagonal's valid cells."""
+    """Splice-aware alignment for --batch -x splice: each job runs the
+    two-round transcript-strand trial of mm_align_skeleton (align.c:
+    1068-1096), once with the SPLICE_FOR donor / acceptor planes and once
+    with SPLICE_REV, and the round with the higher score gives the CIGAR
+    (with N introns), the transcript strand and the score.  A sub-batch of
+    up to ``sub`` jobs is padded to a multiple of G (EZ_DEAD's group) and
+    both of its rounds go into one exts2 launch, FOR rows first, then one
+    splice traceback; the next sub-batch is enqueued before the previous
+    one is fetched.  Unbanded: W = QP + 32 lanes rounded up to 128 cover
+    every diagonal's valid cells."""
 
     def __init__(self, mi, opt, mat=None, *, device, QP=2048, TP=8192, G=8,
-                 RB=64, sub=32):
+                 RB=64, sub=256):
         self.mi = mi
         self.opt = opt
         self.device = torch.device(device)
@@ -162,14 +167,21 @@ class SpliceAlignBatcher:
     def fits(self, qlen_seg: int, tlen_seg: int) -> bool:
         return 0 < qlen_seg <= self.QP and 0 < tlen_seg <= self.TP
 
-    def dispatch_round(self, qr, sf, lens, flag_for: bool):
-        """One strand round of a packed sub-batch: exts2 then the
-        splice-mode traceback; (ops, fin, ez) on the device."""
+    def dispatch(self, chunk):
+        """Enqueue both strand rounds of one sub-batch: one exts2 launch of
+        2 x npad jobs (npad = len(chunk) rounded up to G; rows [0, npad)
+        FOR, [npad, 2 npad) REV), then the splice-mode traceback.  Returns
+        (ops, fin, ez) on the device without waiting for them."""
         o = self.opt
-        dn, ac = splice_site_arrays(sf, lens[:, 1], flag_for, o.noncan,
-                                    self.cmplx, False)
-        qr_t, sf_t, dn_t, ac_t, lens_t = (_upload(a, self.device)
-                                          for a in (qr, sf, dn, ac, lens))
+        npad = -(-len(chunk) // self.G) * self.G
+        qr, sf, lens = _pack_jobs(self, chunk, npad)
+        (dn_f, ac_f), (dn_r, ac_r) = (
+            splice_site_arrays(sf, lens[:, 1], ff, o.noncan, self.cmplx,
+                               False) for ff in (True, False))
+        qr_t, sf_t, dn_t, ac_t, lens_t = (
+            _upload(np.concatenate(a), self.device)
+            for a in ((qr, qr), (sf, sf), (dn_f, dn_r), (ac_f, ac_r),
+                      (lens, lens)))
         p, ez = exts2_batch(
             qr_t, sf_t, dn_t, ac_t, lens_t, G=self.G, W=self.W, RB=self.RB,
             R=self.R, QP=self.QP, TP=self.TP, q=o.q, e=o.e, q2=o.q2,
@@ -179,38 +191,50 @@ class SpliceAlignBatcher:
                                    QP=self.QP)
         return ops, fin, ez
 
-    def fetch_round(self, rnd):
-        """Download one round: fin and ez, then the ops columns up to the
-        last populated one."""
-        ops, fin, ez = rnd
+    def fetch(self, fut):
+        """Download a dispatched sub-batch: fin and ez, then the ops columns
+        up to the last populated one."""
+        ops, fin, ez = fut
         fin = fin.cpu().numpy()
         mx = _ops_extent(ops)
         return ops[:, :max(mx, 1)].cpu().numpy(), fin, ez.cpu().numpy()
 
-    def align_jobs(self, jobs):
-        """Returns [(cigar, trans_strand, score)] per job: the better of
-        the FOR / REV rounds, a tie giving ts = 3 and the round of
-        mm_align_skeleton's pseudo-random pick (align.c:1078-1080)."""
+    def pick(self, chunk, fetched):
+        """[(cigar, trans_strand, score)] of a fetched sub-batch: per job
+        the better of the FOR / REV rounds, a tie giving ts = 3 and the
+        round of mm_align_skeleton's pseudo-random pick (align.c:
+        1078-1080)."""
+        ops, fin, ez = fetched
+        npad = len(ez) // 2
         out = []
+        for i in range(len(chunk)):
+            sc_f = int(ez[i, EZ_SCORE])
+            sc_r = int(ez[npad + i, EZ_SCORE])
+            if sc_f > sc_r:
+                row, ts = i, 1
+            elif sc_f < sc_r:
+                row, ts = npad + i, 2
+            else:
+                ts = 3
+                row = npad + i if (len(chunk[i][0]) + sc_f) & 1 else i
+            cig = decode_ops(ops[row], int(fin[row, 0]), int(fin[row, 1]),
+                             splice=True, long_thres=self.long_thres)
+            out.append((cig, ts, int(ez[row, EZ_SCORE])))
+        return out
+
+    def align_jobs(self, jobs):
+        """Returns [(cigar, trans_strand, score)] per job, in order."""
+        out = []
+        inflight = []
         for lo in range(0, len(jobs), self.sub):
             chunk = jobs[lo:lo + self.sub]
-            packed = _pack_jobs(self, chunk)
-            rounds = [self.fetch_round(self.dispatch_round(*packed, ff))
-                      for ff in (True, False)]
-            for i in range(len(chunk)):
-                sc_f = int(rounds[0][2][i, EZ_SCORE])
-                sc_r = int(rounds[1][2][i, EZ_SCORE])
-                if sc_f > sc_r:
-                    ridx, ts = 0, 1
-                elif sc_f < sc_r:
-                    ridx, ts = 1, 2
-                else:
-                    ts = 3
-                    ridx = (len(chunk[i][0]) + sc_f) & 1
-                ops, fin, ez = rounds[ridx]
-                cig = decode_ops(ops[i], int(fin[i, 0]), int(fin[i, 1]),
-                                 splice=True, long_thres=self.long_thres)
-                out.append((cig, ts, int(ez[i, EZ_SCORE])))
+            inflight.append((chunk, self.dispatch(chunk)))
+            while len(inflight) > 1:
+                chunk0, fut = inflight.pop(0)
+                out.extend(self.pick(chunk0, self.fetch(fut)))
+        while inflight:
+            chunk0, fut = inflight.pop(0)
+            out.extend(self.pick(chunk0, self.fetch(fut)))
         return out
 
 

@@ -11,11 +11,23 @@ tolerance 0:
 (d) run_batched_align_cli -x splice: PAF (cg:Z, ts:A, AS:i) and SAM
     byte-identical to the JAX package's on tests/data/x3s-* and on
     simulated 3-4 exon cDNA of both strands (splice, splice:hq, cdna); the
-    CLI's --batch -x splice PAF and -a SAM.
+    CLI's --batch -x splice PAF and -a SAM;
+(e) the packing of SpliceAlignBatcher (both strand rounds in one exts2
+    launch, FOR rows first, sub-batches padded to a multiple of G, more
+    jobs than one launch) byte-identical to the JAX package, and the
+    longest-first job order of a launch;
+(f) the exts2 kernel's CUDA source built for the host with g++ and
+    tests/cuda_host_shim.h (one std::thread per CUDA thread) bit-equal to
+    exts2_batch_plain: the packed lanes, band-only work and exported
+    scalars, on the card's arithmetic but without nvcc or a card.
 """
+import ctypes
 import functools
 import io
 import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,7 +47,7 @@ import minimap2_tpu_torch.cli as port_cli
 from minimap2_tpu_torch import config as port_config
 from minimap2_tpu_torch.index.index import MiniIndex
 from minimap2_tpu_torch.ops import exts, traceback
-from minimap2_tpu_torch.parallel import engine
+from minimap2_tpu_torch.parallel import align_batch, engine
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -184,12 +196,13 @@ KW_SIM = {"QP": 512, "TP": 2048, "sub": 4, "RB": 32}
 
 
 def _sim_genes(seed, n_genes=4):
-    """A 24 kb genome with n_genes planted 3-4 exon genes (canonical
+    """A 24 kb genome (longer above 4 genes) with n_genes planted 3-4
+    exon genes (canonical
     GT..AG on the gene's strand, so CT..AC on the forward sequence for -
     genes) and one cDNA read per gene, in either orientation, with 1%
     substitutions.  Returns (genome bytes, reads, [(start, end, introns)])."""
     rng = np.random.default_rng(seed)
-    g = rng.integers(0, 4, 24000).astype(np.uint8)
+    g = rng.integers(0, 4, max(24000, 2000 + 5500 * n_genes)).astype(np.uint8)
     reads, truth = [], []
     for i in range(n_genes):
         pos = 1000 + 5500 * i
@@ -230,7 +243,7 @@ def _splice_world(names, seqs, flag, preset):
 
 
 def _run_both_splice(monkeypatch, tmp_path, names, seqs, reads, flag, kw,
-                     preset="splice"):
+                     preset="splice", batch_reads=4):
     """run_batched_align_cli of both packages; the JAX package's host path
     is patched to record its reads and write nothing."""
     (jmi, jmo), (pmi, pmo) = _splice_world(names, seqs, flag, preset)
@@ -244,11 +257,12 @@ def _run_both_splice(monkeypatch, tmp_path, names, seqs, reads, flag, kw,
     monkeypatch.setattr(jax_driver, "write_fragment", lambda *a, **k: None)
     want = io.StringIO()
     jax_engine.run_batched_align_cli(jmi, jmo, [str(fa)], want,
-                                     batch_reads=4, L=512, align_kw=kw)
+                                     batch_reads=batch_reads, L=512,
+                                     align_kw=kw)
     got = io.StringIO()
     n, fallbacks = engine.run_batched_align_cli(
-        pmi, pmo, [str(fa)], got, batch_reads=4, L=512, align_kw=kw,
-        device="cpu")
+        pmi, pmo, [str(fa)], got, batch_reads=batch_reads, L=512,
+        align_kw=kw, device="cpu")
     assert n == len(reads)
     assert [name for name, _ in fallbacks] == host
     return want.getvalue(), got.getvalue()
@@ -322,3 +336,172 @@ def test_cli_splice_matches_jax(monkeypatch, tmp_path):
         assert outs[0] == outs[1]
         body = [ln for ln in outs[1].splitlines() if not ln.startswith("@")]
         assert len(body) >= len(reads)
+
+
+def test_exts2_job_order():
+    """Blocks take jobs longest first (qlen + tlen, ties in job order), and
+    the wrapper puts each job's p and ez back in its own row."""
+    QP, TP, W, RB, G = 96, 320, 128, 32, 4
+    lens_l = LENS + [(60, 150), (1, 1)]         # ties with #1 and #6
+    qr, sf, lens = _spliced_pairs(21, lens_l, QP, TP)
+    order = exts.job_order(torch.from_numpy(lens))
+    assert order.dtype == torch.int32
+    o = order.numpy()
+    assert sorted(o.tolist()) == list(range(len(lens_l)))
+    tot = lens[o, 0].astype(np.int64) + lens[o, 1]
+    assert (np.diff(tot) <= 0).all()
+    ties = tot[1:] == tot[:-1]
+    assert (o[1:][ties] > o[:-1][ties]).all() and ties.sum() >= 2
+    assert (o != np.arange(len(o))).any()
+    dn, ac = exts.splice_site_arrays(sf, lens[:, 1], True, NONCAN, True,
+                                     False)
+    args = [torch.from_numpy(x) for x in (qr, sf, dn, ac, lens)]
+    p, ez = exts.exts2_batch(*args, G=G, W=W, RB=RB, R=QP + TP, QP=QP, TP=TP,
+                             q=Q, e=E, q2=Q2, zdrop=-1, right_mode=False,
+                             approx_max=True, approx_drop=False, sc_mch=1,
+                             sc_mis=-2, sc_N=-1)
+    RT = p.shape[1]
+    pp, ezp = exts.exts2_batch_plain(*args, W=W, RT=RT, QP=QP, q=Q, e=E,
+                                     q2=Q2, sc_mch=1, sc_mis=-2, sc_N=-1)
+    assert torch.equal(p, pp)
+    assert torch.equal(ez, exts._ez_dead(ezp, args[4], G, RB, RT))
+
+
+@pytest.mark.parametrize("sub,sam", [(8, False), (16, True)],
+                         ids=["sub8-paf", "sub16-sam"])
+def test_splice_batcher_packing_matches_jax(monkeypatch, tmp_path, sub, sam):
+    """More jobs than one launch: each launch holds both strand rounds of
+    up to sub jobs (FOR rows, then the same jobs' REV rows), padded to a
+    multiple of G = 8 with (1, 1) jobs, the last one too; the output is
+    byte-identical to the JAX package's."""
+    genome, reads, _ = _sim_genes(9, n_genes=20)
+    launches = []
+    exts2_batch = align_batch.exts2_batch
+
+    def recording(qr, sf, dn, ac, lens, **kw):
+        launches.append([x.clone() for x in (qr, sf, dn, ac, lens)])
+        return exts2_batch(qr, sf, dn, ac, lens, **kw)
+    monkeypatch.setattr(align_batch, "exts2_batch", recording)
+    flag = jax_config.MM_F_CIGAR | (jax_config.MM_F_OUT_SAM if sam
+                                    else jax_config.MM_F_OUT_CG)
+    want, got = _run_both_splice(
+        monkeypatch, tmp_path, ["chrS"], [genome], reads, flag,
+        dict(KW_SIM, sub=sub), batch_reads=len(reads))
+    assert got == want
+    assert len([ln for ln in got.splitlines() if not ln.startswith("@")]) \
+        >= len(reads)
+    o = port_config.MapOptions()
+    port_config.set_opt("splice", port_config.IndexOptions(), o)
+    n_jobs, sizes = 0, []
+    for qr, sf, dn, ac, lens in launches:
+        npad = qr.shape[0] // 2
+        sizes.append(npad)
+        assert npad % 8 == 0 and qr.shape[0] == 2 * npad
+        for x in (qr, sf, lens):
+            assert torch.equal(x[:npad], x[npad:])
+        real = int((lens[:npad] != 1).any(1).sum())
+        assert (lens[real:npad] == 1).all()
+        assert npad == -(-real // 8) * 8 and real <= sub
+        n_jobs += real
+        planes = [exts.splice_site_arrays(sf[:npad].numpy(),
+                                          lens[:npad, 1].numpy(), ff,
+                                          o.noncan, True, False)
+                  for ff in (True, False)]
+        assert np.array_equal(dn.numpy(), np.concatenate(
+            [planes[0][0], planes[1][0]]))
+        assert np.array_equal(ac.numpy(), np.concatenate(
+            [planes[0][1], planes[1][1]]))
+    assert len(launches) == -(-n_jobs // sub) >= 2
+    assert sizes[:-1] == [sub] * (len(sizes) - 1)
+    assert n_jobs % sub           # a partial last launch, padded to G only
+
+
+_EMU_RUNNER = r"""
+extern "C" int emu_exts2(const void* qr, const void* sf, const void* dn,
+                         const void* ac, const void* lens, const void* order,
+                         void* p, void* ez, int N, int QP, int TP, int W,
+                         int RT, int q, int e, int q2, int long_thres,
+                         int long_diff, int sc_mch, int sc_mis, int sc_N) {
+  emu_launch(N, (W / GL + 31) / 32 * 32, [=] {
+    exts2_kernel((const uint8_t*)qr, (const uint8_t*)sf, (const int8_t*)dn,
+                 (const int8_t*)ac, (const int*)lens, (const int*)order,
+                 (uint8_t*)p, (int*)ez, QP, TP, W, RT, q, e, q2, long_thres,
+                 long_diff, sc_mch, sc_mis, sc_N);
+  });
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def exts2_host(tmp_path_factory):
+    """The device half of csrc/exts2.cu (everything before its host entry
+    points) on the host shim, as a ctypes function."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ with C++20")
+    src = (Path(exts.__file__).parent / "csrc" / "exts2.cu").read_text()
+    dev = src.split("}  // namespace")[0] + "}  // namespace\n"
+    shared = "extern __shared__ uint4 smem[];"
+    assert dev.count(shared) == 1
+    dev = dev.replace("#include <cuda_runtime.h>", "").replace(
+        shared, "uint4* smem = emu_smem;")
+    d = tmp_path_factory.mktemp("exts2_host")
+    shim = Path(__file__).parent / "cuda_host_shim.h"
+    (d / "exts2_host.cpp").write_text(f'#include "{shim}"\n' + dev
+                                      + _EMU_RUNNER)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
+                    "-o", str(d / "exts2_host.so"), str(d / "exts2_host.cpp")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(d / "exts2_host.so")).emu_exts2
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _random_cases(seed, n):
+    """n random (QP, TP, lens, q, e, q2, sc_mch, sc_mis, sc_N, flag_for,
+    cmplx) cases: every query / target length, window steps, N codes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        QP = int(rng.choice([32, 48, 96, 112, 224]))
+        TP = int(rng.choice([64, 100, 200, 333, 512]))
+        lens = [(int(rng.integers(1, QP + 1)), int(rng.integers(1, TP + 1)))
+                for _ in range(int(rng.integers(1, 9)))]
+        q, e = int(rng.integers(1, 5)), int(rng.integers(1, 3))
+        out.append((QP, TP, lens, q, e, int(rng.integers(q + 2, 40)),
+                    int(rng.integers(1, 3)), -int(rng.integers(1, 5)),
+                    -int(rng.integers(0, 3)), bool(rng.integers(2)),
+                    bool(rng.integers(2))))
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    (96, 320, LENS, Q, E, Q2, 1, -2, -1, True, True),
+    (64, 512, [(64, 500), (60, 512), (17, 300), (64, 64), (33, 100),
+               (5, 400), (64, 200), (2, 3)], Q, E, Q2, 1, -2, -1, False,
+     False),
+    (224, 384, [(224, 384), (200, 380), (224, 100), (150, 150), (223, 384),
+                (1, 300), (224, 1)], Q, E, Q2, 1, -2, -2, True, True),
+    *_random_cases(1, 12)], ids=lambda c: f"QP{c[0]}-TP{c[1]}-n{len(c[2])}")
+def test_exts2_cuda_source_on_host_matches_plain(exts2_host, case):
+    QP, TP, lens_l, q, e, q2, mch, mis, sc_n, flag_for, cmplx = case
+    W = (QP + 32 + 127) // 128 * 128
+    RT = (QP + TP + 31) // 32 * 32
+    qr, sf, lens = _spliced_pairs(len(lens_l) + QP + TP, lens_l, QP, TP)
+    dn, ac = exts.splice_site_arrays(sf, lens[:, 1], flag_for, NONCAN, cmplx,
+                                     False)
+    order = exts.job_order(torch.from_numpy(lens)).numpy()
+    N = len(lens_l)
+    p = np.zeros((N, RT, W), np.uint8)        # zeroed, as the wrapper does
+    ez = np.zeros((N, exts.EZ_N), np.int32)
+    ins = [np.ascontiguousarray(x) for x in (qr, sf, dn, ac, lens, order)]
+    assert exts2_host(*[x.ctypes.data for x in ins], p.ctypes.data,
+                      ez.ctypes.data, N, QP, TP, W, RT, q, e, q2,
+                      *exts.long_thres_of(q, e, q2), mch, mis, sc_n) == 0
+    pp, ezp = exts.exts2_batch_plain(
+        *(torch.from_numpy(x) for x in (qr, sf, dn, ac, lens)), W=W, RT=RT,
+        QP=QP, q=q, e=e, q2=q2, sc_mch=mch, sc_mis=mis, sc_N=sc_n)
+    np.testing.assert_array_equal(ez, ezp.numpy())
+    np.testing.assert_array_equal(p, pp.numpy())
