@@ -31,12 +31,13 @@ seconds):
      mapq-60 primary, every primary CIGAR spans its read and reference
      interval, >= 80% of the true introns matched exactly by an N op;
   7. each kernel against its plain PyTorch version on the card at its
-     path's shapes (bit-equal; extd2 and traceback on the first align
-     sub-batch of phase 4, sort1 on phase 5's first batch, exts2 on the
+     path's shapes (bit-equal; extd2 on the first align launch of phase 4
+     (a batch's jobs), timed there and on its first 64 jobs, the traceback on
+     those 64 jobs, sort1 on phase 5's first batch, exts2 on the
      first 32 jobs of phase 6's first launch and on that whole launch
      (both strand rounds of a sub-batch), the splice traceback on those 32
      jobs), timed with CUDA events; extd2's DP cell-updates/s as bench.py
-     defines them; exts2's blocks per SM;
+     defines them; extd2's and exts2's blocks per SM;
   8. where one 512-read batch spends its time, for the PAF and HPC paths
      (host read/encode/emit, device step with CUDA events and
      torch.profiler), the -a path and the splice path (mapping step, DP
@@ -676,15 +677,18 @@ def phase_kernels(main):
 
 
 def phase_align_kernels(aln):
-    """extd2 and traceback against their plain versions on the first align
-    sub-batch of the -a run, at the path's shapes; extd2's DP
-    cell-updates/s on bench.py's 64 x 10,240 x 10,240 random pairs."""
+    """extd2 against its plain version on the whole first launch of the -a
+    run (a 512-read batch's jobs), timed on that launch and on its first
+    64 jobs (the earlier 64-job sub-batch); the traceback against its
+    plain version on the first 64 jobs' p; extd2's DP cell-updates/s on
+    bench.py's 64 x 10,240 x 10,240 random pairs."""
     from minimap2_tpu_torch.ops import extend, traceback
     qr, sf, lens = aln["first_job"]["args"]
     kw = aln["first_job"]["kw"]
     N, QP = qr.shape
+    TP = kw["TP"]
     G, W, RB, w = kw["G"], kw["W"], kw["RB"], kw["w"]
-    ext_kw = dict(G=G, W=W, RB=RB, R=kw["R"], QP=QP, TP=kw["TP"], q=kw["q"],
+    ext_kw = dict(G=G, W=W, RB=RB, R=kw["R"], QP=QP, TP=TP, q=kw["q"],
                   e=kw["e"], q2=kw["q2"], e2=kw["e2"], w=w, zdrop=-1,
                   right_mode=False, approx_max=True, approx_drop=False,
                   sc_mch=kw["sc_mch"], sc_mis=kw["sc_mis"], sc_N=0)
@@ -698,15 +702,24 @@ def phase_align_kernels(aln):
             sc_mis=kw["sc_mis"], sc_N=0)
         return pp, extend._ez_dead(ezp, lens, G, RB, RT)
     (pp, ezp), ext_plain_ms = timed_once(extd2_plain)
-    err = max(max_abs_err_u8([p], [pp]), max_abs_err([ez], [ezp]))
-    require(err == 0, f"extd2 differs from its plain version ({err})")
+    err = max([max_abs_err_u8([p[i:i + 16]], [pp[i:i + 16]])
+               for i in range(0, N, 16)] + [max_abs_err([ez], [ezp])])
+    require(err == 0, f"extd2 differs from its plain version on the whole "
+            f"first launch ({err})")
     del pp
-    lens_h = lens.cpu().numpy()
-    cells = band_cells(lens_h, w)
-    bms, by = bound(N * RT * W + N * (QP + kw["TP"]) + N * 8
-                    + N * extend.EZ_N * 4, 40 * cells)
+
+    def extd2_bound(lens_t):
+        lh = lens_t.cpu().numpy()
+        n, cells = len(lh), band_cells(lh, w)
+        return (cells,) + bound(n * RT * W + n * (QP + TP) + n * 8
+                                + n * extend.EZ_N * 4, 40 * cells)
+    cells, bms, by = extd2_bound(lens)
     ext_ms = cuda_ms(lambda: extend.extd2_batch2(qr, sf, lens, **ext_kw),
-                     reps=5)
+                     reps=3)
+    f64 = [x[:64] for x in (qr, sf, lens)]
+    cells64, bms64, by64 = extd2_bound(f64[2])
+    ms64 = cuda_ms(lambda: extend.extd2_batch2(*f64, **ext_kw), reps=5)
+    per_sm = extend.blocks_per_sm(W, QP, TP)
     # bench.py:262-292: 64 x 10,240 x 10,240 random pairs, band 500
     rng = np.random.default_rng(0)
     NB, QB, w_b = 64, 10240, 500
@@ -722,38 +735,49 @@ def phase_align_kernels(aln):
     b_cells = int(np.minimum.reduce([np.full_like(rr, w_b), rr + 1,
                                      2 * QB - 1 - rr]).sum()) * NB
     dp_rate = b_cells / (b_ms / 1e3)
-    log(f"[kernels] extd2 on {N} jobs (QP={QP}, TP={kw['TP']}, W={W}, "
-        f"R={RT}, {cells} band cells): {ext_ms:.3f} ms, plain "
-        f"{ext_plain_ms:.0f} ms; bench.py's 64 x 10,240^2 pairs: "
-        f"{b_ms:.3f} ms = {dp_rate:.4g} DP cell-updates/s")
+    log(f"[kernels] extd2 on the first launch, {N} jobs (QP={QP}, TP={TP}, "
+        f"W={W}, R={RT}, {cells} band cells, {per_sm} blocks per SM): "
+        f"{ext_ms:.3f} ms, plain "
+        f"{ext_plain_ms:.0f} ms, bound {bms:.4f} ms "
+        f"({by}); on its first 64 jobs ({cells64} band cells): "
+        f"{ms64:.3f} ms, bound {bms64:.4f} ms ({by64}); bench.py's 64 x "
+        f"10,240^2 pairs: {b_ms:.3f} ms = {dp_rate:.4g} DP cell-updates/s")
     rows = [dict(
         name="extd2", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/extd2.cu",
         replaces="minimap2_tpu/ops/extend_pallas2.py:658",
         launches=aln["launches"].get("extd2", 0), max_abs_err=err,
         ms=ext_ms, plain_ms=ext_plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[N, QP, kw["TP"], W, RT], band_cells=cells,
+        library_ms=None, shape=[N, QP, TP, W, RT], band_cells=cells,
+        blocks_per_sm=per_sm,
+        first64=dict(ms=ms64, bound_ms=bms64, bound_by=by64,
+                     band_cells=cells64),
         dp_cells_per_s=dp_rate, dp_bench_ms=b_ms)]
     del b_args
 
-    ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
+    p64 = p[:64]
+    ops, fin = traceback.traceback_batch(p64, f64[2], RB=RB, w=w)
     (ops2, fin2), tb_plain_ms = timed_once(
-        lambda: traceback.traceback_batch_plain(p, lens, RB=RB, w=w))
+        lambda: traceback.traceback_batch_plain(p64, f64[2], RB=RB, w=w))
     err = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
     require(err == 0, f"traceback differs from its plain version ({err})")
     visited = int((ops != 0).sum())
-    bms, by = bound(visited + N * RT + N * 8 + N * 8, 0)
-    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, RB=RB, w=w),
-                    reps=5)
-    log(f"[kernels] traceback on the same p: {tb_ms:.3f} ms, plain "
-        f"{tb_plain_ms:.0f} ms, {visited} diagonals visited")
+    bms, by = bound(visited + 64 * RT + 64 * 8 + 64 * 8, 0)
+    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p64, f64[2], RB=RB,
+                                                      w=w), reps=5)
+    tb_launch_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, RB=RB,
+                                                             w=w), reps=3)
+    log(f"[kernels] traceback on the first 64 jobs' p: {tb_ms:.3f} ms, "
+        f"plain {tb_plain_ms:.0f} ms, {visited} diagonals visited; on the "
+        f"whole launch's p: {tb_launch_ms:.3f} ms")
     rows.append(dict(
         name="traceback", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/traceback.cu",
         replaces="minimap2_tpu/ops/traceback_pallas.py:155",
         launches=aln["launches"].get("traceback", 0), max_abs_err=err,
         ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[N, RT, W], visited=visited))
+        library_ms=None, shape=[64, RT, W], visited=visited,
+        launch_ms=tb_launch_ms))
     return rows
 
 
@@ -903,6 +927,7 @@ def phase_align_breakdown(aln, splice=False):
     dp = "exts2_batch" if splice else "extd2_batch2"
     evs = {dp: [], "traceback_batch": []}
     jobs = []           # jobs (rows) of each DP launch
+    dp_calls = []       # (args, kwargs) of each DP launch
     dl = [0.0]
     wrapped = {}
     for name in evs:
@@ -916,6 +941,7 @@ def phase_align_breakdown(aln, splice=False):
             evs[_key].append((s, e))
             if _key == dp:
                 jobs.append(a[0].shape[0])
+                dp_calls.append((a, k))
             return out
         wrapped[name] = fn
         setattr(align_batch, name, timed)
@@ -964,10 +990,19 @@ def phase_align_breakdown(aln, splice=False):
     t3 = time.time()
     host_s = (t1 - t0) - (dp_ms + tb_ms) / 1e3 - dl[0]
     tag = "splice" if splice else "-a"
+    dp_bound = ""
+    if not splice:      # the batch's extd2 work: its p bytes vs band cells
+        nbytes = cells = 0
+        for a, k in dp_calls:
+            n, RT = a[0].shape[0], -(-k["R"] // k["RB"]) * k["RB"]
+            nbytes += n * (RT * k["W"] + k["QP"] + k["TP"] + 8 + 64)
+            cells += band_cells(a[2].cpu().numpy(), k["w"])
+        bms, by = bound(nbytes, 40 * cells)
+        dp_bound = f" (bound {bms:.3f} ms, {by}: {cells} band cells)"
     log(f"[breakdown] 512-read {tag} batch: mapping step {step_ms:.2f} ms; "
         f"{len(evs[dp])} {dp.split('_')[0]} launches on sub-batches of "
         f"{ab.sub} (jobs a launch {jobs}): {dp.split('_')[0]} "
-        f"{dp_ms:.2f} ms, traceback "
+        f"{dp_ms:.2f} ms{dp_bound}, traceback "
         f"{tb_ms:.2f} ms, ops download {1e3 * dl[0]:.2f} ms; host regs "
         f"(trim, audits, fix_cigar, mapq) {host_s:.3f} s, SAM emit "
         f"{t3 - t2:.3f} s; {len(fallback)} fallback reads")

@@ -12,21 +12,59 @@
 // the Pallas kernel, because stale lanes of s and the boundary values at
 // st-1 depend on that layout.  The score comes from the greedy H0 walk
 // along the main diagonal.  Outputs p (N, RT, W) u8 direction bytes and
-// ez (N, 16) i32; EZ_DEAD is set by the wrapper (ops/extend.py).
+// ez (N, 16) i32; EZ_DEAD is set by the wrapper (ops/extend.py), which also
+// passes the block -> job order.
 //
-// What bounds it: the N*RT*W bytes of p it writes (1.03 GB for a 64-job
-// sub-batch at QP=12288, TP=12800, W=640), against ~40 integer operations
-// per band cell -- about equal on this card.  Design: one block per job,
-// one thread per lane, the query and target codes of the job in shared
-// memory.  A diagonal needs each lane's left neighbour from the previous
-// diagonal and three scalars (the boundary values at st-1, the H0 walk's
-// v[t0] and u[t0+1]); the carried x, v, x2, u rows go to a double-buffered
-// shared row, so one __syncthreads per diagonal serves both, and every
-// thread computes the per-job scalars itself from shared memory after the
-// barrier (the H0 walk of diagonal r runs at the start of r+1).  Each
-// diagonal's W direction bytes are written by W consecutive threads.  A
-// job stops at its first dead diagonal and zero-fills the rest of its p
-// rows with 16-byte stores.  Integer arithmetic only.
+// What bounds it: not the N*RT*W bytes of p (9.2 GB for a 576-job launch
+// at QP=12288, TP=12800, W=640, RT=25088: 2.7 ms at 3.35 TB/s) nor the ~40
+// integer operations per band cell, but the latency of one diagonal times
+// the longest job's ~22k diagonals, and once an SM holds four or more jobs,
+// its issue rate.  Three limits of the earlier design (one block of W
+// threads a job, 64 jobs a launch, 9 launches a 512-read batch) and what
+// this one does about each:
+// 1. Idle SMs and many launches.  The caller sends a whole batch's jobs in
+//    one launch (padded only to a multiple of G), and blocks take jobs
+//    longest first (qlen + tlen, the `order` array), so the longest jobs
+//    start first, spread over the SMs, and the launch costs about one
+//    longest job plus the issue time of the rest.
+// 2. Work per diagonal.  A thread owns GL consecutive lanes in registers
+//    (GL = 4: W = 640 takes 160 threads, five warps instead of twenty) and
+//    updates them with no shared-memory row traffic: a lane's left
+//    neighbour is the previous register, and across threads the previous
+//    group's last x, v, x2, which every thread publishes to a
+//    double-buffered shared int4 each diagonal.  The values other lanes
+//    read -- x, v, x2 at st - 1 of the next diagonal and the H0 walk's
+//    v[t0], u[t0 + 1] -- are known a diagonal ahead, so their owner thread
+//    exports them to shared scalars; every thread computes the per-job
+//    scalars itself, the H0 walk of diagonal r at the start of r + 1.  One
+//    __syncthreads a diagonal serves all of it.  The gap rows fold into
+//    three-operand add-max (max(a - (z - q), 0) - q - e = max(a - z - e,
+//    -q - e)).  Lanes stay int32: the band's 16-aligned edges [st, st0)
+//    and (en0, en] update lanes outside the DP matrix, whose y and y2
+//    reach 117 and 149 with map-ont scoring (scripts/torch_extd2_ranges.py),
+//    so int8 lanes, as in ksw2's SSE code and exts2.cu, would change those
+//    lanes' direction bytes (the matrix cells and ez would agree).
+// 3. Memory traffic.  The rows are circular in the lanes: physical slot ph
+//    holds target position t with t = ph (mod W), so the chunk shift by dsh
+//    moves no data: the groups whose lanes wrap take the fill values (on
+//    the shift's diagonal no band lane and no boundary lane has wrapped:
+//    the band ends at most w + 30 lanes past the new origin, and W - dsh >
+//    w + 30 by _check).  Every thread stores its GL direction bytes each
+//    diagonal (0 off the band) with one store, and the block zeroes the
+//    rows past its job's end, so p needs no memset.
+// A group rewrites the score row only where it meets [st0, s_hi] (which can
+// pass en) and updates its rows only inside [st, en] (16-aligned, so a
+// group is wholly in or out); other lanes keep their registers, which is
+// what the reference leaves there.  The job's target (zero past TP) and
+// reversed query (zero outside [0, qlen)) sit in shared memory.  A job
+// stops at its first dead diagonal.  (8 and 16 lanes a thread were
+// slower on the card: fewer warps, each with a longer serial path.)
+// Resources (`nvcc -Xptxas -v` for sm_90a, printed by chip_smoke.py's
+// build phase): at GL = 4, 64 registers a thread, no spills; 30,336 bytes
+// of dynamic shared memory a block at QP=12288, TP=12800, W=640 (2 W/GL
+// int4 + 64 + TP + QP + 64), so 6 blocks of 160 threads fit on an SM
+// (register-bound; cudaOccupancyMaxActiveBlocksPerMultiprocessor through
+// mm2_extd2_occupancy).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -34,9 +72,24 @@ namespace {
 
 constexpr int NEG_INF32 = -0x40000000;
 constexpr int EZ_N = 16;
+constexpr int GL = 4;           // lanes a thread
+constexpr int MAX_T = 256;      // threads a block: W <= 1024
+constexpr int QM = 16;          // zero bytes before the query in shared memory
+constexpr int QTAIL = 48;       // and after it
+constexpr int NX = 8;           // exported scalars a diagonal: 5 used, 8
+                                // keep the planes after them 16-byte aligned
 
 __device__ __forceinline__ int sext8(int v) {
-  return (((v & 255) + 128) & 255) - 128;
+  return (int)(signed char)(v & 255);
+}
+
+// lane i (0 .. GL - 1) of a thread's registers
+__device__ __forceinline__ int lane_of(const int (&a)[GL], unsigned i) {
+  int v = a[0];
+#pragma unroll
+  for (int k = 1; k < GL; ++k)
+    if (i == k) v = a[k];
+  return v;
 }
 
 // uniform window start of diagonal r (>> on int is arithmetic: floor)
@@ -45,22 +98,20 @@ __device__ __forceinline__ int wstart(int r, int w) {
   return ((a > 0 ? a : 0) >> 4) << 4;
 }
 
-// greedy H0 walk of one live diagonal pr (extend_pallas2.py:450-491); V
-// and U hold that diagonal's v and u rows in its own window (origin pws)
-__device__ __forceinline__ void h0_walk(const int* V, const int* U, int W,
-                                        int pr, int pws, int pst0, int pen0,
+// greedy H0 walk of one live diagonal pr (extend_pallas2.py:450-491) from
+// the bytes its owners exported: hv = v[t0] (v at lane 0 on diagonal 0)
+// and hu = u[t0 + 1]
+__device__ __forceinline__ void h0_walk(int hv, int hu, int W, int pr,
+                                        int pws, int pst0, int pen0,
                                         bool pfin, int qe, int& H0, int& h0t,
                                         int& score) {
   if (pr == 0) {
-    H0 = V[0] - qe;
+    H0 = hv - qe;
     h0t = 0;
   } else {
     const int lx = h0t + 1 - pws;
-    int d0 = 0, d1 = 0;
-    if (lx >= 0 && lx < W) {
-      d0 = sext8(V[lx == 0 ? W - 1 : lx - 1]);
-      d1 = sext8(U[lx]);
-    }
+    const bool ok = lx >= 0 && lx < W;
+    const int d0 = ok ? hv : 0, d1 = ok ? hu : 0;
     const bool in0 = pst0 <= h0t && h0t <= pen0;
     const bool in1 = pst0 <= h0t + 1 && h0t + 1 <= pen0;
     const bool case12 = in0 && in1;
@@ -71,164 +122,223 @@ __device__ __forceinline__ void h0_walk(const int* V, const int* U, int W,
   if (pfin) score = H0;
 }
 
-__global__ void __launch_bounds__(1024) extd2_kernel(
+__global__ void __launch_bounds__(MAX_T) extd2_kernel(
     const uint8_t* __restrict__ qr, const uint8_t* __restrict__ sf,
-    const int* __restrict__ lens, uint8_t* __restrict__ p,
-    int* __restrict__ ez, int QP, int TP, int W, int RB, int RT, int w,
-    int q, int e, int q2, int e2, int long_thres, int long_diff, int sc_mch,
-    int sc_mis, int sc_N, int with_cigar) {
-  extern __shared__ int smem[];
-  int* bx = smem;             // [2][W] carried rows, double-buffered
-  int* bv = bx + 2 * W;
-  int* bx2 = bv + 2 * W;
-  int* bu = bx2 + 2 * W;
-  int* sh = bu + 2 * W;       // [7][W] every row at a chunk boundary
-  uint8_t* qs = reinterpret_cast<uint8_t*>(sh + 7 * W);  // forward query
-  uint8_t* ts = qs + QP;                                   // target
+    const int* __restrict__ lens, const int* __restrict__ order,
+    uint8_t* __restrict__ p, int* __restrict__ ez, int QP, int TP, int W,
+    int RB, int RT, int w, int q, int e, int q2, int e2, int long_thres,
+    int long_diff, int sc_mch, int sc_mis, int sc_N, int with_cigar) {
+  extern __shared__ uint4 smem[];
+  const int NG = W / GL, TPP = (TP + 15) & ~15;
+  int4* edge = reinterpret_cast<int4*>(smem);           // [2][NG] x, v, x2
+  int* xs = reinterpret_cast<int*>(edge + 2 * NG);      // [2][NX]
+  uint8_t* ts = reinterpret_cast<uint8_t*>(xs + 2 * NX);  // target, TPP
+  uint8_t* qs = ts + TPP;                               // QM + QP + QTAIL
 
-  const int n = blockIdx.x, l = threadIdx.x;
+  const int g = threadIdx.x;
+  const int n = order[blockIdx.x];
   const int qlen = lens[2 * n], tlen = lens[2 * n + 1];
   const int rstar = qlen + tlen - 1;
-  const uint8_t* qrow = qr + (size_t)n * QP;
-  const uint8_t* trow = sf + (size_t)n * TP;
-  for (int i = l; i < QP; i += W)
-    qs[i] = (i < qlen && qlen - 1 - i < QP) ? qrow[qlen - 1 - i] : 0;
-  for (int i = l; i < TP; i += W) ts[i] = trow[i];
+  for (int i = g; i < TPP; i += NG)
+    ts[i] = i < TP ? sf[(size_t)n * TP + i] : 0;
+  for (int i = g; i < QP + QM + QTAIL; i += NG) {
+    const int j = i - QM;
+    qs[i] = (j >= 0 && j < qlen) ? qr[(size_t)n * QP + j] : 0;
+  }
   uint8_t* prow = p + (size_t)n * RT * W;
 
   const int qe = q + e, qe2 = q2 + e2;
-  int u = -qe, v = -qe, x = -qe, y = -qe, x2 = -qe2, y2 = -qe2, s = 0;
+  int U[GL], V[GL], X[GL], Y[GL], X2[GL], Y2[GL], S[GL];
+#pragma unroll
+  for (int i = 0; i < GL; ++i) {
+    U[i] = V[i] = X[i] = Y[i] = -qe;
+    X2[i] = Y2[i] = -qe2;
+    S[i] = 0;
+  }
+  edge[NG + g] = make_int4(-qe, -qe, -qe2, 0);   // "before" r = 0
   int zdr = 0, last_st = 0, nr = 0, H0 = 0, h0t = 0, score = NEG_INF32;
-  int ws = 0;
   // the H0 walk of the previous diagonal, run after the next barrier
-  bool pw = false, pw_fin = false;
-  int pw_r = 0, pw_ws = 0, pw_st0 = 0, pw_en0 = 0;
+  int pw_r = -1, pw_ws = 0, pw_st0 = 0, pw_en0 = 0;
+  bool pw_fin = false;
+  int ws = 0, off = 0;        // window start and its physical slot
+  int rc = 0;                 // r % RB
+  int l0 = g * GL, t0 = l0;   // this thread's first logical lane, position
   __syncthreads();
 
   int r = 0;
   for (; r < RT; ++r) {
-    if (r > 0 && r % RB == 0) {
-      // chunk boundary: walk the last diagonal in the old window, then
-      // shift every row left by dsh lanes (chunk_shift, :186-200)
-      sh[l] = u; sh[W + l] = v; sh[2 * W + l] = x; sh[3 * W + l] = y;
-      sh[4 * W + l] = x2; sh[5 * W + l] = y2; sh[6 * W + l] = s;
-      __syncthreads();
-      if (pw) {
-        h0_walk(sh + W, sh, W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
-                h0t, score);
-        pw = false;
-      }
-      const int ws_new = wstart(r, w);
-      const int src = l + ws_new - ws;
-      if (src != l) {
-        const bool in = src < W;
-        u = in ? sh[src] : -qe;
-        v = in ? sh[W + src] : -qe;
-        x = in ? sh[2 * W + src] : -qe;
-        y = in ? sh[3 * W + src] : -qe;
-        x2 = in ? sh[4 * W + src] : -qe2;
-        y2 = in ? sh[5 * W + src] : -qe2;
-        s = in ? sh[6 * W + src] : 0;
-      }
-      ws = ws_new;
+    const int cur = r & 1, prv = cur ^ 1;
+    const int* xp = xs + NX * prv;
+    if (pw_r >= 0) {
+      h0_walk(xp[3], xp[4], W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
+              h0t, score);
+      pw_r = -1;
     }
-    const int b = (r & 1) * W;
-    bx[b + l] = x; bv[b + l] = v; bx2[b + l] = x2; bu[b + l] = u;
-    __syncthreads();
-    if (pw) {
-      h0_walk(bv + b, bu + b, W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe,
-              H0, h0t, score);
-      pw = false;
-    }
-    // band of diagonal r (the same in every thread, so breaks are uniform)
+    // band of diagonal r (the same in every thread: uniform break)
     const int st0 = max(max(0, r - qlen + 1), (r - w + 1) >> 1);
     const int en0 = min(min(tlen - 1, r), (r + w) >> 1);
     if (r >= rstar || st0 > en0) {
       if (r < rstar) zdr = 1;      // the band died before the last cell
       break;
     }
+    // chunk boundary: the window moves right by dsh lanes (chunk_shift,
+    // :186-200); the dsh slots that wrap take the fill values below.  On
+    // that diagonal the band ends at most w + 30 lanes past the new origin
+    // and the wrapped lanes start at W - dsh >= w + 48 + drift - dsh >
+    // w + 30 (_check: W >= w + 48 + drift, dsh <= drift + 15), so neither
+    // a band lane's left neighbour nor the boundary lane st - 1 has wrapped
+    if (rc == 0 && r > 0) {
+      const int ws_new = wstart(r, w);
+      const int dsh = ws_new - ws;
+      ws = ws_new;
+      off += dsh;
+      if (off >= W) off -= W;
+      l0 = g * GL - off;
+      if (l0 < 0) l0 += W;
+      t0 = ws + l0;
+      if (l0 >= W - dsh) {        // the shift's fill values
+#pragma unroll
+        for (int i = 0; i < GL; ++i) {
+          U[i] = V[i] = X[i] = Y[i] = -qe;
+          X2[i] = Y2[i] = -qe2;
+          S[i] = 0;
+        }
+      }
+    }
+    if (++rc == RB) rc = 0;
     const int st = (st0 >> 4) << 4;
     const int en = (((en0 + 16) >> 4) << 4) - 1;
+    // boundary values at st - 1 (0 left of the window, else what the owner
+    // exported on diagonal r - 1)
     const bool use_prev = st - last_st == 16 && st > 0;
-    const int pre = st - 1 - ws;
-    int x_b = 0, x2_b = 0, v_b = 0;
-    if (pre >= 0 && pre < W) {
-      x_b = sext8(bx[b + pre]);
-      x2_b = sext8(bx2[b + pre]);
-      v_b = sext8(bv[b + pre]);
-    }
-    const int x1 = use_prev ? x_b : -qe;
-    const int x21 = use_prev ? x2_b : -qe2;
+    const bool pre_ok = st - 1 - ws >= 0;
+    // v at lane st (st == 0) and u at lane r start the diagonal's long-gap
+    // ramp: -q-e, then -e below long_thres, long_diff at it, -e2 above
     const int v1_edge = r == 0 ? -qe
                         : r < long_thres ? -e
                         : r == long_thres ? long_diff : -e2;
-    const int v1 = use_prev ? v_b : (st > 0 ? -qe : v1_edge);
+    const int s_hi = st0 + (((en0 - st0) >> 4) << 4) + 15;
 
-    const int t = ws + l;
-    const bool at_r = t == r && en >= r;
-    const int y_p = at_r ? -qe : y;
-    const int y2_p = at_r ? -qe2 : y2;
-    const int u_p = at_r ? v1_edge : u;
-    // score row: only [st0, s_hi] is rewritten; other lanes keep stale s
-    if (t >= st0 && t <= st0 + (((en0 - st0) >> 4) << 4) + 15) {
-      const int tq = t < TP ? ts[t] : 0;
-      const int qp = r - t;
-      const int qq = (qp >= 0 && qp < qlen && qp < QP) ? qs[qp] : 0;
-      s = (tq == 4 || qq == 4) ? sc_N : (tq == qq ? sc_mch : sc_mis);
+    if (t0 + GL - 1 >= st0 && t0 <= s_hi) {
+      // score row: only [st0, s_hi] is rewritten; other lanes keep stale s
+      const uint32_t Tw =
+          t0 < TPP ? *reinterpret_cast<const uint32_t*>(ts + t0) : 0u;
+      // reversed-query bytes qi0 .. qi0 + GL - 1, qi0 = t0 - r + qlen - 1
+      // >= -15 (the query position of lane t is r - t)
+      const int o = QM + t0 - r + qlen - 1;
+      const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qs + (o & ~3));
+      const uint32_t Qw = __funnelshift_r(q32[0], q32[1], (o & 3) * 8);
+      // lanes lo .. hi - 1 of the group lie in [st0, s_hi]
+      const int lo = max(st0 - t0, 0), hi = min(s_hi - t0 + 1, GL);
+      int sv[GL];
+#pragma unroll
+      for (int i = 0; i < GL; ++i) {
+        const int tq = (Tw >> (8 * i)) & 255, qq = (Qw >> (8 * i)) & 255;
+        sv[i] = (tq == 4 || qq == 4) ? sc_N : tq == qq ? sc_mch : sc_mis;
+      }
+      if (lo == 0 && hi == GL) {
+#pragma unroll
+        for (int i = 0; i < GL; ++i) S[i] = sv[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < GL; ++i)
+          if (i >= lo && i < hi) S[i] = sv[i];
+      }
     }
-    const int ln = l == 0 ? W - 1 : l - 1;
-    const bool at_stl = l == st - ws;
-    const int xt1 = at_stl ? x1 : bx[b + ln];
-    const int vt1 = at_stl ? v1 : bv[b + ln];
-    const int x2t1 = at_stl ? x21 : bx2[b + ln];
-    int a = xt1 + vt1, bb = y_p + u_p, a2 = x2t1 + vt1, b2 = y2_p + u_p;
-    int z = s, d = 0;
-    if (a > z) d = 1;
-    z = max(z, a);
-    if (bb > z) d = 2;
-    z = max(z, bb);
-    if (a2 > z) d = 3;
-    z = max(z, a2);
-    if (b2 > z) d = 4;
-    z = min(max(z, b2), sc_mch);
-    a -= z - q; bb -= z - q; a2 -= z - q2; b2 -= z - q2;
-    const bool m_upd = t >= st && t <= en;
-    if (m_upd) {
-      u = z - vt1;
-      v = z - u_p;
-      x = max(a, 0) - qe;
-      y = max(bb, 0) - qe;
-      x2 = max(a2, 0) - qe2;
-      y2 = max(b2, 0) - qe2;
-    } else {
-      u = u_p;
-      y = y_p;
-      y2 = y2_p;
+    uint32_t P = 0u;               // direction bytes: 0 off the band
+    if (t0 >= st && t0 <= en) {
+      // the left neighbour of lane l0: the boundary values at st, else the
+      // previous group's last lane (lane 0 in the band is lane st - ws, so
+      // l0 >= GL there)
+      int xl, vl, x2l;
+      if (t0 == st) {
+        xl = use_prev ? (pre_ok ? xp[0] : 0) : -qe;
+        vl = use_prev ? (pre_ok ? xp[1] : 0) : (st > 0 ? -qe : v1_edge);
+        x2l = use_prev ? (pre_ok ? xp[2] : 0) : -qe2;
+      } else {
+        const int4 E = edge[NG * prv + (g == 0 ? NG - 1 : g - 1)];
+        xl = E.x; vl = E.y; x2l = E.z;
+      }
+      // y, y2 and u reset at lane r (which lies in [st, en] when en >= r)
+      const int ir = r - t0;
+      if (en >= r && ir < GL) {
+#pragma unroll
+        for (int i = 0; i < GL; ++i) {
+          if (i == ir) {
+            Y[i] = -qe;
+            Y2[i] = -qe2;
+            U[i] = v1_edge;
+          }
+        }
+      }
+      // lanes from the last down, so lane i reads lane i - 1's old x, v, x2
+#pragma unroll
+      for (int i = GL - 1; i >= 0; --i) {
+        const int xt1 = i ? X[i - 1] : xl, vt1 = i ? V[i - 1] : vl;
+        const int x2t1 = i ? X2[i - 1] : x2l;
+        const int y_p = Y[i], y2_p = Y2[i], u_p = U[i];
+        const int a = xt1 + vt1, b = y_p + u_p, a2 = x2t1 + vt1,
+                  b2 = y2_p + u_p;
+        int z = S[i], d = 0;
+        if (a > z) d = 1;
+        z = max(z, a);
+        if (b > z) d = 2;
+        z = max(z, b);
+        if (a2 > z) d = 3;
+        z = max(z, a2);
+        if (b2 > z) d = 4;
+        z = min(max(z, b2), sc_mch);
+        U[i] = z - vt1;
+        V[i] = z - u_p;
+        // max(a - (z - q), 0) - q - e = max(a - z - e, -q - e), and the
+        // continuation bit a - (z - q) > 0 is x > -q - e
+        const int ze = -(z + e), ze2 = -(z + e2);
+        X[i] = __viaddmax_s32(a, ze, -qe);
+        Y[i] = __viaddmax_s32(b, ze, -qe);
+        X2[i] = __viaddmax_s32(a2, ze2, -qe2);
+        Y2[i] = __viaddmax_s32(b2, ze2, -qe2);
+        d |= (X[i] > -qe ? 0x08 : 0) | (Y[i] > -qe ? 0x10 : 0)
+             | (X2[i] > -qe2 ? 0x20 : 0) | (Y2[i] > -qe2 ? 0x40 : 0);
+        P |= (uint32_t)d << (8 * i);
+      }
     }
-    if (with_cigar) {
-      d |= (a > 0 ? 0x08 : 0) | (bb > 0 ? 0x10 : 0) | (a2 > 0 ? 0x20 : 0)
-           | (b2 > 0 ? 0x40 : 0);
-      prow[(size_t)r * W + l] = m_upd ? (uint8_t)d : 0;
+    if (with_cigar) *reinterpret_cast<uint32_t*>(prow + l0) = P;
+    edge[NG * cur + g] = make_int4(X[GL - 1], V[GL - 1], X2[GL - 1], 0);
+    // exports for the next diagonal: x, v, x2 at st(r + 1) - 1 (in this
+    // diagonal's window) and the H0 walk's v[t0], u[t0 + 1] of this one
+    int* xc = xs + NX * cur;
+    const int st0n = max(max(0, r + 2 - qlen), (r + 2 - w) >> 1);
+    // (a thread's lanes are the logical lanes l0 .. l0 + GL - 1)
+    const unsigned ib = ((st0n >> 4) << 4) - 1 - t0;
+    if (ib < GL) {
+      xc[0] = sext8(lane_of(X, ib));
+      xc[1] = sext8(lane_of(V, ib));
+      xc[2] = sext8(lane_of(X2, ib));
     }
-    pw = true;
+    const int lx = r == 0 ? 1 : h0t + 1 - ws;
+    if (lx >= 0 && lx < W) {
+      const unsigned iv = (lx == 0 ? W - 1 : lx - 1) - l0, iu = lx - l0;
+      if (iv < GL) xc[3] = sext8(lane_of(V, iv));
+      if (iu < GL && r > 0) xc[4] = sext8(lane_of(U, iu));
+    }
+    prow += W;
     pw_r = r; pw_ws = ws; pw_st0 = st0; pw_en0 = en0;
     pw_fin = r == rstar - 1 && en0 == tlen - 1;
     last_st = st;
     nr = r + 1;
-  }
-  if (pw) {                  // every diagonal was live: walk the last one
-    const int b = (r & 1) * W;
-    bv[b + l] = v; bu[b + l] = u;
     __syncthreads();
-    h0_walk(bv + b, bu + b, W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
-            h0t, score);
   }
   if (with_cigar) {          // rows past the job's end are 0
-    uint4* z4 = reinterpret_cast<uint4*>(prow + (size_t)r * W);
+    uint4* z4 = reinterpret_cast<uint4*>(prow);
     const size_t n16 = (size_t)(RT - r) * W / 16;
-    for (size_t i = l; i < n16; i += W) z4[i] = make_uint4(0, 0, 0, 0);
+    for (size_t i = g; i < n16; i += NG) z4[i] = make_uint4(0, 0, 0, 0);
   }
-  if (l == 0) {
+  if (pw_r >= 0) {           // every diagonal was live: walk the last one
+    const int* xp = xs + NX * ((r - 1) & 1);
+    h0_walk(xp[3], xp[4], W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
+            h0t, score);
+  }
+  if (g == 0) {
     int* o = ez + (size_t)n * EZ_N;
     const int vals[EZ_N] = {0, zdr, -1, -1, NEG_INF32, -1, NEG_INF32, -1,
                             score, last_st, 0, nr, H0, h0t, 0, 0};
@@ -238,19 +348,41 @@ __global__ void __launch_bounds__(1024) extd2_kernel(
 
 }  // namespace
 
+// threads and dynamic shared memory of a launch at these widths (W % 128
+// == 0 keeps the shared planes 16-byte aligned)
+static int launch_shape(int W, int QP, int TP, int* threads, size_t* smem) {
+  if (W % 128 || W / GL > MAX_T) return (int)cudaErrorInvalidValue;
+  *threads = W / GL;
+  *smem = (size_t)2 * *threads * sizeof(int4) + 2 * NX * 4
+          + (size_t)((TP + 15) & ~15) + QP + QM + QTAIL;
+  return (int)cudaFuncSetAttribute(
+      extd2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
 extern "C" int mm2_extd2(const void* qr, const void* sf, const void* lens,
-                         void* p, void* ez, int N, int QP, int TP, int W,
-                         int RB, int RT, int w, int q, int e, int q2, int e2,
-                         int long_thres, int long_diff, int sc_mch,
-                         int sc_mis, int sc_N, int with_cigar, void* stream) {
+                         const void* order, void* p, void* ez, int N, int QP,
+                         int TP, int W, int RB, int RT, int w, int q, int e,
+                         int q2, int e2, int long_thres, int long_diff,
+                         int sc_mch, int sc_mis, int sc_N, int with_cigar,
+                         void* stream) {
   if (N == 0) return 0;
-  const size_t smem = (size_t)15 * W * sizeof(int) + QP + TP;
-  cudaError_t err = cudaFuncSetAttribute(
-      extd2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  extd2_kernel<<<N, W, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)qr, (const uint8_t*)sf, (const int*)lens, (uint8_t*)p,
-      (int*)ez, QP, TP, W, RB, RT, w, q, e, q2, e2, long_thres, long_diff,
-      sc_mch, sc_mis, sc_N, with_cigar);
+  int threads;
+  size_t smem;
+  const int err = launch_shape(W, QP, TP, &threads, &smem);
+  if (err) return err;
+  extd2_kernel<<<N, threads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)qr, (const uint8_t*)sf, (const int*)lens,
+      (const int*)order, (uint8_t*)p, (int*)ez, QP, TP, W, RB, RT, w, q, e,
+      q2, e2, long_thres, long_diff, sc_mch, sc_mis, sc_N, with_cigar);
   return (int)cudaGetLastError();
+}
+
+// blocks of the kernel one SM holds at once at these widths
+extern "C" int mm2_extd2_occupancy(int W, int QP, int TP, int* blocks) {
+  int threads;
+  size_t smem;
+  const int err = launch_shape(W, QP, TP, &threads, &smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, extd2_kernel, threads, smem);
 }

@@ -32,11 +32,14 @@ kernel and the plain version alike.
 
 Outputs: ``p`` (N, RC*RB, W) uint8 direction bytes (JAX's (NG, RC, RB, G,
 W) block after a reshape), ``ez`` (N, 16) int32.  ``extd2_batch2``
-launches the kernel (csrc/extd2.cu) for CUDA tensors and runs
-``extd2_batch2_plain`` for CPU tensors.  Exact-max (H row), zdrop, the
-approx-drop and right-align modes raise NotImplementedError.
+launches the kernel (csrc/extd2.cu) for CUDA tensors, its blocks taking
+the jobs in ``job_order`` (longest first), and runs ``extd2_batch2_plain``
+for CPU tensors.  Exact-max (H row), zdrop, the approx-drop and right-align
+modes raise NotImplementedError.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -85,6 +88,22 @@ def _check(W, RB, w, right_mode, approx_max, approx_drop, zdrop):
     if W % 128 or W < w + 48 + drift or RB > 128 or W > 1024:
         raise ValueError(f"extd2: need W % 128 == 0, W >= w + 48 + {drift}, "
                          f"W <= 1024 and RB <= 128 (W={W}, w={w}, RB={RB})")
+
+
+def job_order(lens: torch.Tensor) -> torch.Tensor:
+    """The order in which a launch's blocks take its jobs: longest first
+    (qlen + tlen), ties in job order.  (N,) int32 on lens's device."""
+    tot = lens[:, 0].to(torch.int64) + lens[:, 1].to(torch.int64)
+    return torch.sort(-tot, stable=True).indices.to(torch.int32)
+
+
+def blocks_per_sm(W: int, QP: int, TP: int) -> int:
+    """Blocks of the extd2 kernel one SM holds at once at these widths
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = ctypes.c_int(0)
+    _build.check(_build.lib().mm2_extd2_occupancy(W, QP, TP, ctypes.byref(n)),
+                 "mm2_extd2_occupancy")
+    return n.value
 
 
 def _ez_dead(ez, lens, G: int, RB: int, RT: int):
@@ -283,12 +302,14 @@ def extd2_batch2(qr, sf, lens, *, G, W, RB, R, QP, TP, q, e, q2, e2, w,
     if qr.dtype != torch.uint8 or sf.dtype != torch.uint8 \
             or lens.dtype != torch.int32:
         raise ValueError("extd2: uint8 qr/sf and int32 lens")
+    # the kernel writes every byte of p (0 off the band and past a job)
     p = torch.empty((N, RT, W) if with_cigar else (0,), dtype=torch.uint8,
                     device=qr.device)
     ez = torch.empty((N, EZ_N), dtype=torch.int32, device=qr.device)
+    order = job_order(lens)
     err = _build.lib().mm2_extd2(
-        qr.data_ptr(), sf.data_ptr(), lens.data_ptr(), p.data_ptr(),
-        ez.data_ptr(), N, QP, TP, W, RB, RT, w, q, e, q2, e2,
+        qr.data_ptr(), sf.data_ptr(), lens.data_ptr(), order.data_ptr(),
+        p.data_ptr(), ez.data_ptr(), N, QP, TP, W, RB, RT, w, q, e, q2, e2,
         *_long_gap(q, e, q2, e2), sc_mch, sc_mis, sc_N, int(with_cigar),
         _build.stream_ptr(qr))
     _build.check(err, "mm2_extd2")

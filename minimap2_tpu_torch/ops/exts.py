@@ -44,7 +44,7 @@ import torch
 from . import _build
 from .extend import (EZ_H0, EZ_H0T, EZ_LASTST, EZ_MAXQ, EZ_MAXT, EZ_MQE,
                      EZ_MQET, EZ_MTE, EZ_MTEQ, EZ_N, EZ_NR, EZ_SCORE,
-                     EZ_ZDROP, NEG_INF32, _ez_dead, _sext8)
+                     EZ_ZDROP, NEG_INF32, _ez_dead, _sext8, job_order)
 
 MAX_W = 4096          # 16 lanes a thread, 256 threads (csrc/exts2.cu)
 
@@ -282,13 +282,6 @@ def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
                         (EZ_H0T, h0t)):
         ez[:, lane_i] = val
     return p, ez.to(i32)
-
-
-def job_order(lens: torch.Tensor) -> torch.Tensor:
-    """The order in which a launch's blocks take its jobs: longest first
-    (qlen + tlen), ties in job order.  (N,) int32 on lens's device."""
-    tot = lens[:, 0].to(torch.int64) + lens[:, 1].to(torch.int64)
-    return torch.sort(-tot, stable=True).indices.to(torch.int32)
 
 
 def blocks_per_sm(W: int, QP: int, TP: int) -> int:

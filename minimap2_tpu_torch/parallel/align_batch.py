@@ -73,11 +73,17 @@ def _pack_jobs(ab, chunk, n):
 
 
 class AlignBatcher:
-    """Aligns (read segment, reference interval) jobs in fixed-shape
-    sub-batches of ``sub`` jobs on ``device``."""
+    """Aligns (read segment, reference interval) jobs in sub-batches of up
+    to ``sub`` jobs on ``device``, one extd2 launch and one traceback each;
+    a batch's last sub-batch is padded only to a multiple of G (to ``sub``
+    when that is smaller).  The default 1024 (a multiple of G) puts a
+    512-read batch's jobs in one launch: the kernel's time is set by the
+    longest job's diagonals, and 6 blocks fit on each of an H100's 132 SMs,
+    so one launch of ~580 jobs is faster than 512 + 64 or 256 + 256 + 64
+    (PERF.md, section 6)."""
 
     def __init__(self, mi, opt, *, device, QP=12800, TP=12800, G=32, W=640,
-                 RB=64, sub=64):
+                 RB=64, sub=1024):
         self.mi = mi
         self.opt = opt
         self.device = torch.device(device)
@@ -98,8 +104,9 @@ class AlignBatcher:
     def dispatch(self, chunk):
         """Enqueue one sub-batch of (qseg, rid, rs, re) jobs; returns the
         (ops, fin) device tensors without waiting for them."""
+        npad = min(self.sub, -(-len(chunk) // self.G) * self.G)
         qr, sf, lens = (_upload(a, self.device)
-                        for a in _pack_jobs(self, chunk, self.sub))
+                        for a in _pack_jobs(self, chunk, npad))
         o = self.opt
         return _align_step(
             qr, sf, lens, G=self.G,

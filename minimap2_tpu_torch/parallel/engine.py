@@ -16,6 +16,7 @@ device (parallel/align_batch.py) and written as SAM or PAF with cg:Z.
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import sys
 import threading
@@ -222,8 +223,10 @@ def _mapq(score: int, sub: int, cnt: int, min_chain_score: int,
 
 
 def _occ_cap(opt) -> int:
-    """Device occurrence cap: mid_occ, bounded to [10, 64]."""
-    return min(max(opt.mid_occ, 10), 64)
+    """Device occurrence cap: mid_occ, bounded to [10, cap]; the cap is 64
+    unless MM2TPU_OCC_CAP sets it, as in the JAX package."""
+    return min(max(opt.mid_occ, 10),
+               int(os.environ.get("MM2TPU_OCC_CAP", "64")))
 
 
 def _bw_long(opt) -> int:

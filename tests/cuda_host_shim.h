@@ -23,6 +23,8 @@ struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
+struct int4 { int x, y, z, w; };
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 struct emu_dim { unsigned x; };
 static thread_local emu_dim threadIdx;
 static emu_dim blockIdx, blockDim;
@@ -52,6 +54,7 @@ template <class F> inline uint32_t emu_bytes(uint32_t a, uint32_t b, F f) {
   return r;
 }
 inline int emu_s8(uint32_t x) { return (int)(int8_t)(uint8_t)x; }
+inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
 inline uint32_t __vadd4(uint32_t a, uint32_t b) {
   return emu_bytes(a, b, [](uint32_t x, uint32_t y) { return x + y; });
 }

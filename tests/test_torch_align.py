@@ -48,6 +48,9 @@ jax.config.update("jax_platforms", "cpu")
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 KW = {"QP": 256, "TP": 768, "W": 256, "sub": 4}        # test_align_batch.py
 KW_WIDE = {"QP": 768, "TP": 1280, "W": 256, "sub": 4}  # no capacity cuts
+# more jobs a batch than a launch takes; the port pads the last launch to a
+# multiple of G, the JAX package to sub
+KW_MULTI = {"QP": 768, "TP": 1280, "W": 256, "sub": 32, "G": 8}
 
 
 def _random_alignment(rng, n_ops):
@@ -261,7 +264,8 @@ def _run_both(monkeypatch, tmp_path, names, seqs, reads, flag, L, kw,
 
 
 @pytest.mark.parametrize("sam", [False, True], ids=["paf", "sam"])
-@pytest.mark.parametrize("kw", [KW, KW_WIDE], ids=["KW", "wide"])
+@pytest.mark.parametrize("kw", [KW, KW_WIDE, KW_MULTI],
+                         ids=["KW", "wide", "multi"])
 def test_run_batched_align_cli_matches_jax(monkeypatch, tmp_path, sam, kw):
     ref, dup = _worlds()
     rng = np.random.default_rng(9)
@@ -280,22 +284,33 @@ def test_run_batched_align_cli_matches_jax(monkeypatch, tmp_path, sam, kw):
     flag = jax_config.MM_F_CIGAR | (
         jax_config.MM_F_OUT_SAM | jax_config.MM_F_OUT_MD if sam
         else jax_config.MM_F_OUT_CG | jax_config.MM_F_OUT_CS)
+    rows = []               # rows of each port launch
+    pack = align_batch._pack_jobs
+    monkeypatch.setattr(align_batch, "_pack_jobs", lambda ab, chunk, n: (
+        rows.append((len(chunk), n)) or pack(ab, chunk, n)))
+    batch_reads = 4
+    if kw is KW_MULTI:      # 48 reads in one batch: > 32 jobs
+        reads, batch_reads = reads * 8, 48
     want, host, got, (n, fallbacks) = _run_both(
         monkeypatch, tmp_path, ["chrT", "chrD"], [ref, dup], reads, flag,
-        1536, kw)
+        1536, kw, batch_reads=batch_reads)
     assert got == want
     assert n == len(reads)
     assert [name for name, _ in fallbacks] == host
     assert "rd4" in host                    # junk middle
+    if kw is KW_MULTI:
+        assert len(rows) > 1 and rows[0] == (32, 32)
+        jobs, npad = rows[-1]
+        assert npad == -(-jobs // 8) * 8 < 32
     lines = [ln.split("\t") for ln in got.splitlines()]
     assert lines
     tag = "MD:Z:" if sam else "cs:Z:"
     assert all(any(x.startswith(tag) for x in t) for t in lines
                if not (sam and int(t[1]) & 4))
-    if kw is KW_WIDE:       # the short reads align on the device
+    if kw is not KW:        # the short reads align on the device
         assert {"rd0", "rd1", "rd3", "rd5"} <= {t[0] for t in lines}
         sec = [t for t in lines if "tp:A:S" in t]
-        assert sec and all(t[0] == "rd5" for t in sec)
+        assert sec and all(int(t[0][2:]) % 6 == 5 for t in sec)    # rd5
 
 
 def test_sv_deletion_through_waypoints(monkeypatch, tmp_path):

@@ -7,7 +7,8 @@
 (b) run_batched_cli's PAF is byte-identical to the JAX engine's;
 (c) cli.main parses options as the JAX CLI does, and off-slice options
     raise NotImplementedError;
-(d) a read longer than L raises.
+(d) a read longer than L raises;
+(e) the device occurrence cap reads MM2TPU_OCC_CAP as the JAX package does.
 """
 import functools
 import io
@@ -227,3 +228,15 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         minimap2_tpu_torch.resolve_device(None)
     assert minimap2_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("mid_occ", [2, 40, 100, 300])
+@pytest.mark.parametrize("cap", [None, "32", "128"])
+def test_occ_cap_matches_jax(monkeypatch, cap, mid_occ):
+    if cap is None:
+        monkeypatch.delenv("MM2TPU_OCC_CAP", raising=False)
+    else:
+        monkeypatch.setenv("MM2TPU_OCC_CAP", cap)
+    jo, po = MapOptions(), port_config.MapOptions()
+    jo.mid_occ = po.mid_occ = mid_occ
+    assert engine._occ_cap(po) == jax_engine._occ_cap(jo)

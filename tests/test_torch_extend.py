@@ -1,7 +1,14 @@
 """Port extd2 (ops/extend.py) vs the JAX package's extd2_batch2 Pallas
 kernel in interpret mode: p and ez bit-equal (tolerance 0) on pairs with
 substitutions, indels and N runs, including pairs that end exactly on a
-chunk boundary (EZ_DEAD's group rule) and pairs whose band dies."""
+chunk boundary (EZ_DEAD's group rule) and pairs whose band dies.  Also the
+device code of csrc/extd2.cu, built with g++ on tests/cuda_host_shim.h
+(one std::thread per CUDA thread), bit-equal to the plain version."""
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -104,3 +111,119 @@ def test_extd2_other_modes_raise():
             extend.extd2_batch2(z, z, lens, **{**kw, **bad})
     with pytest.raises(ValueError):
         extend.extd2_batch2(z, z, lens, **{**kw, "w": 100})
+
+
+_EMU_RUNNER = r"""
+extern "C" int emu_extd2(const void* qr, const void* sf, const void* lens,
+                         const void* order, void* p, void* ez, int N, int QP,
+                         int TP, int W, int RB, int RT, int w, int q, int e,
+                         int q2, int e2, int long_thres, int long_diff,
+                         int sc_mch, int sc_mis, int sc_N, int with_cigar) {
+  emu_launch(N, W / GL, [=] {
+    extd2_kernel((const uint8_t*)qr, (const uint8_t*)sf, (const int*)lens,
+                 (const int*)order, (uint8_t*)p, (int*)ez, QP, TP, W, RB, RT,
+                 w, q, e, q2, e2, long_thres, long_diff, sc_mch, sc_mis, sc_N,
+                 with_cigar);
+  });
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def extd2_host(tmp_path_factory):
+    """The device half of csrc/extd2.cu (everything before its host entry
+    points) on the host shim, as a ctypes function."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ with C++20")
+    src = (Path(extend.__file__).parent / "csrc" / "extd2.cu").read_text()
+    dev = src.split("}  // namespace")[0] + "}  // namespace\n"
+    shared = "extern __shared__ uint4 smem[];"
+    assert dev.count(shared) == 1
+    dev = dev.replace("#include <cuda_runtime.h>", "").replace(
+        shared, "uint4* smem = emu_smem;")
+    d = tmp_path_factory.mktemp("extd2_host")
+    shim = Path(__file__).parent / "cuda_host_shim.h"
+    (d / "extd2_host.cpp").write_text(f'#include "{shim}"\n' + dev
+                                      + _EMU_RUNNER)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
+                    "-o", str(d / "extd2_host.so"), str(d / "extd2_host.cpp")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(d / "extd2_host.so")).emu_extd2
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _host_cases():
+    """(QP, TP, W, RB, w, lens, (q, e, q2, e2), sc_mch, sc_mis, sc_N,
+    with_cigar): fixed cases, then random ones from a seed."""
+    sc = (Q, E, Q2, E2)
+    cases = [
+        # LENS at test_extd2_matches_jax's widths: chunk-boundary ends
+        # (rstar 384, 256), a dead band (#6), qlen = tlen = 1 (#7)
+        (256, 384, 256, 32, 150, LENS, sc, 2, -4, 0, True),
+        (256, 384, 256, 64, 150, LENS, sc, 2, -4, -1, False),
+        # W = w + 48 + RB/2, its least: the lanes that wrap on a chunk
+        # shift enter the band within the chunk; |qlen - tlen| at, and
+        # past, w - 48
+        (640, 640, 256, 64, 176, [(600, 620), (300, 428), (428, 300),
+                                  (200, 330), (640, 576), (97, 160)],
+         sc, 2, -4, 0, True),
+        (384, 512, 128, 32, 64, [(384, 400), (300, 316), (1, 9), (9, 1),
+                                 (250, 270), (129, 128), (200, 184)],
+         (6, 2, 26, 1), 1, -4, -1, True),
+        # rstar on a chunk boundary (160 + 97 - 1 = 256), tlen = 1, qlen = 1
+        (256, 256, 256, 64, 150, [(160, 97), (1, 1), (200, 1), (1, 120),
+                                  (256, 256), (64, 129)],
+         sc, 2, -4, 0, True),
+    ]
+    rng = np.random.default_rng(11)
+    for _ in range(10):
+        RB = int(rng.choice([16, 32, 64]))
+        W = int(rng.choice([128, 256, 384]))
+        drift = -(-(RB // 2) // 16) * 16
+        w = int(rng.integers(8, W - 48 - drift + 1))
+        QP = int(rng.choice([64, 200, 512]))
+        TP = int(rng.choice([96, 300, 512]))
+        lens = []
+        for _ in range(int(rng.integers(1, 9))):
+            ql = int(rng.integers(1, QP + 1))
+            tl = int(np.clip(ql + rng.integers(-w, w + 1), 1, TP))
+            lens.append((ql, tl))
+        q, e = int(rng.integers(1, 8)), int(rng.integers(1, 4))
+        q2 = int(rng.integers(q, 40))
+        e2 = int(rng.integers(1, e + 1))
+        cases.append((QP, TP, W, RB, w, lens, (q, e, q2, e2),
+                      int(rng.integers(1, 4)), -int(rng.integers(1, 8)),
+                      -int(rng.integers(0, 3)), bool(rng.integers(0, 4))))
+    return cases
+
+
+@pytest.mark.parametrize(
+    "case", _host_cases(),
+    ids=lambda c: f"W{c[2]}-RB{c[3]}-w{c[4]}-n{len(c[5])}")
+def test_extd2_cuda_source_on_host_matches_plain(extd2_host, case):
+    QP, TP, W, RB, w, lens_l, (q, e, q2, e2), mch, mis, sc_n, cig = case
+    qr, sf, lens = make_pairs(W + RB + len(lens_l), lens_l, QP, TP)
+    RT = (QP + TP + RB - 1) // RB * RB
+    N = len(lens_l)
+    order = extend.job_order(torch.from_numpy(lens)).numpy()
+    # the kernel writes every byte of p: start from garbage
+    p = np.full((N, RT, W) if cig else (1,), 0xA5, np.uint8)
+    ez = np.zeros((N, extend.EZ_N), np.int32)
+    ins = [np.ascontiguousarray(x) for x in (qr, sf, lens, order)]
+    assert extd2_host(*[x.ctypes.data for x in ins], p.ctypes.data,
+                      ez.ctypes.data, N, QP, TP, W, RB, RT, w, q, e, q2, e2,
+                      *extend._long_gap(q, e, q2, e2), mch, mis, sc_n,
+                      int(cig)) == 0
+    pp, ezp = extend.extd2_batch2_plain(
+        *(torch.from_numpy(x) for x in (qr, sf, lens)), W=W, RB=RB, RT=RT,
+        q=q, e=e, q2=q2, e2=e2, w=w, sc_mch=mch, sc_mis=mis, sc_N=sc_n,
+        with_cigar=cig)
+    np.testing.assert_array_equal(ez, ezp.numpy())
+    if cig:
+        np.testing.assert_array_equal(p, pp.numpy())
+    else:
+        assert pp is None and p[0] == 0xA5
