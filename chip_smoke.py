@@ -679,10 +679,10 @@ def phase_kernels(main):
 def phase_align_kernels(aln):
     """extd2 against its plain version on the whole first launch of the -a
     run (a 512-read batch's jobs), timed on that launch and on its first
-    64 jobs (the earlier 64-job sub-batch); the traceback against its
-    plain version on the first 64 jobs' p; extd2's DP cell-updates/s on
-    bench.py's 64 x 10,240 x 10,240 random pairs."""
-    from minimap2_tpu_torch.ops import extend, traceback
+    64 jobs (the earlier 64-job sub-batch); the traceback likewise on that
+    launch's p; extd2's DP cell-updates/s on bench.py's 64 x 10,240 x
+    10,240 random pairs."""
+    from minimap2_tpu_torch.ops import _build, extend, traceback
     qr, sf, lens = aln["first_job"]["args"]
     kw = aln["first_job"]["kw"]
     N, QP = qr.shape
@@ -719,7 +719,7 @@ def phase_align_kernels(aln):
     f64 = [x[:64] for x in (qr, sf, lens)]
     cells64, bms64, by64 = extd2_bound(f64[2])
     ms64 = cuda_ms(lambda: extend.extd2_batch2(*f64, **ext_kw), reps=5)
-    per_sm = extend.blocks_per_sm(W, QP, TP)
+    per_sm = _build.blocks_per_sm("extd2", W, QP, TP)
     # bench.py:262-292: 64 x 10,240 x 10,240 random pairs, band 500
     rng = np.random.default_rng(0)
     NB, QB, w_b = 64, 10240, 500
@@ -755,29 +755,36 @@ def phase_align_kernels(aln):
         dp_cells_per_s=dp_rate, dp_bench_ms=b_ms)]
     del b_args
 
-    p64 = p[:64]
-    ops, fin = traceback.traceback_batch(p64, f64[2], RB=RB, w=w)
+    ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
     (ops2, fin2), tb_plain_ms = timed_once(
-        lambda: traceback.traceback_batch_plain(p64, f64[2], RB=RB, w=w))
+        lambda: traceback.traceback_batch_plain(p, lens, RB=RB, w=w))
     err = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
-    require(err == 0, f"traceback differs from its plain version ({err})")
-    visited = int((ops != 0).sum())
-    bms, by = bound(visited + 64 * RT + 64 * 8 + 64 * 8, 0)
-    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p64, f64[2], RB=RB,
-                                                      w=w), reps=5)
-    tb_launch_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, RB=RB,
-                                                             w=w), reps=3)
-    log(f"[kernels] traceback on the first 64 jobs' p: {tb_ms:.3f} ms, "
-        f"plain {tb_plain_ms:.0f} ms, {visited} diagonals visited; on the "
-        f"whole launch's p: {tb_launch_ms:.3f} ms")
+    require(err == 0, f"traceback differs from its plain version on the "
+            f"whole first launch ({err})")
+
+    def tb_bound(ops_t):     # one p byte per visited diagonal, ops, lens, fin
+        n, visited = ops_t.shape[0], int((ops_t != 0).sum())
+        return (visited,) + bound(visited + n * RT + n * 8 + n * 8, 0)
+    visited, bms, by = tb_bound(ops)
+    visited64, bms64, by64 = tb_bound(ops[:64])
+    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, RB=RB, w=w),
+                    reps=3)
+    p64 = p[:64]
+    tb_ms64 = cuda_ms(lambda: traceback.traceback_batch(p64, f64[2], RB=RB,
+                                                        w=w), reps=5)
+    log(f"[kernels] traceback on the whole first launch's p ({N} jobs, "
+        f"{visited} diagonals visited): {tb_ms:.3f} ms, plain "
+        f"{tb_plain_ms:.0f} ms, bound {bms:.6f} ms ({by}); on its first 64 "
+        f"jobs: {tb_ms64:.3f} ms, bound {bms64:.6f} ms ({by64})")
     rows.append(dict(
         name="traceback", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/traceback.cu",
         replaces="minimap2_tpu/ops/traceback_pallas.py:155",
         launches=aln["launches"].get("traceback", 0), max_abs_err=err,
         ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[64, RT, W], visited=visited,
-        launch_ms=tb_launch_ms))
+        library_ms=None, shape=[N, RT, W], visited=visited,
+        first64=dict(ms=tb_ms64, bound_ms=bms64, bound_by=by64,
+                     visited=visited64)))
     return rows
 
 
@@ -786,7 +793,7 @@ def phase_new_kernels(hpc, spl):
     exts2 on the first 32 jobs of the splice phase's first launch (FOR
     rows) and on the whole launch, the splice traceback on those 32 jobs;
     each against its plain version, bit-equal."""
-    from minimap2_tpu_torch.ops import exts, sort, traceback
+    from minimap2_tpu_torch.ops import _build, exts, sort, traceback
     rows = []
     keys = hpc["sort1_keys"]
     B, A = keys.shape
@@ -846,7 +853,7 @@ def phase_new_kernels(hpc, spl):
     launch_ms = cuda_ms(lambda: exts.exts2_batch(*launch, **kw), reps=3)
     memset_ms = cuda_ms(lambda: torch.zeros((NL, RT, W), dtype=torch.uint8,
                                             device="cuda"), reps=3)
-    per_sm = exts.blocks_per_sm(W, QP, TP)
+    per_sm = _build.blocks_per_sm("exts2", W, QP, TP)
     log(f"[kernels] exts2 on {N} jobs (QP={QP}, TP={TP}, W={W}, R={RT}, "
         f"{cells} DP cells): {ext_ms:.3f} ms, plain {ext_plain_ms:.0f} ms, "
         f"bound {bms:.4f} ms ({by}); on the first launch, {NL} jobs "
@@ -969,6 +976,9 @@ def phase_align_breakdown(aln, splice=False):
                     for i in range(n)]
         ab.collect = timed_collect
     mat = gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.time()
         by_read, fallback, _, _ = engine.batch_build_regs(
@@ -979,6 +989,7 @@ def phase_align_breakdown(aln, splice=False):
         for name, fn in wrapped.items():
             setattr(align_batch, name, fn)
     torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     dp_ms = sum(s.elapsed_time(e) for s, e in evs[dp])
     tb_ms = sum(s.elapsed_time(e) for s, e in evs["traceback_batch"])
     out = io.StringIO()
@@ -1005,7 +1016,9 @@ def phase_align_breakdown(aln, splice=False):
         f"{dp_ms:.2f} ms{dp_bound}, traceback "
         f"{tb_ms:.2f} ms, ops download {1e3 * dl[0]:.2f} ms; host regs "
         f"(trim, audits, fix_cigar, mapq) {host_s:.3f} s, SAM emit "
-        f"{t3 - t2:.3f} s; {len(fallback)} fallback reads")
+        f"{t3 - t2:.3f} s; {len(fallback)} fallback reads; device memory "
+        f"peak of the alignment {peak_gb:.3f} GB above the "
+        f"{base / 1e9:.3f} GB held before it")
 
 
 def phase_align_cross_check(aln, tmp, n, splice=False):

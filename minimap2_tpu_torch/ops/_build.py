@@ -126,6 +126,16 @@ def require_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+def blocks_per_sm(kernel: str, W: int, QP: int, TP: int) -> int:
+    """Blocks of a DP kernel ("extd2" or "exts2") one SM holds at once at
+    these widths (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through
+    the kernel's ``mm2_<kernel>_occupancy``)."""
+    name = f"mm2_{kernel}_occupancy"
+    n = ctypes.c_int(0)
+    check(getattr(lib(), name)(W, QP, TP, ctypes.byref(n)), name)
+    return n.value
+
+
 def stream_ptr(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -39,7 +39,6 @@ modes raise NotImplementedError.
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -95,15 +94,6 @@ def job_order(lens: torch.Tensor) -> torch.Tensor:
     (qlen + tlen), ties in job order.  (N,) int32 on lens's device."""
     tot = lens[:, 0].to(torch.int64) + lens[:, 1].to(torch.int64)
     return torch.sort(-tot, stable=True).indices.to(torch.int32)
-
-
-def blocks_per_sm(W: int, QP: int, TP: int) -> int:
-    """Blocks of the extd2 kernel one SM holds at once at these widths
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    n = ctypes.c_int(0)
-    _build.check(_build.lib().mm2_extd2_occupancy(W, QP, TP, ctypes.byref(n)),
-                 "mm2_extd2_occupancy")
-    return n.value
 
 
 def _ez_dead(ez, lens, G: int, RB: int, RT: int):

@@ -36,7 +36,6 @@ NotImplementedError.
 """
 from __future__ import annotations
 
-import ctypes
 
 import numpy as np
 import torch
@@ -282,15 +281,6 @@ def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
                         (EZ_H0T, h0t)):
         ez[:, lane_i] = val
     return p, ez.to(i32)
-
-
-def blocks_per_sm(W: int, QP: int, TP: int) -> int:
-    """Blocks of the exts2 kernel one SM holds at once at these widths
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    n = ctypes.c_int(0)
-    _build.check(_build.lib().mm2_exts2_occupancy(W, QP, TP, ctypes.byref(n)),
-                 "mm2_exts2_occupancy")
-    return n.value
 
 
 def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,

@@ -80,7 +80,11 @@ class AlignBatcher:
     512-read batch's jobs in one launch: the kernel's time is set by the
     longest job's diagonals, and 6 blocks fit on each of an H100's 132 SMs,
     so one launch of ~580 jobs is faster than 512 + 64 or 256 + 256 + 64
-    (PERF.md, section 6)."""
+    (PERF.md, section 6).  Device memory: a launch's direction bytes p are
+    sub x RT x W bytes, RT = R rounded up to RB; at the default widths a
+    full 1024-job sub-batch holds 1024 x 25,600 x 640 B = 16.8 GB.  Only
+    one p is alive at a time (each is released once its traceback is
+    enqueued), so the peak is one p and the small job planes."""
 
     def __init__(self, mi, opt, *, device, QP=12800, TP=12800, G=32, W=640,
                  RB=64, sub=1024):

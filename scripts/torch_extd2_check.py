@@ -11,8 +11,10 @@ and 2.5% insertions and deletions each; seed 1), and checks the kernel
 bit-equal to ``extd2_batch2_plain`` on the first 32 jobs.  It prints the
 blocks per SM and the kernel's time (CUDA events, median) on 64 jobs, on a
 256-job launch and on the 576 jobs as sub-batches of 256 (256 + 256 + 64),
-of 512 (512 + 64) and in one launch, and the time a memset of a 256-job p
-would add.  Exits non-zero without a card or on a mismatch.
+of 512 (512 + 64) and in one launch; the time a memset of a 256-job and
+of a 576-job p would add; and the time and the device memory peak of one
+launch of 1024 jobs (the 576 and the first 448 again), AlignBatcher's
+largest sub-batch.  Exits non-zero without a card or on a mismatch.
 """
 import os
 import sys
@@ -100,16 +102,28 @@ def main():
         for lo in range(0, 576, sub):
             launch(lo, min(lo + sub, 576))
     print(f"bit-equal on 32 jobs {ok}; "
-          f"{extend.blocks_per_sm(W, QP, TP)} blocks per SM; "
+          f"{_build.blocks_per_sm("extd2", W, QP, TP)} blocks per SM; "
           f"64 jobs {median_ms(lambda: launch(0, 64), 3):.3f} ms; "
           f"256 jobs {median_ms(lambda: launch(0, 256), 3):.3f} ms; "
           f"576 jobs as 256+256+64 {median_ms(lambda: batch(256), 2):.3f}"
           f" ms, as 512+64 {median_ms(lambda: batch(512), 2):.3f} ms, "
           f"as one launch {median_ms(lambda: batch(576), 2):.3f} ms",
           flush=True)
-    print("a memset of a 256-job p: %.3f ms" % median_ms(
-        lambda: torch.zeros((256, RT, W), dtype=torch.uint8, device="cuda"),
-        3))
+    for n in (256, 576):
+        print(f"a memset of a {n}-job p: %.3f ms" % median_ms(
+            lambda: torch.zeros((n, RT, W), dtype=torch.uint8,
+                                device="cuda"), 3))
+    del pp
+    jobs = [torch.cat([x, x[:448]]) for x in jobs]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(lambda: launch(0, 1024), 2)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"one launch of 1024 jobs: {ms:.3f} ms; device memory peak "
+          f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the "
+          f"inputs), p {1024 * RT * W / 1e9:.3f} GB; card "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
     tot = lens[:, 0].astype(np.int64) + lens[:, 1]
     print(f"qlen + tlen of the first 256 jobs: mean {tot[:256].mean():.1f} "
           f"max {tot[:256].max()}")
