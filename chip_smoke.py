@@ -36,8 +36,11 @@ seconds):
      those 64 jobs, sort1 on phase 5's first batch, exts2 on the
      first 32 jobs of phase 6's first launch and on that whole launch
      (both strand rounds of a sub-batch), the splice traceback on those 32
-     jobs), timed with CUDA events; extd2's DP cell-updates/s as bench.py
-     defines them; extd2's and exts2's blocks per SM;
+     jobs and on that whole launch), timed with CUDA events; extd2's DP
+     cell-updates/s as bench.py defines them; blocks per SM of extd2,
+     exts2, the traceback and the chain; the chain's longest read (valid
+     anchors n, ns a step) and each traceback's longest walk (diagonals,
+     ns a diagonal);
   8. where one 512-read batch spends its time, for the PAF and HPC paths
      (host read/encode/emit, device step with CUDA events and
      torch.profiler), the -a path and the splice path (mapping step, DP
@@ -123,6 +126,16 @@ def band_cells(lens, w):
         dead = np.flatnonzero(width <= 0)
         tot += int(width[:dead[0] if len(dead) else len(width)].sum())
     return tot
+
+
+def longest_walk(ops):
+    """Diagonals from a traceback walk's start to its last step, over the
+    longest job of ops (N, RT)."""
+    col = torch.arange(ops.shape[1], device=ops.device)
+    nz = ops != 0
+    hi = torch.where(nz, col, -1).amax(1)
+    lo = torch.where(nz, col, ops.shape[1]).amin(1)
+    return int(torch.where(hi >= 0, hi - lo + 1, 0).max())
 
 
 def bound(nbytes, nops):
@@ -559,7 +572,7 @@ def _first_batch(step, rd, n):
 
 
 def phase_kernels(main):
-    from minimap2_tpu_torch.ops import chain, sketch, sort
+    from minimap2_tpu_torch.ops import _build, chain, sketch, sort
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     rows = []
@@ -663,16 +676,24 @@ def phase_kernels(main):
               chn_pen_skip=p.chn_pen_skip)
     B, A = planes_[0].shape
     bms, by = bound(B * A * (21 + 16), n_anchor * p.chain_window * 30)
+    n_max = chain.last_valid(planes_[5])
+    ch_ms = cuda_ms(lambda: chain.chain_batch(*planes_, **kw))
+    per_sm = _build.blocks_per_sm("chain")
+    log(f"[kernels] chain at {B} x {A} ({n_anchor} valid anchors, the "
+        f"longest read's n {n_max}, {per_sm} blocks per SM): {ch_ms:.3f} "
+        f"ms, {1e6 * ch_ms / max(n_max, 1):.1f} ns a step of the longest "
+        f"read, bound {bms:.4f} ms ({by})")
     rows.append(dict(
         name="chain", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/chain.cu",
         replaces="minimap2_tpu/ops/chain_pallas.py:166",
         launches=main["launches"].get("chain", 0), max_abs_err=max(errs),
-        ms=cuda_ms(lambda: chain.chain_batch(*planes_, **kw)),
+        ms=ch_ms,
         plain_ms=cuda_ms(lambda: chain.chain_batch_plain(*planes_, **kw),
                          reps=2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None, shape=[B, A],
-        valid_anchors=n_anchor))
+        valid_anchors=n_anchor, longest_n=n_max,
+        ns_per_step=1e6 * ch_ms / max(n_max, 1), blocks_per_sm=per_sm))
     return rows
 
 
@@ -772,10 +793,14 @@ def phase_align_kernels(aln):
     p64 = p[:64]
     tb_ms64 = cuda_ms(lambda: traceback.traceback_batch(p64, f64[2], RB=RB,
                                                         w=w), reps=5)
+    walk = longest_walk(ops)
+    tb_sm = _build.blocks_per_sm("traceback", 0)
     log(f"[kernels] traceback on the whole first launch's p ({N} jobs, "
-        f"{visited} diagonals visited): {tb_ms:.3f} ms, plain "
-        f"{tb_plain_ms:.0f} ms, bound {bms:.6f} ms ({by}); on its first 64 "
-        f"jobs: {tb_ms64:.3f} ms, bound {bms64:.6f} ms ({by64})")
+        f"{visited} diagonals visited, the longest walk {walk} diagonals, "
+        f"{tb_sm} blocks per SM): {tb_ms:.3f} ms = "
+        f"{1e6 * tb_ms / max(walk, 1):.1f} ns a diagonal of the longest "
+        f"walk, plain {tb_plain_ms:.0f} ms, bound {bms:.6f} ms ({by}); on "
+        f"its first 64 jobs: {tb_ms64:.3f} ms, bound {bms64:.6f} ms ({by64})")
     rows.append(dict(
         name="traceback", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/traceback.cu",
@@ -783,6 +808,8 @@ def phase_align_kernels(aln):
         launches=aln["launches"].get("traceback", 0), max_abs_err=err,
         ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=bms, bound_by=by,
         library_ms=None, shape=[N, RT, W], visited=visited,
+        longest_walk=walk, ns_per_diagonal=1e6 * tb_ms / max(walk, 1),
+        blocks_per_sm=tb_sm,
         first64=dict(ms=tb_ms64, bound_ms=bms64, bound_by=by64,
                      visited=visited64)))
     return rows
@@ -791,8 +818,8 @@ def phase_align_kernels(aln):
 def phase_new_kernels(hpc, spl):
     """sort1 on the HPC phase's first run-end keys (beside torch.sort);
     exts2 on the first 32 jobs of the splice phase's first launch (FOR
-    rows) and on the whole launch, the splice traceback on those 32 jobs;
-    each against its plain version, bit-equal."""
+    rows) and on the whole launch, the splice traceback on those 32 jobs
+    and on the whole launch; each against its plain version, bit-equal."""
     from minimap2_tpu_torch.ops import _build, exts, sort, traceback
     rows = []
     keys = hpc["sort1_keys"]
@@ -848,7 +875,7 @@ def phase_new_kernels(hpc, spl):
                  for i in range(0, NL, 16)] + [max_abs_err([ezl], [ezpl])])
     require(err_l == 0, f"exts2 differs from its plain version on the "
             f"whole first launch ({err_l})")
-    del pl, ppl
+    del ppl
     l_cells, l_bms, l_by = exts2_bound(launch[4])
     launch_ms = cuda_ms(lambda: exts.exts2_batch(*launch, **kw), reps=3)
     memset_ms = cuda_ms(lambda: torch.zeros((NL, RT, W), dtype=torch.uint8,
@@ -886,16 +913,43 @@ def phase_new_kernels(hpc, spl):
     bms, by = bound(visited + N * RT + N * 8 + N * 8, 0)
     tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, **tkw),
                     reps=5)
+    # the whole first launch (both strand rounds of a sub-batch)
+    lens_l = launch[4]
+    opsl, finl = traceback.traceback_batch(pl, lens_l, **tkw)
+    (opsl2, finl2), tbl_plain_ms = timed_once(
+        lambda: traceback.traceback_batch_plain(pl, lens_l, **tkw))
+    err_tl = max(max_abs_err_u8([opsl], [opsl2]),
+                 max_abs_err([finl], [finl2]))
+    require(err_tl == 0, f"splice traceback differs from its plain version "
+            f"on the whole first launch ({err_tl})")
+    del opsl2
+    visited_l = int((opsl != 0).sum())
+    walk = longest_walk(opsl)
+    tl_bms, tl_by = bound(visited_l + NL * RT + NL * 8 + NL * 8, 0)
+    tbl_ms = cuda_ms(lambda: traceback.traceback_batch(pl, lens_l, **tkw),
+                     reps=5)
+    tb_sm = _build.blocks_per_sm("traceback", 1)
+    del pl
     log(f"[kernels] splice traceback on the same p: {tb_ms:.3f} ms, plain "
         f"{tb_plain_ms:.0f} ms, {visited} diagonals visited, "
-        f"{n_intron_ops} of them N")
+        f"{n_intron_ops} of them N; on the whole launch's p ({NL} jobs, "
+        f"{visited_l} diagonals visited, the longest walk {walk} diagonals, "
+        f"{tb_sm} blocks per SM): {tbl_ms:.3f} ms = "
+        f"{1e6 * tbl_ms / max(walk, 1):.1f} ns a diagonal of the longest "
+        f"walk, plain {tbl_plain_ms:.0f} ms, bound {tl_bms:.6f} ms ({tl_by})")
     rows.append(dict(
         name="traceback_splice", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/traceback.cu",
         replaces="minimap2_tpu/ops/traceback_pallas.py:155",
         launches=spl["launches"].get("traceback_splice", 0),
-        max_abs_err=err, ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None, shape=[N, RT, W], visited=visited))
+        max_abs_err=max(err, err_tl), ms=tb_ms, plain_ms=tb_plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None, shape=[N, RT, W],
+        visited=visited,
+        launch=dict(jobs=NL, max_abs_err=err_tl, ms=tbl_ms,
+                    plain_ms=tbl_plain_ms, bound_ms=tl_bms, bound_by=tl_by,
+                    visited=visited_l, longest_walk=walk,
+                    ns_per_diagonal=1e6 * tbl_ms / max(walk, 1),
+                    blocks_per_sm=tb_sm)))
     return rows
 
 

@@ -36,11 +36,13 @@ SIGNATURES = {
     "mm2_sort1": [_P, _P, _I, _I, _P],
     "mm2_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "mm2_chain_occupancy": [_P],
     "mm2_extd2": [_P] * 6 + [_I] * 17 + [_P],
     "mm2_extd2_occupancy": [_I, _I, _I, _P],
     "mm2_exts2": [_P] * 8 + [_I] * 13 + [_P],
     "mm2_exts2_occupancy": [_I, _I, _I, _P],
     "mm2_traceback": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "mm2_traceback_occupancy": [_I, _P],
 }
 
 _lib = None
@@ -126,13 +128,15 @@ def require_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def blocks_per_sm(kernel: str, W: int, QP: int, TP: int) -> int:
-    """Blocks of a DP kernel ("extd2" or "exts2") one SM holds at once at
-    these widths (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through
-    the kernel's ``mm2_<kernel>_occupancy``)."""
+def blocks_per_sm(kernel: str, *args: int) -> int:
+    """Blocks of a kernel one SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the kernel's
+    ``mm2_<kernel>_occupancy``): extd2 and exts2 at widths (W, QP, TP),
+    the traceback in a mode (splice 0 or 1), the chain without
+    arguments."""
     name = f"mm2_{kernel}_occupancy"
     n = ctypes.c_int(0)
-    check(getattr(lib(), name)(W, QP, TP, ctypes.byref(n)), name)
+    check(getattr(lib(), name)(*args, ctypes.byref(n)), name)
     return n.value
 
 

@@ -140,6 +140,10 @@ def chain_batch(rev, rid, rpos, qpos, span, av, *, WND: int, max_dist_x: int,
         raise ValueError("chain_batch: five (B, A) int32 planes + bool av")
     if WND != 64:
         raise ValueError("chain_batch: the kernel holds WND = 64 slots")
+    if A % 16 or any(x.data_ptr() % 16 for x in (*planes, av)):
+        raise ValueError("chain_batch: the kernel stages anchors in 16-byte "
+                         "pieces (A a multiple of 16, planes 16-byte "
+                         "aligned)")
     outs = [torch.empty_like(rpos) for _ in range(4)]
     err = _build.lib().mm2_chain(
         *(x.data_ptr() for x in planes), av.data_ptr(),

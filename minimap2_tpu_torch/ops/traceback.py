@@ -89,6 +89,9 @@ def traceback_batch(p, lens, *, RB, w, splice=False, QP=0):
     _build.require_cuda("traceback_batch", p, lens)
     if p.dtype != torch.uint8 or lens.dtype != torch.int32:
         raise ValueError("traceback: uint8 p and int32 lens")
+    if W % 16:
+        raise ValueError("traceback: the kernel reads p in 16-byte pieces "
+                         "(W a multiple of 16)")
     ops = torch.empty((N, RT), dtype=torch.uint8, device=p.device)
     fin = torch.empty((N, 2), dtype=torch.int32, device=p.device)
     err = _build.lib().mm2_traceback(

@@ -5,9 +5,6 @@ chunk boundary (EZ_DEAD's group rule) and pairs whose band dies.  Also the
 device code of csrc/extd2.cu, built with g++ on tests/cuda_host_shim.h
 (one std::thread per CUDA thread), bit-equal to the plain version."""
 import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +15,7 @@ import jax.numpy as jnp
 
 from minimap2_tpu.ops.extend_pallas2 import extd2_batch2 as jax_extd2
 from minimap2_tpu_torch.ops import extend
+from cuda_host import build_on_host
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -134,23 +132,8 @@ extern "C" int emu_extd2(const void* qr, const void* sf, const void* lens,
 def extd2_host(tmp_path_factory):
     """The device half of csrc/extd2.cu (everything before its host entry
     points) on the host shim, as a ctypes function."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ with C++20")
-    src = (Path(extend.__file__).parent / "csrc" / "extd2.cu").read_text()
-    dev = src.split("}  // namespace")[0] + "}  // namespace\n"
-    shared = "extern __shared__ uint4 smem[];"
-    assert dev.count(shared) == 1
-    dev = dev.replace("#include <cuda_runtime.h>", "").replace(
-        shared, "uint4* smem = emu_smem;")
-    d = tmp_path_factory.mktemp("extd2_host")
-    shim = Path(__file__).parent / "cuda_host_shim.h"
-    (d / "extd2_host.cpp").write_text(f'#include "{shim}"\n' + dev
-                                      + _EMU_RUNNER)
-    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
-                    "-o", str(d / "extd2_host.so"), str(d / "extd2_host.cpp")],
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(str(d / "extd2_host.so")).emu_extd2
+    fn = build_on_host("extd2", _EMU_RUNNER,
+                       tmp_path_factory.mktemp("extd2_host")).emu_extd2
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17
     fn.restype = ctypes.c_int
     return fn

@@ -2,7 +2,9 @@
 minimizer compaction, the h2r probe + anchor expansion (pos_fmt 1 and 2,
 stride-2 and stride-4 rows, every rid-recovery branch), the plain chain
 kernel vs chain_pallas in interpret mode, the windowed scan, and top-K
-chain selection."""
+chain selection; and the CUDA chain kernel's own code (csrc/chain.cu, on
+the host shim) vs the plain version, bit-equal."""
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -17,8 +19,9 @@ from minimap2_tpu.ops import sort_pallas
 from minimap2_tpu.ops.chain_pallas import chain_batch as jax_chain_batch
 from minimap2_tpu.parallel import batch as jb
 from minimap2_tpu_torch.index.index import MiniIndex
-from minimap2_tpu_torch.ops.chain import chain_batch
+from minimap2_tpu_torch.ops.chain import NEG_INF, chain_batch
 from minimap2_tpu_torch.parallel import batch as tb
+from cuda_host import build_on_host
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -231,3 +234,91 @@ def test_chain_routes_break_ties_differently():
         k_: v for k_, v in CHAIN_ARGS.items() if k_ != "chn_pen_gap"})
     _, (_, spred, _, _) = tb._chain_scan(*t, p)
     assert int(kpred[0, 2]) == 1 and int(spred[0, 2]) == 0
+
+
+_CHAIN_RUNNER = r"""
+extern "C" int emu_chain(const void* rev, const void* rid, const void* rpos,
+                         const void* qpos, const void* span, const void* av,
+                         void* f, void* pred, void* qs, void* rs, int B,
+                         int A, int max_dist_x, int max_dist_y, int bw,
+                         float gap, float skip) {
+  const Params prm{std::max(0, std::min(max_dist_x, max_dist_y)), bw, gap,
+                   skip};
+  emu_launch(B, 32, [=] {
+    chain_kernel((const int32_t*)rev, (const int32_t*)rid,
+                 (const int32_t*)rpos, (const int32_t*)qpos,
+                 (const int32_t*)span, (const uint8_t*)av, (int32_t*)f,
+                 (int32_t*)pred, (int32_t*)qs, (int32_t*)rs, A, prm);
+  });
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def chain_host(tmp_path_factory):
+    """csrc/chain.cu's device code on the host shim."""
+    fn = build_on_host("chain", _CHAIN_RUNNER,
+                       tmp_path_factory.mktemp("chain_host")).emu_chain
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _host_chain_planes(seed, B, A):
+    """_anchor_planes plus the edges: row 1 the tie of
+    test_chain_routes_break_ties_differently repeated along the read
+    (equal candidates, the larger j must win), row 2 anchors every one
+    barred from the others (windows of NEG_INF only), row 3 valid up to
+    its last anchor (n = A), row 4 with invalid anchors inside its valid
+    range, row 0 with no valid anchor; rows 5 and 6 the window's edge:
+    anchor 0 joins anchor 64 (64 back) but not anchor 65 (65 back), the
+    anchors between being on another contig."""
+    planes = [x.copy() for x in _anchor_planes(seed, B, A)]
+    rev, rid, rpos, qpos, span, av = planes
+    step = np.arange(A // 3)[:, None] * 5000
+    tri = (np.array([[1000, 1100, 1200]]) + step).ravel()
+    rpos[1, :len(tri)] = tri
+    qpos[1, :len(tri)] = (np.array([[1100, 1000, 1200]]) + step).ravel()
+    rev[1], rid[1], span[1] = 0, 0, 15
+    av[1] = np.arange(A) < len(tri)
+    rid[2] = np.arange(A)
+    av[2] = True
+    av[3] = True
+    av[4, ::7] = False
+    av[4, -3] = True
+    for b, far in ((5, 64), (6, 65)):
+        rid[b, :far + 1] = 1
+        rid[b, [0, far]] = 0
+        rpos[b, [0, far]] = [1000, 1100]
+        qpos[b, [0, far]] = [1000, 1100]
+        span[b, :far + 1] = 15
+        av[b, :far + 1] = True
+    return planes
+
+
+@pytest.mark.parametrize("bw,B,A", [(500, 12, 256), (20000, 12, 256),
+                                    (500, 8, 400), (20000, 8, 144)])
+def test_chain_cuda_source_on_host_matches_plain(chain_host, bw, B, A):
+    """The kernel's own code against the plain version, bit-equal: both
+    bands, chunks of 128 anchors with a ragged last one (A = 400, 144)."""
+    planes = _host_chain_planes(bw + A, B, A)
+    args = dict(CHAIN_ARGS, bw=bw, max_dist_x=max(5000, bw),
+                max_dist_y=max(5000, bw))
+    outs = [np.full((B, A), -7, np.int32) for _ in range(4)]
+    ins = [np.ascontiguousarray(x) for x in planes]
+    assert chain_host(*[x.ctypes.data for x in ins],
+                      *[o.ctypes.data for o in outs], B, A,
+                      args["max_dist_x"], args["max_dist_y"], bw,
+                      float(np.float32(args["chn_pen_gap"])),
+                      float(np.float32(args["chn_pen_skip"]))) == 0
+    want = chain_batch(*(torch.from_numpy(x) for x in planes), WND=64,
+                       **args)
+    for name, g, w in zip(("f", "pred", "qs", "rs"), outs, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    pred = want[1].numpy()
+    assert pred[1, 2] == 1                   # the tie went to the larger j
+    assert pred[5, 64] == 0 and pred[6, 65] == -1
+    assert (pred[2] == -1).all() and (want[0].numpy()[0] == NEG_INF).all()
+    assert int((pred >= 0).sum()) > A

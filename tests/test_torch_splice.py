@@ -25,9 +25,6 @@ import ctypes
 import functools
 import io
 import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -48,6 +45,7 @@ from minimap2_tpu_torch import config as port_config
 from minimap2_tpu_torch.index.index import MiniIndex
 from minimap2_tpu_torch.ops import exts, traceback
 from minimap2_tpu_torch.parallel import align_batch, engine
+from cuda_host import build_on_host
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -437,23 +435,8 @@ extern "C" int emu_exts2(const void* qr, const void* sf, const void* dn,
 def exts2_host(tmp_path_factory):
     """The device half of csrc/exts2.cu (everything before its host entry
     points) on the host shim, as a ctypes function."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ with C++20")
-    src = (Path(exts.__file__).parent / "csrc" / "exts2.cu").read_text()
-    dev = src.split("}  // namespace")[0] + "}  // namespace\n"
-    shared = "extern __shared__ uint4 smem[];"
-    assert dev.count(shared) == 1
-    dev = dev.replace("#include <cuda_runtime.h>", "").replace(
-        shared, "uint4* smem = emu_smem;")
-    d = tmp_path_factory.mktemp("exts2_host")
-    shim = Path(__file__).parent / "cuda_host_shim.h"
-    (d / "exts2_host.cpp").write_text(f'#include "{shim}"\n' + dev
-                                      + _EMU_RUNNER)
-    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
-                    "-o", str(d / "exts2_host.so"), str(d / "exts2_host.cpp")],
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(str(d / "exts2_host.so")).emu_exts2
+    fn = build_on_host("exts2", _EMU_RUNNER,
+                       tmp_path_factory.mktemp("exts2_host")).emu_exts2
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
     fn.restype = ctypes.c_int
     return fn
