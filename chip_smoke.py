@@ -31,14 +31,18 @@ seconds):
      mapq-60 primary, every primary CIGAR spans its read and reference
      interval, >= 80% of the true introns matched exactly by an N op;
   7. each kernel against its plain PyTorch version on the card at its
-     path's shapes (bit-equal; extd2 on the first align launch of phase 4
+     path's shapes (bit-equal; the sketch on random codes and on the first
+     batch of phases 3 (k15 w10), 5 (k19 w10, HPC-compacted codes) and 6
+     (k15 w5); sort3 on random planes and on phase 3's first compaction
+     and anchor keys; extd2 on the first align launch of phase 4
      (a batch's jobs), timed there and on its first 64 jobs, the traceback on
      those 64 jobs, sort1 on phase 5's first batch, exts2 on the
      first 32 jobs of phase 6's first launch and on that whole launch
      (both strand rounds of a sub-batch), the splice traceback on those 32
      jobs and on that whole launch), timed with CUDA events; extd2's DP
-     cell-updates/s as bench.py defines them; blocks per SM of extd2,
-     exts2, the traceback and the chain; the chain's longest read (valid
+     cell-updates/s as bench.py defines them; blocks per SM of every
+     kernel, and the sketch's and sort3's registers and spills (ptxas);
+     the chain's longest read (valid
      anchors n, ns a step) and each traceback's longest walk (diagonals,
      ns a diagonal);
   8. where one 512-read batch spends its time, for the PAF and HPC paths
@@ -214,10 +218,17 @@ def phase_main_path(tmp):
         f"{time.time() - t0:.1f}s")
     del seqs, reads, hreads, gseqs, greads
 
+    from minimap2_tpu_torch.parallel import batch, engine
+    comp, anch, sk = {}, {}, {}
     run = _paf_run("main", ["--batch", "-x", "map-ont", "-o", paf, ref, rd],
-                   ("sketch", "sort3", "chain"))
+                   ("sketch", "sort3", "sort3_merge", "chain"),
+                   [_capture_first(batch, "sort3_chunked", comp),
+                    _capture_first(batch, "sort3_rows", anch),
+                    _capture_first(engine, "sketch_batch", sk)])
     paf_accuracy("main", paf, rnames)
     return dict(run, rd=rd, ref=ref, rnames=rnames, hpc_rd=hpc_rd,
+                compaction_keys=comp["args"], anchor_keys=anch["args"],
+                sketch_in=sk["args"],
                 hnames=hnames, spl_ref=spl_ref, spl_rd=spl_rd, gnames=gnames,
                 introns=introns)
 
@@ -314,8 +325,8 @@ def phase_align_path(main, tmp):
     first_job = {}
     run = _align_run(
         "align", ["--batch", "-a", "-x", "map-ont", "-o", sam, main["ref"],
-                  main["rd"]], ("sketch", "sort3", "chain", "extd2",
-                                "traceback"),
+                  main["rd"]], ("sketch", "sort3", "sort3_merge", "chain",
+                                "extd2", "traceback"),
         [_capture_first(align_batch, "_align_step", first_job)])
     prim, prim_regs = run["prim"], run["prim_regs"]
     n_ok = n_q60 = n_q60_wrong = 0
@@ -382,7 +393,8 @@ def _capture_first(mod, name, store):
 
     def capturing(*args, **kw):
         if not store:
-            store.update(args=[x.clone() for x in args], kw=kw)
+            store.update(args=[x.clone() if torch.is_tensor(x) else x
+                               for x in args], kw=kw)
         return fn(*args, **kw)
     return mod, name, capturing
 
@@ -471,17 +483,20 @@ def _align_run(tag, argv, kernels, hooks=()):
 def phase_hpc_path(main, tmp):
     """The HPC path (map-pb: k19 w10 HPC minimizers) through the CLI on
     the same genome, with PacBio-CLR-like reads; records the first sort1
-    input (the run-end keys of the first batch) for phase 7."""
-    from minimap2_tpu_torch.parallel import batch
+    input (the run-end keys of the first batch) and the first sketch input
+    (its HPC-compacted codes) for phase 7."""
+    from minimap2_tpu_torch.parallel import batch, engine
     paf = os.path.join(tmp, "hpc.paf")
-    keys = {}
+    keys, sk = {}, {}
     run = _paf_run("hpc", ["--batch", "-x", "map-pb", "-o", paf, main["ref"],
                            main["hpc_rd"]], ("sort1", "sketch", "sort3",
-                                             "chain"),
-                   [_capture_first(batch, "sort1_rows", keys)])
+                                             "sort3_merge", "chain"),
+                   [_capture_first(batch, "sort1_rows", keys),
+                    _capture_first(engine, "sketch_batch", sk)])
     require(run["step"].p.hpc, "the map-pb step is not an HPC step")
     paf_accuracy("hpc", paf, main["hnames"])
-    return dict(run, sort1_keys=keys["args"][0], rd=main["hpc_rd"])
+    return dict(run, sort1_keys=keys["args"][0], rd=main["hpc_rd"],
+                sketch_in=sk["args"])
 
 
 def _cigar_spans(cigar):
@@ -492,17 +507,20 @@ def _cigar_spans(cigar):
 
 def phase_splice_path(main, tmp):
     """The spliced -a path through the CLI on the genome with planted
-    genes; records the first exts2 launch's inputs (for phase 7)."""
+    genes; records the first exts2 launch's inputs and the first sketch
+    input (for phase 7)."""
     from collections import Counter
 
-    from minimap2_tpu_torch.parallel import align_batch
+    from minimap2_tpu_torch.parallel import align_batch, engine
     sam = os.path.join(tmp, "splice.sam")
-    first = {}
+    first, sk = {}, {}
     run = _align_run(
         "splice", ["--batch", "-a", "-x", "splice", "-o", sam,
                    main["spl_ref"], main["spl_rd"]],
-        ("sketch", "sort3", "chain", "exts2", "traceback_splice"),
-        [_capture_first(align_batch, "exts2_batch", first)])
+        ("sketch", "sort3", "sort3_merge", "chain", "exts2",
+         "traceback_splice"),
+        [_capture_first(align_batch, "exts2_batch", first),
+         _capture_first(engine, "sketch_batch", sk)])
     prim, prim_regs = run["prim"], run["prim_regs"]
     n_ok = n_q60 = n_q60_wrong = n_in = n_in_ok = 0
     bad_cigar = []
@@ -559,7 +577,7 @@ def phase_splice_path(main, tmp):
              (in_frac >= 0.80, f"only {100 * in_frac:.1f}% of the true "
               "introns matched")]
     return dict(run, first=first, gates=gates, intron_share=in_frac,
-                rd=main["spl_rd"])
+                rd=main["spl_rd"], sketch_in=sk["args"])
 
 
 def _first_batch(step, rd, n):
@@ -571,13 +589,37 @@ def _first_batch(step, rd, n):
     return [torch.from_numpy(x) for x in (packed, nbits, lens)]
 
 
-def phase_kernels(main):
+def ptxas_usage(src):
+    """The ``-Xptxas -v`` lines (registers, shared memory, spills) of one
+    kernel source in the build log."""
+    from minimap2_tpu_torch.ops import _build
+    out, on = [], False
+    for ln in _build.build_log.splitlines():
+        if ln.startswith("=="):
+            on = ln.strip() == f"== {src}"
+        elif on and ("registers" in ln or "spill" in ln
+                    or "entry function" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def kernel_launches(counts, name):
+    """Launches of a kernel on a run: sort3 counts its merge launches too."""
+    return counts.get(name, 0) + counts.get(f"{name}_merge", 0)
+
+
+def phase_kernels(main, hpc, spl):
     from minimap2_tpu_torch.ops import _build, chain, sketch, sort
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     rows = []
+    for src in ("sketch.cu", "sort3.cu"):
+        for ln in ptxas_usage(src):
+            log(f"[kernels] {src}: {ln}")
 
-    # sketch at 512 x 16384 with N runs and ragged lengths
+    # sketch at 512 x 16384 with N runs and ragged lengths, and on each
+    # path's first batch: map-ont (k15 w10), map-pb's HPC-compacted codes
+    # (k19 w10), splice (k15 w5)
     B, L = 512, 16384
     codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
     for _ in range(4 * B):
@@ -591,6 +633,24 @@ def phase_kernels(main):
     want = sketch.device_sketch(*args)
     err = max_abs_err(got, want)
     require(err == 0, f"sketch differs from its plain version ({err})")
+    del got, want
+    paths = {}
+    for tag, run in (("map-ont", main), ("map-pb", hpc), ("splice", spl)):
+        p_args = tuple(run["sketch_in"])
+        PB, PL = p_args[0].shape
+        e = max_abs_err(sketch.sketch_batch(*p_args),
+                        sketch.device_sketch(*p_args))
+        require(e == 0, f"sketch differs from its plain version on the "
+                f"{tag} path's first batch ({e})")
+        err = max(err, e)
+        k_, w_ = p_args[2], p_args[3]
+        paths[tag] = dict(k=k_, w=w_, shape=[PB, PL], max_abs_err=e,
+                          ms=cuda_ms(lambda a=p_args: sketch.sketch_batch(*a)),
+                          blocks_per_sm=_build.blocks_per_sm("sketch", PL,
+                                                             w_))
+        log(f"[kernels] sketch on the {tag} path's first batch ({PB} x {PL},"
+            f" k{k_} w{w_}): bit-equal, {paths[tag]['ms']:.4f} ms, "
+            f"{paths[tag]['blocks_per_sm']} blocks per SM")
     bms, by = bound(B * L * 11 + B * 4, B * L * (8 * 15 + 40 + 7 * 10))
     rows.append(dict(
         name="sketch", route="cuda",
@@ -599,11 +659,12 @@ def phase_kernels(main):
         launches=main["launches"].get("sketch", 0), max_abs_err=err,
         ms=cuda_ms(lambda: sketch.sketch_batch(*args)),
         plain_ms=cuda_ms(lambda: sketch.device_sketch(*args), reps=3),
-        bound_ms=bms, bound_by=by, library_ms=None, shape=[B, L]))
-    del got, want
+        bound_ms=bms, bound_by=by, library_ms=None, shape=[B, L],
+        blocks_per_sm=_build.blocks_per_sm("sketch", L, 10), paths=paths))
 
     # sort3_rows at 512 x 4096 (the anchor sort), sort3_chunked at
-    # 512 x 16384 (minimizer compaction)
+    # 512 x 16384 (minimizer compaction): random planes, then the first
+    # batch's own keys from phase 3
     def planes(B, A, sentinel, density):
         k1 = np.where(rng.random((B, A)) < density,
                       rng.integers(0, 1 << 31, (B, A)), sentinel)
@@ -611,6 +672,12 @@ def phase_kernels(main):
         k3 = rng.integers(0, 1 << 32, (B, A), dtype=np.uint64)
         return [torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(dev)
                 for x in (k1, k2, k3)]
+
+    def chunked_plain(c_args):
+        B_, A_ = c_args[0].shape
+        s = sort.sort3_rows_plain(*(x.reshape(-1, 2048) for x in c_args))
+        return sort.sort3_rows_plain(*(x.view(B_, -1, 2048)[:, :, :1024]
+                                       .reshape(B_, -1) for x in s))
 
     s_args = planes(512, 4096, 0xFFFFFFFF, 0.5)
     got = sort.sort3_rows(*s_args)
@@ -624,35 +691,54 @@ def phase_kernels(main):
     bms, by = bound(512 * A * 24, 512 * (A // 2) * sort_stages(A) * 8)
     c_args = planes(512, 16384, 0x7FFFFFFF, 2 / 11)
     gotc = sort.sort3_chunked(*c_args)
-
-    def chunked_plain():
-        B_, A_ = c_args[0].shape
-        s = sort.sort3_rows_plain(*(x.reshape(-1, 2048) for x in c_args))
-        return sort.sort3_rows_plain(*(x.view(B_, -1, 2048)[:, :, :1024]
-                                       .reshape(B_, -1) for x in s))
-    errc = max_abs_err(gotc, chunked_plain())
+    errc = max_abs_err(gotc, chunked_plain(c_args))
     require(errc == 0,
             f"sort3_chunked differs from its plain version ({errc})")
+    a_keys, c_keys = main["anchor_keys"], main["compaction_keys"]
+    err_a = max_abs_err(sort.sort3_rows(*a_keys),
+                        sort.sort3_rows_plain(*a_keys))
+    require(err_a == 0, f"sort3_rows differs from its plain version on "
+            f"phase 3's anchor keys ({err_a})")
+    err_p = max_abs_err(sort.sort3_chunked(*c_keys), chunked_plain(c_keys))
+    require(err_p == 0, f"sort3_chunked differs from its plain version on "
+            f"phase 3's compaction keys ({err_p})")
+    log(f"[kernels] sort3 bit-equal on phase 3's first anchor keys "
+        f"{tuple(a_keys[0].shape)} and compaction keys "
+        f"{tuple(c_keys[0].shape)}; blocks per SM at 2048 / 4096 / 8192 "
+        f"lanes: " + " / ".join(str(_build.blocks_per_sm("sort3", a))
+                                for a in (2048, 4096, 8192)))
+    # the compaction's work: 2048-lane chunks sorted, then only the merge
+    # phases kk = 2048 .. 8192 of the kept 8192 lanes
+    merge_stages = sort_stages(8192) - sort_stages(1024)
     cb, cby = bound(512 * 16384 * 12 + 512 * 8192 * 12,
                     (512 * 8 * 1024 * sort_stages(2048)
-                     + 512 * 4096 * sort_stages(8192)) * 8)
+                     + 512 * 4096 * merge_stages) * 8)
     rows.append(dict(
         name="sort3", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/sort3.cu",
         replaces="minimap2_tpu/ops/sort_pallas.py:65",
-        launches=main["launches"].get("sort3", 0),
-        max_abs_err=max(err, errc),
+        launches=kernel_launches(main["launches"], "sort3"),
+        launches_by_entry={n: main["launches"].get(n, 0)
+                           for n in ("sort3", "sort3_merge")},
+        max_abs_err=max(err, errc, err_a, err_p),
         ms=cuda_ms(lambda: sort.sort3_rows(*s_args)),
         plain_ms=cuda_ms(lambda: sort.sort3_rows_plain(*s_args), reps=3),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: library_sort3(*s_args), reps=5),
-        shape=[512, 4096],
+        shape=[512, 4096], blocks_per_sm=_build.blocks_per_sm("sort3", A),
+        path_anchor_ms=cuda_ms(lambda: sort.sort3_rows(*a_keys)),
         chunked=dict(
             shape=[512, 16384], max_abs_err=errc,
             ms=cuda_ms(lambda: sort.sort3_chunked(*c_args)),
-            plain_ms=cuda_ms(chunked_plain, reps=3), bound_ms=cb,
-            bound_by=cby,
+            path_ms=cuda_ms(lambda: sort.sort3_chunked(*c_keys)),
+            plain_ms=cuda_ms(lambda: chunked_plain(c_args), reps=3),
+            bound_ms=cb, bound_by=cby,
             library_ms=cuda_ms(lambda: library_sort3(*c_args), reps=5))))
+    log(f"[kernels] sort3 rows 512 x 4096 {rows[-1]['ms']:.4f} ms (phase 3's"
+        f" anchor keys {rows[-1]['path_anchor_ms']:.4f}), bound {bms:.4f} ms"
+        f" ({by}); chunked 512 x 16384 {rows[-1]['chunked']['ms']:.4f} ms "
+        f"(phase 3's compaction keys {rows[-1]['chunked']['path_ms']:.4f}),"
+        f" bound {cb:.4f} ms ({cby})")
     del got, gotc, lib
 
     # chain DP at 512 x 4096 on the anchor planes of the first batch, both
@@ -1206,11 +1292,12 @@ def main():
         aln["rd"] = main_["rd"]
         hpc = timed("hpc", phase_hpc_path, main_, tmp)
         spl = timed("splice", phase_splice_path, main_, tmp)
-        rows = timed("kernels", phase_kernels, main_)
+        rows = timed("kernels", phase_kernels, main_, hpc, spl)
         for r in rows:          # the PAF kernels also run on the other paths
-            r["launches_align"] = aln["launches"].get(r["name"], 0)
-            r["launches_hpc"] = hpc["launches"].get(r["name"], 0)
-            r["launches_splice"] = spl["launches"].get(r["name"], 0)
+            r["launches_align"] = kernel_launches(aln["launches"], r["name"])
+            r["launches_hpc"] = kernel_launches(hpc["launches"], r["name"])
+            r["launches_splice"] = kernel_launches(spl["launches"],
+                                                   r["name"])
         rows += timed("align kernels", phase_align_kernels, aln)
         rows += timed("new kernels", phase_new_kernels, hpc, spl)
         timed("breakdown", phase_breakdown, main_)

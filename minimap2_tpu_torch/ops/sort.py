@@ -8,9 +8,9 @@ tensors holding u32 bit patterns.  Every plane takes part in the key, so
 any correct sort gives the same planes; the plain versions run the same
 bitonic network (partner = i ^ j) in torch.
 
-``sort3_rows`` / ``sort1_rows`` launch their kernels (csrc/sort3.cu,
-csrc/sort1.cu) for CUDA tensors and run ``sort3_rows_plain`` /
-``sort1_rows_plain`` for CPU tensors.
+``sort3_rows``, ``sort3_chunked`` and ``sort1_rows`` launch their kernels
+(csrc/sort3.cu, csrc/sort1.cu) for CUDA tensors and run
+``sort3_rows_plain`` / ``sort1_rows_plain`` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -89,6 +89,33 @@ def sort1_rows(k1):
     return out
 
 
+def _sort3_planes(name, k1, k2, k3, A):
+    """Check three (rows, A) CUDA planes; clone any whose data is not
+    16-byte aligned (the kernel loads 16-byte pieces)."""
+    rows = k1.shape[0]
+    _build.require_cuda(name, k1, k2, k3)
+    if any(x.dtype != torch.int32 or x.shape != (rows, A)
+           for x in (k1, k2, k3)):
+        raise ValueError(f"{name}: three (B, A) int32 planes")
+    if A > MAX_WIDTH:
+        raise ValueError(f"{name}: width {A} > {MAX_WIDTH}")
+    return [x if x.data_ptr() % 16 == 0 else x.clone()
+            for x in (k1, k2, k3)]
+
+
+def _launch_sort3(planes, rows, A, kk0, keep, flip, counter):
+    """mm2_sort3_ex: phases kk0 .. A of the network on each row, the first
+    ``keep`` lanes of row r stored as row r of the (rows, keep) result,
+    odd rows reversed when flip."""
+    outs = [planes[0].new_empty((rows, keep)) for _ in range(3)]
+    err = _build.lib().mm2_sort3_ex(
+        *(x.data_ptr() for x in planes), *(o.data_ptr() for o in outs),
+        rows, A, kk0, keep, int(flip), _build.stream_ptr(planes[0]))
+    _build.check(err, "mm2_sort3_ex")
+    _build.launches[counter] += 1
+    return outs
+
+
 def sort3_rows(k1, k2, k3):
     """Row-wise ascending lexicographic sort of three u32 planes
     (int32 bit patterns, shape (B, A), A a power of two)."""
@@ -97,29 +124,40 @@ def sort3_rows(k1, k2, k3):
         raise ValueError(f"sort3_rows: width {A} is not a power of two")
     if k1.device.type == "cpu":
         return sort3_rows_plain(k1, k2, k3)
-    _build.require_cuda("sort3_rows", k1, k2, k3)
-    if any(x.dtype != torch.int32 or x.shape != (B, A) for x in (k1, k2, k3)):
-        raise ValueError("sort3_rows: three (B, A) int32 planes")
-    if A > MAX_WIDTH:
-        raise ValueError(f"sort3_rows: width {A} > {MAX_WIDTH}")
-    outs = [torch.empty_like(k1) for _ in range(3)]
-    err = _build.lib().mm2_sort3(
-        k1.data_ptr(), k2.data_ptr(), k3.data_ptr(),
-        *(o.data_ptr() for o in outs), B, A, _build.stream_ptr(k1))
-    _build.check(err, "mm2_sort3")
-    _build.launches["sort3"] += 1
-    return tuple(outs)
+    planes = _sort3_planes("sort3_rows", k1, k2, k3, A)
+    return tuple(_launch_sort3(planes, B, A, 2, A, False, "sort3"))
 
 
 def sort3_chunked(k1, k2, k3, chunk: int = 2048, keep: int = 1024):
     """Two-level sort for wide rows, as sort_pallas.sort3_chunked: sort
     ``chunk``-lane pieces, then sort the concatenation of each piece's
     first ``keep`` lanes.  Exact while no chunk holds more than ``keep``
-    live keys; that cut is the reference's and is kept."""
+    live keys; that cut is the reference's and is kept.
+
+    On the card the first launch stores each piece's first ``keep`` lanes
+    straight into the (B, C*keep) input of the second, odd pieces
+    reversed when ``keep`` is a power of two; the second launch
+    (``sort3_merge``) then runs only the network's merge phases."""
     B, A = k1.shape
     if A % chunk or keep > chunk:
         raise ValueError(f"sort3_chunked: width {A}, chunk {chunk}")
     C = A // chunk
-    s = sort3_rows(*(x.reshape(B * C, chunk) for x in (k1, k2, k3)))
-    return sort3_rows(*(x.view(B, C, chunk)[:, :, :keep].reshape(B, C * keep)
-                        for x in s))
+    if k1.device.type == "cpu":
+        s = sort3_rows(*(x.reshape(B * C, chunk) for x in (k1, k2, k3)))
+        return sort3_rows(*(x.view(B, C, chunk)[:, :, :keep]
+                            .reshape(B, C * keep) for x in s))
+    W = C * keep
+    for n in (chunk, W):
+        if n & (n - 1) or n < 2:
+            raise ValueError(f"sort3_rows: width {n} is not a power of two")
+        if n > MAX_WIDTH:
+            raise ValueError(f"sort3_rows: width {n} > {MAX_WIDTH}")
+    planes = _sort3_planes("sort3_rows", *(x.reshape(B * C, chunk)
+                                           for x in (k1, k2, k3)), chunk)
+    merge = keep & (keep - 1) == 0
+    runs = _launch_sort3(planes, B * C, chunk, 2, keep, merge, "sort3")
+    runs = [x.view(B, W) for x in runs]
+    if not merge:
+        return sort3_rows(*runs)
+    return tuple(_launch_sort3(runs, B, W, 2 * keep, W, False,
+                               "sort3_merge"))

@@ -42,7 +42,9 @@ from minimap2_tpu_torch.ops import _build, extend, exts, traceback  # noqa
 
 def build_variant(spec, symbol="mm2_traceback"):
     """(spec, the C entry point `symbol` of SRC built by nvcc with
-    -DNAME=VAL ...) for a spec SRC[:NAME=VAL,...]"""
+    -DNAME=VAL ...) for a spec SRC[:NAME=VAL,...]; for a list of symbols,
+    (spec, {symbol: entry point}) with those SRC defines (argument types
+    set for the symbols the package also has)."""
     src, _, defs = spec.partition(":")
     defines = [d for d in defs.split(",") if d]
     h = hashlib.sha256(Path(src).read_bytes() + " ".join(
@@ -57,10 +59,14 @@ def build_variant(spec, symbol="mm2_traceback"):
     for ln in (out.stdout + out.stderr).splitlines():
         if "registers" in ln or "spill" in ln:
             print(f"   [{spec}] {ln.strip()}")
-    fn = getattr(ctypes.CDLL(str(so)), symbol)
-    fn.argtypes = _build.SIGNATURES[symbol]
-    fn.restype = ctypes.c_int
-    return spec, fn
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for name in [symbol] if isinstance(symbol, str) else symbol:
+        if hasattr(lib, name):
+            fns[name] = getattr(lib, name)
+            fns[name].argtypes = _build.SIGNATURES.get(name)
+            fns[name].restype = ctypes.c_int
+    return spec, fns[symbol] if isinstance(symbol, str) else fns
 
 
 def variant_call(fn, p, lens, *, RB, w, splice=False, QP=0):

@@ -82,6 +82,10 @@ template <class T> T __shfl_sync(unsigned, T v, int src, int = 32) {
   return emu_warp_op(v, [=](const uint64_t* a) {
     return emu_get<T>(a[src & 31]); });
 }
+template <class T> T __shfl_xor_sync(unsigned, T v, int m, int = 32) {
+  return emu_warp_op(v, [=](const uint64_t* a) {
+    return emu_get<T>(a[(threadIdx.x & 31) ^ (m & 31)]); });
+}
 inline int __reduce_max_sync(unsigned, int v) {
   return emu_warp_op(v, [](const uint64_t* a) {
     int m = INT_MIN;

@@ -1,7 +1,10 @@
 """Port sketch vs the JAX package: hash64_pair, and the plain version of
 the sketch kernel against sketch_pallas.sketch_batch (interpret mode) and
-batch.device_sketch on reads with N runs and ragged lengths.  Integer
-planes compare exactly (tolerance 0)."""
+batch.device_sketch on reads with N runs and ragged lengths; and the CUDA
+kernel's own code (csrc/sketch.cu on the host shim) vs the plain version.
+Integer planes compare exactly (tolerance 0)."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +16,7 @@ from minimap2_tpu.ops.sketch_pallas import sketch_batch as jax_sketch_batch
 from minimap2_tpu.parallel import batch as jb
 from minimap2_tpu_torch.ops.sketch import device_sketch, sketch_batch
 from minimap2_tpu_torch.parallel import batch as tb
+from cuda_host import build_on_host
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -80,3 +84,49 @@ def test_device_sketch_is_the_plain_version():
     b = device_sketch(torch.from_numpy(codes), torch.from_numpy(lens), 15, 10)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+_SKETCH_RUNNER = r"""
+extern "C" int emu_sketch(const void* codes, const void* lens, void* hhi,
+                          void* hlo, void* z, void* is_mini, int B, int L,
+                          int k, int w) {
+  const Shape sh = shape_of(L, w);
+  emu_launch(B * sh.n_tiles, sh.threads, [=] {
+    sketch_kernel((const uint8_t*)codes, (const int32_t*)lens,
+                  (uint32_t*)hhi, (uint32_t*)hlo, (uint8_t*)z,
+                  (uint8_t*)is_mini, L, k, w, sh.tile, sh.n_tiles, sh.HL);
+  });
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def sketch_host(tmp_path_factory):
+    """csrc/sketch.cu's device code on the host shim, as mm2_sketch."""
+    fn = build_on_host("sketch", _SKETCH_RUNNER,
+                       tmp_path_factory.mktemp("sketch_host")).emu_sketch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("k,w,L", [(15, 10, 1024), (19, 10, 1024),
+                                   (15, 5, 1024), (19, 19, 1024),
+                                   (28, 98, 600)])
+def test_sketch_cuda_source_on_host_matches_plain(sketch_host, k, w, L):
+    """The kernel's own code against device_sketch at every position,
+    invalid ones included (rows shorter than k, N runs, garbage past the
+    end); L = 600 is not a multiple of 16 (the unaligned loads and stores)
+    and w + k - 2 there spans eight 16-code pieces."""
+    codes, lens = _reads(k * 31 + w, B=6, L=L)
+    outs = [np.full((6, L), 0x55, dt) for dt in
+            (np.int32, np.int32, np.uint8, np.uint8)]
+    assert sketch_host(codes.ctypes.data, lens.ctypes.data,
+                       *(o.ctypes.data for o in outs), 6, L, k, w) == 0
+    want = device_sketch(torch.from_numpy(codes), torch.from_numpy(lens),
+                         k, w)
+    for name, g, x in zip(("hhi", "hlo", "z", "is_mini"), outs, want):
+        np.testing.assert_array_equal(g, x.numpy().astype(g.dtype),
+                                      err_msg=name)
+    assert want[3].sum() > L // w          # minimizers found

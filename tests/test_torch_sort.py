@@ -1,6 +1,9 @@
 """Port 3-plane bitonic sort vs sort_pallas in interpret mode: sort3_rows
 at widths 256 and 4096 and sort3_chunked at 16384, with duplicate keys
-and sentinel lanes.  Planes compare exactly."""
+and sentinel lanes; and the CUDA kernel's own code (csrc/sort3.cu on the
+host shim) vs the plain version.  Planes compare exactly."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -10,6 +13,7 @@ import jax.numpy as jnp
 
 from minimap2_tpu.ops import sort_pallas
 from minimap2_tpu_torch.ops import sort as tsort
+from cuda_host import build_on_host
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -65,3 +69,96 @@ def test_sort3_rows_is_a_sort():
     for b in range(4):
         want = sorted(zip(k1[b].tolist(), k2[b].tolist(), k3[b].tolist()))
         assert list(zip(*(g[b].tolist() for g in got))) == want
+
+
+_SORT3_RUNNER = r"""
+#include <type_traits>
+template <int E>
+void emu_sort3_e(const void* k1, const void* k2, const void* k3, void* o1,
+                 void* o2, void* o3, int rows, int A, int kk0, int keep,
+                 int flip) {
+  emu_launch(rows, A / E, [=] {
+    sort3_kernel<E>((const uint32_t*)k1, (const uint32_t*)k2,
+                    (const uint32_t*)k3, (uint32_t*)o1, (uint32_t*)o2,
+                    (uint32_t*)o3, A, kk0, keep, flip);
+  });
+}
+extern "C" int emu_sort3(const void* k1, const void* k2, const void* k3,
+                         void* o1, void* o2, void* o3, int rows, int A,
+                         int kk0, int keep, int flip) {
+  switch (lanes_per_thread(A)) {
+    case 2: emu_sort3_e<2>(k1, k2, k3, o1, o2, o3, rows, A, kk0, keep, flip);
+            return 0;
+    case 4: emu_sort3_e<4>(k1, k2, k3, o1, o2, o3, rows, A, kk0, keep, flip);
+            return 0;
+    case 8: emu_sort3_e<8>(k1, k2, k3, o1, o2, o3, rows, A, kk0, keep, flip);
+            return 0;
+    case 16: emu_sort3_e<16>(k1, k2, k3, o1, o2, o3, rows, A, kk0, keep,
+                             flip);
+             return 0;
+  }
+  return 1;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def sort3_host(tmp_path_factory):
+    """csrc/sort3.cu's device code on the host shim: fn(planes, A, kk0,
+    keep, flip) -> the (rows, keep) planes, as mm2_sort3_ex."""
+    fn = build_on_host("sort3", _SORT3_RUNNER,
+                       tmp_path_factory.mktemp("sort3_host")).emu_sort3
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+
+    def run(planes, A, kk0, keep, flip):
+        ins = [np.ascontiguousarray(x, np.uint32).reshape(-1, A)
+               for x in planes]
+        rows = ins[0].shape[0]
+        outs = [np.full((rows, keep), 0xDEADBEEF, np.uint32)
+                for _ in range(3)]
+        assert fn(*(x.ctypes.data for x in ins),
+                  *(o.ctypes.data for o in outs), rows, A, kk0, keep,
+                  int(flip)) == 0
+        return outs
+    return run
+
+
+@pytest.mark.parametrize("A", [2, 8, 16, 64, 512, 1024, 2048])
+def test_sort3_cuda_source_on_host_matches_plain(sort3_host, A):
+    """The kernel's own code, every tier (registers, shuffles, shared
+    memory from 1024 lanes up) against the plain version, bit-equal."""
+    k1, k2, k3 = _planes(A + 1, 3, A)
+    got = sort3_host((k1, k2, k3), A, 2, A, False)
+    _check([_t(g) for g in got],
+           [w.numpy().view(np.uint32)
+            for w in tsort.sort3_rows_plain(_t(k1), _t(k2), _t(k3))])
+
+
+@pytest.mark.parametrize("keep", [1024, 768])
+def test_sort3_chunked_cuda_source_on_host_matches_plain(sort3_host, keep):
+    """sort3_chunked's two launches as the wrapper makes them (a keep of a
+    power of two: odd runs stored reversed, then the merge phases only;
+    otherwise a full second sort) on 2 x 16384, against the plain version
+    applied twice with the keep cut."""
+    B, A, chunk = 2, 16384, 2048
+    k1, k2, k3 = _planes(keep, B, A)
+    k1[:, ::3] = 0x7FFFFFFF                   # KEY_NONE-like sentinels
+    merge = keep & (keep - 1) == 0
+    runs = sort3_host((k1, k2, k3), chunk, 2, keep, merge)
+    W = A // chunk * keep
+    if merge:
+        got = sort3_host(runs, W, 2 * keep, W, False)
+    else:
+        Wp = 1 << (W - 1).bit_length()        # as sort3_rows needs
+        got = None if W != Wp else sort3_host(runs, W, 2, W, False)
+    s = tsort.sort3_rows_plain(*(_t(x).reshape(-1, chunk)
+                                 for x in (k1, k2, k3)))
+    want = [x.view(B, -1, chunk)[:, :, :keep].reshape(B, -1) for x in s]
+    if got is None:       # W not a power of two: only the runs are checked
+        for g, w in zip(runs, want):
+            np.testing.assert_array_equal(g.reshape(B, -1),
+                                          w.numpy().view(np.uint32))
+        return
+    _check([_t(g) for g in got], [w.numpy().view(np.uint32)
+                                  for w in tsort.sort3_rows_plain(*want)])
