@@ -103,6 +103,10 @@ def sketch_batch(codes: torch.Tensor, lens: torch.Tensor, k: int, w: int):
     if not (0 < k <= 28 and 0 < w and k + w <= 128):
         raise ValueError(f"sketch_batch: needs k <= 28 and k + w <= 128 "
                          f"(k={k}, w={w})")
+    # the kernel reads codes 16 bytes at a time
+    if not codes.is_contiguous() or codes.data_ptr() % 16:
+        codes = codes.clone(memory_format=torch.contiguous_format)
+    lens = lens.contiguous()
     hhi = torch.empty((B, L), dtype=torch.int32, device=codes.device)
     hlo = torch.empty_like(hhi)
     z = torch.empty((B, L), dtype=torch.bool, device=codes.device)

@@ -136,8 +136,9 @@ def sort3_chunked(k1, k2, k3, chunk: int = 2048, keep: int = 1024):
 
     On the card the first launch stores each piece's first ``keep`` lanes
     straight into the (B, C*keep) input of the second, odd pieces
-    reversed when ``keep`` is a power of two; the second launch
-    (``sort3_merge``) then runs only the network's merge phases."""
+    reversed; the second launch (``sort3_merge``) then runs only the
+    network's merge phases.  With one piece a row (C = 1) the first
+    launch's rows are the result."""
     B, A = k1.shape
     if A % chunk or keep > chunk:
         raise ValueError(f"sort3_chunked: width {A}, chunk {chunk}")
@@ -154,10 +155,20 @@ def sort3_chunked(k1, k2, k3, chunk: int = 2048, keep: int = 1024):
             raise ValueError(f"sort3_rows: width {n} > {MAX_WIDTH}")
     planes = _sort3_planes("sort3_rows", *(x.reshape(B * C, chunk)
                                            for x in (k1, k2, k3)), chunk)
-    merge = keep & (keep - 1) == 0
-    runs = _launch_sort3(planes, B * C, chunk, 2, keep, merge, "sort3")
-    runs = [x.view(B, W) for x in runs]
-    if not merge:
-        return sort3_rows(*runs)
-    return tuple(_launch_sort3(runs, B, W, 2 * keep, W, False,
-                               "sort3_merge"))
+    for n, kk0, kept, flip, counter in chunked_launches(C, chunk, keep):
+        planes = [x.view(-1, n) for x in planes]
+        planes = _launch_sort3(planes, planes[0].shape[0], n, kk0, kept,
+                               flip, counter)
+    return tuple(x.view(B, W) for x in planes)
+
+
+def chunked_launches(C, chunk, keep):
+    """sort3_chunked's launches on the card for C pieces a row, each as
+    (width, kk0, keep, flip, counter) of ``_launch_sort3``.  Row r of the
+    first launch is piece r % C of row r // C, so reversing its odd rows
+    reverses the odd pieces only when C is even (C is a power of two);
+    with one piece a row the first launch's rows are the result."""
+    first = (chunk, 2, keep, C > 1, "sort3")
+    if C == 1:
+        return [first]
+    return [first, (C * keep, 2 * keep, C * keep, False, "sort3_merge")]

@@ -5,7 +5,8 @@
 
 Builds the kernels and checks ``sort3_rows`` bit-equal to
 ``sort3_rows_plain`` at every power-of-two width from 2 to 16,384 (4 rows
-each), then at the main path's shapes (seed 3, the planes of
+each), ``sort3_chunked`` at 1, 2, 4 and 8 pieces a row on 3 rows, then
+at the main path's shapes (seed 3, the planes of
 ``chip_smoke.py``'s phase 7): the anchor sort at 512 x 4096 (half the
 lanes all-ones sentinels) and the minimizer compaction ``sort3_chunked``
 at 512 x 16384 (2 lanes in 11 live, the rest 0x7FFFFFFF), the latter
@@ -136,6 +137,14 @@ def main():
         ok = ok and same
         A *= 2
     print(f"every width 2..{sort.MAX_WIDTH}: bit-equal {ok}")
+    # sort3_chunked at 1, 2, 4 and 8 pieces a row on an odd row count
+    crng = np.random.default_rng(5)
+    for C in (1, 2, 4, 8):
+        k = planes(crng, 3, C * CHUNK, 0x7FFFFFFF, 0.4)
+        same = all(torch.equal(g, w) for g, w in
+                   zip(sort.sort3_chunked(*k), chunked_plain(k)))
+        print(f"chunked 3x{C * CHUNK} ({C} pieces a row): bit-equal {same}")
+        ok = ok and same
 
     s_args = planes(rng, 512, 4096, 0xFFFFFFFF, 0.5)
     c_args = planes(rng, 512, 16384, 0x7FFFFFFF, 2 / 11)

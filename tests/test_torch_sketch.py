@@ -111,19 +111,20 @@ def sketch_host(tmp_path_factory):
     return fn
 
 
-@pytest.mark.parametrize("k,w,L", [(15, 10, 1024), (19, 10, 1024),
-                                   (15, 5, 1024), (19, 19, 1024),
-                                   (28, 98, 600)])
-def test_sketch_cuda_source_on_host_matches_plain(sketch_host, k, w, L):
+@pytest.mark.parametrize("k,w,B,L", [(15, 10, 6, 1024), (19, 10, 6, 1024),
+                                     (15, 5, 6, 1024), (19, 19, 6, 1024),
+                                     (28, 98, 6, 600), (15, 10, 2, 4112)])
+def test_sketch_cuda_source_on_host_matches_plain(sketch_host, k, w, B, L):
     """The kernel's own code against device_sketch at every position,
     invalid ones included (rows shorter than k, N runs, garbage past the
     end); L = 600 is not a multiple of 16 (the unaligned loads and stores)
-    and w + k - 2 there spans eight 16-code pieces."""
-    codes, lens = _reads(k * 31 + w, B=6, L=L)
-    outs = [np.full((6, L), 0x55, dt) for dt in
+    and w + k - 2 there spans eight 16-code pieces; L = 4112 takes two
+    2048-position tiles and a partial third (the halos between tiles)."""
+    codes, lens = _reads(k * 31 + w, B=B, L=L)
+    outs = [np.full((B, L), 0x55, dt) for dt in
             (np.int32, np.int32, np.uint8, np.uint8)]
     assert sketch_host(codes.ctypes.data, lens.ctypes.data,
-                       *(o.ctypes.data for o in outs), 6, L, k, w) == 0
+                       *(o.ctypes.data for o in outs), B, L, k, w) == 0
     want = device_sketch(torch.from_numpy(codes), torch.from_numpy(lens),
                          k, w)
     for name, g, x in zip(("hhi", "hlo", "z", "is_mini"), outs, want):

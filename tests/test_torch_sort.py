@@ -135,30 +135,24 @@ def test_sort3_cuda_source_on_host_matches_plain(sort3_host, A):
             for w in tsort.sort3_rows_plain(_t(k1), _t(k2), _t(k3))])
 
 
-@pytest.mark.parametrize("keep", [1024, 768])
-def test_sort3_chunked_cuda_source_on_host_matches_plain(sort3_host, keep):
-    """sort3_chunked's two launches as the wrapper makes them (a keep of a
-    power of two: odd runs stored reversed, then the merge phases only;
-    otherwise a full second sort) on 2 x 16384, against the plain version
-    applied twice with the keep cut."""
-    B, A, chunk = 2, 16384, 2048
-    k1, k2, k3 = _planes(keep, B, A)
+@pytest.mark.parametrize("B,A,seed", [(2, 16384, 1024), (3, 2048, 3)])
+def test_sort3_chunked_cuda_source_on_host_matches_plain(sort3_host, B, A,
+                                                         seed):
+    """sort3_chunked's launches as the wrapper plans them (chunk 2048, keep
+    1024): with C = A / chunk = 8 pieces a row, odd runs stored reversed,
+    then the merge phases only; with C = 1 and an odd row count, one
+    launch, nothing reversed.  Against the plain version applied twice
+    with the keep cut."""
+    chunk, keep = 2048, 1024
+    k1, k2, k3 = _planes(seed, B, A)
     k1[:, ::3] = 0x7FFFFFFF                   # KEY_NONE-like sentinels
-    merge = keep & (keep - 1) == 0
-    runs = sort3_host((k1, k2, k3), chunk, 2, keep, merge)
-    W = A // chunk * keep
-    if merge:
-        got = sort3_host(runs, W, 2 * keep, W, False)
-    else:
-        Wp = 1 << (W - 1).bit_length()        # as sort3_rows needs
-        got = None if W != Wp else sort3_host(runs, W, 2, W, False)
+    got = (k1, k2, k3)
+    for n, kk0, kept, flip, _ in tsort.chunked_launches(A // chunk, chunk,
+                                                        keep):
+        got = sort3_host(got, n, kk0, kept, flip)
     s = tsort.sort3_rows_plain(*(_t(x).reshape(-1, chunk)
                                  for x in (k1, k2, k3)))
     want = [x.view(B, -1, chunk)[:, :, :keep].reshape(B, -1) for x in s]
-    if got is None:       # W not a power of two: only the runs are checked
-        for g, w in zip(runs, want):
-            np.testing.assert_array_equal(g.reshape(B, -1),
-                                          w.numpy().view(np.uint32))
-        return
-    _check([_t(g) for g in got], [w.numpy().view(np.uint32)
-                                  for w in tsort.sort3_rows_plain(*want)])
+    _check([_t(g.reshape(B, -1)) for g in got],
+           [w.numpy().view(np.uint32)
+            for w in tsort.sort3_rows_plain(*want)])
