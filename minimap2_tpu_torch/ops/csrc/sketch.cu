@@ -23,19 +23,21 @@
 //     last w + k - 1 codes (`wend`, a bit a position);
 //   - hashes each of its positions once and stores hi and lo 16 bytes at a
 //     time, z 16 positions to a store;
-//   - takes window minima the van Herk / Gil-Werman way, at a cost a
-//     position that does not depend on w: the tile's entries are cut into
-//     segments of w, and a window's minimum is the smaller of its first
-//     entry's suffix minimum and its last entry's prefix minimum within
-//     their segments.  The thread scans its run in registers, publishes
-//     both scans in shared memory laid out [lane of the run][run] (a
-//     warp's accesses are consecutive: no bank conflict), and adds the
-//     part of a segment that lies in other runs as a carry;
+//   - takes window minima by doubling: m_2s[e] = min(m_s[e], m_s[e + s])
+//     up to the largest power of two S <= w, then min(m_S[e], m_S[e + w -
+//     S]); each level publishes the values a neighbouring run reads
+//     (the first s of the run) in shared memory laid out [lane of the
+//     run][run], so a warp's accesses are consecutive (no bank
+//     conflict), two buffers taking turns (one barrier a level).
+//     log2(w) + 1 levels: a cost a position that w barely moves.  The
+//     w-independent van Herk / Gil-Werman form (prefix and suffix minima
+//     over segments of w, four barriers) measured slower at the paths'
+//     w of 5 and 10: its two scans, carry fold and combine at a runtime
+//     segment phase are more integer work than 3-4 doubling levels, and
+//     the kernel is bound by instruction issue, not barriers;
 //   - takes the maximum over the complete windows covering each position
-//     the same way with max, on wok ? min + 1 : 0 (0: no complete
+//     the same way, backwards, on wok ? min + 1 : 0 (0: no complete
 //     window), and stores is_mini 16 positions to a store.
-//     Four barriers in all, whatever w; the carries take ceil(w / P)
-//     shared reads a run.
 // Positions outside [0, L) are masked here; the TPU kernel relied on
 // clamped neighbour blocks.
 #include <cstdint>
@@ -101,48 +103,6 @@ __device__ __forceinline__ int at(int e, int runs_s) {
   return (e & (P - 1)) * runs_s + PAD + (e >> 4);
 }
 
-__device__ __forceinline__ unsigned long long vmin(unsigned long long a,
-                                                   unsigned long long b) {
-  return a < b ? a : b;
-}
-__device__ __forceinline__ unsigned long long vmax(unsigned long long a,
-                                                   unsigned long long b) {
-  return a > b ? a : b;
-}
-
-// min (max when MAX) over the entries [e0 - c0, e0) of the segment the run
-// at e0 starts inside (c0 = e0 % w), from the suffix scans ls of the runs
-// before: ls at the segment's start, then whole runs.  The op's identity
-// when the segment starts at e0.
-template <bool MAX>
-__device__ __forceinline__ unsigned long long carry_in(
-    const unsigned long long* ls, int e0, int c0, int runs_s) {
-  if (c0 == 0) return MAX ? 0ull : ~0ull;
-  const int st = e0 - c0;
-  unsigned long long cy = ls[at(st, runs_s)];
-  for (int q = (st | (P - 1)) + 1; q < e0; q += P) {
-    const unsigned long long y = ls[at(q, runs_s)];
-    cy = MAX ? vmax(cy, y) : vmin(cy, y);
-  }
-  return cy;
-}
-
-// min (max) over the entries (e0 + P - 1, end] of the segment the run at
-// e0 ends inside (c15 = (e0 + P - 1) % w), from the prefix scans lp of the
-// runs after: whole runs, then lp at the segment's end.
-template <bool MAX>
-__device__ __forceinline__ unsigned long long carry_out(
-    const unsigned long long* lp, int e0, int c15, int w, int runs_s) {
-  if (c15 == w - 1) return MAX ? 0ull : ~0ull;
-  const int end = e0 + P - 1 + (w - 1 - c15);
-  unsigned long long cy = lp[at(end, runs_s)];
-  for (int q = e0 + 2 * P - 1; q < (end & ~(P - 1)); q += P) {
-    const unsigned long long y = lp[at(q, runs_s)];
-    cy = MAX ? vmax(cy, y) : vmin(cy, y);
-  }
-  return cy;
-}
-
 // at most TILE/P + 16 threads (HL <= 128 as w <= 127), and registers for
 // three blocks an SM
 __global__ void __launch_bounds__(TILE / P + 256 / P, 3)
@@ -156,9 +116,7 @@ __global__ void __launch_bounds__(TILE / P + 256 / P, 3)
   const int runs_s = runs + 2 * PAD;
   unsigned long long* buf0 = reinterpret_cast<unsigned long long*>(smem);
   unsigned long long* buf1 = buf0 + P * runs_s;
-  unsigned long long* buf2 = buf1 + P * runs_s;
-  unsigned long long* s_carry = buf2 + P * runs_s;   // [PAD + run]
-  uint16_t* s_wend = reinterpret_cast<uint16_t*>(s_carry + runs_s);
+  uint16_t* s_wend = reinterpret_cast<uint16_t*>(buf1 + P * runs_s);
 
   const int r = threadIdx.x;
   const int b = blockIdx.x / n_tiles;
@@ -240,67 +198,43 @@ __global__ void __launch_bounds__(TILE / P + 256 / P, 3)
       zout[o + i] = (zb[i >> 2] >> (8 * (i & 3))) & 1u;
   }
 
-  // Window minima and covering maxima, van Herk / Gil-Werman: with the
-  // tile's entries cut into segments of w (entry e lies c = e % w into its
-  // segment), min(x[e .. e + w)) = min(suf[e], pre[e + w - 1]), pre and suf
-  // the minima from the segment's start to e and from e to its end; the
-  // maximum over the windows [e - w + 1, e] likewise with max.  A thread
-  // scans its run in registers and publishes the scans; a segment's part
-  // in other runs enters as a carry (ceil(w / P) shared reads a run).
+  // window minima: m[e] = min(x[e .. e + w)) by doubling
   const int e0 = r * P;                          // the run's first entry
-  const int c0 = e0 % w;
-  const int c15 = (c0 + P - 1) % w;
+  int level = 0;
   unsigned long long m[P];
-  {
-    unsigned long long run = 0;
-    int c = c0;
 #pragma unroll
-    for (int i = 0; i < P; ++i) {               // pre within the run
-      run = i == 0 || c == 0 ? x[i] : vmin(run, x[i]);
-      buf0[at(e0 + i, runs_s)] = run;
-      c = c + 1 == w ? 0 : c + 1;
-    }
-    c = c15;
+  for (int i = 0; i < P; ++i) m[i] = x[i];
 #pragma unroll
-    for (int i = P - 1; i >= 0; --i) {          // suf within the run
-      run = i == P - 1 || c == w - 1 ? x[i] : vmin(run, x[i]);
-      m[i] = run;
-      buf1[at(e0 + i, runs_s)] = run;
-      c = c == 0 ? w - 1 : c - 1;
-    }
-  }
-  __syncthreads();
-  s_carry[PAD + r] = carry_in<false>(buf1, e0, c0, runs_s);
-  {
-    const unsigned long long co = carry_out<false>(buf0, e0, c15, w, runs_s);
-    bool open = true;                       // segment goes on past the run
-    int c = c15;
+  for (int s = 1; s <= 64; s <<= 1) {
+    if (2 * s > w) break;
+    unsigned long long* bf = (level++ & 1) ? buf1 : buf0;
 #pragma unroll
-    for (int i = P - 1; i >= 0; --i) {
-      open = open && c != w - 1;
-      m[i] = open ? vmin(m[i], co) : m[i];
-      c = c == 0 ? w - 1 : c - 1;
-    }
-  }
-  __syncthreads();
-  {
-    const int ta = e0 + w - 1;                  // pre at entry ta + i
-    const unsigned long long cya = s_carry[PAD + (ta >> 4)];
-    const unsigned long long cyb = s_carry[PAD + (ta >> 4) + 1];
-    int c = c0;
+    for (int i = 0; i < P; ++i)         // what the runs before need
+      if (i < s) bf[at(e0 + i, runs_s)] = m[i];
+    __syncthreads();
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      const int t = ta + i;
-      const int ct = c == 0 ? w - 1 : c - 1;    // t % w
-      const bool first = t - ct < (t & ~(P - 1));  // began in an earlier run
-      const unsigned long long y = buf0[at(t, runs_s)];
-      const unsigned long long cy = (t >> 4) == (ta >> 4) ? cya : cyb;
-      m[i] = vmin(m[i], first ? vmin(y, cy) : y);
-      c = c + 1 == w ? 0 : c + 1;
+      const unsigned long long y =
+          i + s < P ? m[(i + s) & (P - 1)] : bf[at(e0 + i + s, runs_s)];
+      m[i] = y < m[i] ? y : m[i];
+    }
+  }
+  int S = 1;
+  while (2 * S <= w) S <<= 1;
+  if (w > S) {
+    unsigned long long* bf = (level++ & 1) ? buf1 : buf0;
+#pragma unroll
+    for (int i = 0; i < P; ++i) bf[at(e0 + i, runs_s)] = m[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const unsigned long long y = bf[at(e0 + i + w - S, runs_s)];
+      m[i] = y < m[i] ? y : m[i];
     }
   }
 
   // window e is complete iff wend at e + w - 1; cv = wok ? min + 1 : 0
+  __syncthreads();                              // s_wend
   const int f = r + (w - 1) / P;
   const uint32_t wok =
       ((uint32_t)s_wend[f] | ((uint32_t)s_wend[f + 1] << 16)) >>
@@ -308,54 +242,31 @@ __global__ void __launch_bounds__(TILE / P + 256 / P, 3)
 #pragma unroll
   for (int i = 0; i < P; ++i) m[i] = (wok >> i) & 1u ? m[i] + 1 : 0ull;
 
-  // maximum over the windows covering each position: [e - w + 1, e].
-  // buf0 is still read above by other threads: the scans go to buf1, buf2
-  {
-    unsigned long long run = 0;
-    int c = c15;
+  // maximum over the windows covering each position: [e - w + 1, e]
 #pragma unroll
-    for (int i = P - 1; i >= 0; --i) {          // suf within the run
-      run = i == P - 1 || c == w - 1 ? m[i] : vmax(run, m[i]);
-      buf1[at(e0 + i, runs_s)] = run;
-      c = c == 0 ? w - 1 : c - 1;
-    }
-    c = c0;
+  for (int s = 1; s <= 64; s <<= 1) {
+    if (2 * s > w) break;
+    unsigned long long* bf = (level++ & 1) ? buf1 : buf0;
 #pragma unroll
-    for (int i = 0; i < P; ++i) {               // pre within the run
-      run = i == 0 || c == 0 ? m[i] : vmax(run, m[i]);
-      m[i] = run;
-      buf2[at(e0 + i, runs_s)] = run;
-      c = c + 1 == w ? 0 : c + 1;
+    for (int i = 0; i < P; ++i)         // what the runs after need
+      if (i >= P - s) bf[at(e0 + i, runs_s)] = m[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = P - 1; i >= 0; --i) {
+      const unsigned long long y =
+          i >= s ? m[(i - s) & (P - 1)] : bf[at(e0 + i - s, runs_s)];
+      m[i] = y > m[i] ? y : m[i];
     }
   }
-  __syncthreads();
-  {
-    const unsigned long long ci = carry_in<true>(buf1, e0, c0, runs_s);
-    s_carry[PAD + r] = carry_out<true>(buf2, e0, c15, w, runs_s);
-    bool first = true;                      // segment began before the run
-    int c = c0;
+  if (w > S) {
+    unsigned long long* bf = (level++ & 1) ? buf1 : buf0;
+#pragma unroll
+    for (int i = 0; i < P; ++i) bf[at(e0 + i, runs_s)] = m[i];
+    __syncthreads();
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      first = first && c != 0;
-      m[i] = first ? vmax(m[i], ci) : m[i];
-      c = c + 1 == w ? 0 : c + 1;
-    }
-  }
-  __syncthreads();
-  {
-    const int tb = e0 - w + 1;                  // suf at entry tb + i
-    const unsigned long long cya = s_carry[PAD + (tb >> 4)];
-    const unsigned long long cyb = s_carry[PAD + (tb >> 4) + 1];
-    int c = c0;
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      const int t = tb + i;
-      const int ct = c + 1 == w ? 0 : c + 1;    // t % w
-      const bool last = t + (w - 1 - ct) > (t | (P - 1));  // ends later
-      const unsigned long long y = buf1[at(t, runs_s)];
-      const unsigned long long cy = (t >> 4) == (tb >> 4) ? cya : cyb;
-      m[i] = vmax(m[i], last ? vmax(y, cy) : y);
-      c = c + 1 == w ? 0 : c + 1;
+      const unsigned long long y = bf[at(e0 + i - (w - S), runs_s)];
+      m[i] = y > m[i] ? y : m[i];
     }
   }
 
@@ -386,7 +297,7 @@ Shape shape_of(int L, int w) {
   sh.n_tiles = (L + sh.tile - 1) / sh.tile;
   sh.HL = (w - 1 + P - 1) / P * P;
   sh.threads = (sh.tile + 2 * sh.HL) / P;
-  sh.smem = (3 * (size_t)P + 1) * (sh.threads + 2 * PAD) * 8 +
+  sh.smem = 2 * (size_t)P * (sh.threads + 2 * PAD) * 8 +
             (size_t)(sh.threads + 2 * PAD) * 2;
   return sh;
 }
