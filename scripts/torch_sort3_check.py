@@ -89,10 +89,11 @@ def chunked_call(fns, k):
         s = rows_call(fns, pieces)
         return rows_call(fns, [x.view(B, C, CHUNK)[:, :, :KEEP]
                                .reshape(B, C * KEEP) for x in s])
-    fn = fns["mm2_sort3_ex"]
-    runs = [x.view(B, C * KEEP) for x in
-            ex_call(fn, pieces, B * C, CHUNK, 2, KEEP, 1)]
-    return ex_call(fn, runs, B, C * KEEP, 2 * KEEP, C * KEEP, 0)
+    for n, kk0, kept, flip, _ in sort.chunked_launches(C, CHUNK, KEEP):
+        pieces = [x.view(-1, n) for x in pieces]
+        pieces = ex_call(fns["mm2_sort3_ex"], pieces, pieces[0].shape[0], n,
+                         kk0, kept, int(flip))
+    return [x.view(B, -1) for x in pieces]
 
 
 def main():
