@@ -34,15 +34,15 @@ seconds):
      path's shapes (bit-equal; the sketch on random codes and on the first
      batch of phases 3 (k15 w10), 5 (k19 w10, HPC-compacted codes) and 6
      (k15 w5); sort3 on random planes and on phase 3's first compaction
-     and anchor keys; extd2 on the first align launch of phase 4
-     (a batch's jobs), timed there and on its first 64 jobs, the traceback on
-     those 64 jobs, sort1 on phase 5's first batch, exts2 on the
-     first 32 jobs of phase 6's first launch and on that whole launch
-     (both strand rounds of a sub-batch), the splice traceback on those 32
-     jobs and on that whole launch), timed with CUDA events; extd2's DP
-     cell-updates/s as bench.py defines them; blocks per SM of every
-     kernel, and the sketch's and sort3's registers and spills (ptxas);
-     the chain's longest read (valid
+     and anchor keys; extd2 on the first align launch of phase 4 (a
+     batch's jobs), timed there and on its first 64 jobs, the traceback
+     on those 64 jobs, sort1 on phase 5's first batch and on full-range
+     u32, exts2 on the first 32 jobs of phase 6's first launch and on
+     that whole launch (both strand rounds of a sub-batch), the splice
+     traceback on those 32 jobs and on that whole launch), timed with
+     CUDA events; extd2's DP cell-updates/s as bench.py defines them;
+     blocks per SM of every kernel, and the sketch's, sort3's and sort1's
+     registers and spills (ptxas); the chain's longest read (valid
      anchors n, ns a step) and each traceback's longest walk (diagonals,
      ns a diagonal);
   8. where one 512-read batch spends its time, for the PAF and HPC paths
@@ -590,16 +590,28 @@ def _first_batch(step, rd, n):
 
 
 def ptxas_usage(src):
-    """The ``-Xptxas -v`` lines (registers, shared memory, spills) of one
-    kernel source in the build log."""
+    """The ``-Xptxas -v`` lines of one kernel source in the build log, one
+    a kernel: its name (a template's as ``name<args>``), spills,
+    registers and shared memory."""
     from minimap2_tpu_torch.ops import _build
     out, on = [], False
     for ln in _build.build_log.splitlines():
         if ln.startswith("=="):
             on = ln.strip() == f"== {src}"
-        elif on and ("registers" in ln or "spill" in ln
-                    or "entry function" in ln):
-            out.append(ln.strip())
+        elif on and "entry function" in ln:
+            # _ZN<len><anonymous namespace><len><name>[I<template args>E]
+            name = ln.split("'")[1]
+            ns = re.match(r"_ZN(\d+)", name)
+            n = ns and re.match(r"\d+", name[ns.end() + int(ns[1]):])
+            if n:
+                start = ns.end() + int(ns[1]) + n.end()
+                end = start + int(n[0])
+                args = re.match(r"I((?:Li\d+E)+)E", name[end:])
+                name = name[start:end] + ("<" + ", ".join(
+                    re.findall(r"Li(\d+)E", args[1])) + ">" if args else "")
+            out.append(name)
+        elif on and out and ("registers" in ln or "spill" in ln):
+            out[-1] += "; " + ln.split(":")[-1].strip()
     return out
 
 
@@ -910,12 +922,31 @@ def phase_new_kernels(hpc, spl):
     rows = []
     keys = hpc["sort1_keys"]
     B, A = keys.shape
-    got = sort.sort1_rows(keys)
-    err = max_abs_err([got], [sort.sort1_rows_plain(keys)])
-    require(err == 0, f"sort1 differs from its plain version ({err})")
-    require(torch.equal(got, torch.sort(keys, dim=1).values),
-            "sort1 differs from torch.sort")
-    bms, by = bound(8 * B * A, B * (A // 2) * sort_stages(A) * 8)
+    # the path's run-end keys, and 4 rows of full-range u32 (the top bit
+    # set on half the lanes), each against the plain version and against
+    # torch.sort in unsigned order
+    rng = np.random.default_rng(9)
+    full = torch.from_numpy(rng.integers(0, 1 << 32, (4, A), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).cuda()
+    err = 0
+    for tag, k in (("map-pb's first run-end keys", keys),
+                   ("4 rows of full-range u32", full)):
+        got = sort.sort1_rows(k)
+        e = max_abs_err([got], [sort.sort1_rows_plain(k)])
+        require(e == 0, f"sort1 differs from its plain version on {tag} "
+                f"({e})")
+        require(torch.equal(got.to(torch.int64) & 0xFFFFFFFF, torch.sort(
+            k.to(torch.int64) & 0xFFFFFFFF, dim=1).values),
+            f"sort1 differs from torch.sort on {tag}")
+        err = max(err, e)
+    del got
+    for ln in ptxas_usage("sort1.cu"):
+        if ln.startswith(f"sort1_kernel<{A}>"):
+            log(f"[kernels] sort1.cu: {ln}")
+    per_sm = _build.blocks_per_sm("sort1", A)
+    # one plane: a compare-exchange is a min and a max (sort3's 8 count a
+    # 64-bit and a 32-bit compare and six selects of a triple)
+    bms, by = bound(8 * B * A, B * (A // 2) * sort_stages(A) * 2)
     rows.append(dict(
         name="sort1", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/sort1.cu",
@@ -925,8 +956,10 @@ def phase_new_kernels(hpc, spl):
         plain_ms=cuda_ms(lambda: sort.sort1_rows_plain(keys), reps=3),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: torch.sort(keys, dim=1), reps=5),
-        shape=[B, A]))
-    del got
+        shape=[B, A], blocks_per_sm=per_sm))
+    log(f"[kernels] sort1 at {B} x {A} on map-pb's run-end keys: "
+        f"{rows[-1]['ms']:.4f} ms, bound {bms:.4f} ms ({by}), torch.sort "
+        f"{rows[-1]['library_ms']:.4f} ms, {per_sm} blocks per SM")
 
     launch = spl["first"]["args"]        # qr, sf, dn, ac, lens
     kw = spl["first"]["kw"]

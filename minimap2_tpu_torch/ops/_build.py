@@ -36,6 +36,7 @@ SIGNATURES = {
     "mm2_sort3_ex": [_P] * 6 + [_I] * 5 + [_P],
     "mm2_sort3_occupancy": [_I, _P],
     "mm2_sort1": [_P, _P, _I, _I, _P],
+    "mm2_sort1_occupancy": [_I, _P],
     "mm2_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mm2_chain_occupancy": [_P],
@@ -134,8 +135,8 @@ def blocks_per_sm(kernel: str, *args: int) -> int:
     """Blocks of a kernel one SM holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the kernel's
     ``mm2_<kernel>_occupancy``): extd2 and exts2 at widths (W, QP, TP),
-    the traceback in a mode (splice 0 or 1), sort3 at a row width, the
-    sketch at (L, w), the chain without arguments."""
+    the traceback in a mode (splice 0 or 1), sort3 and sort1 at a row
+    width, the sketch at (L, w), the chain without arguments."""
     name = f"mm2_{kernel}_occupancy"
     n = ctypes.c_int(0)
     check(getattr(lib(), name)(*args, ctypes.byref(n)), name)

@@ -81,6 +81,8 @@ def sort1_rows(k1):
         raise ValueError("sort1_rows: one (B, A) int32 plane")
     if A > SORT1_MAX_WIDTH:
         raise ValueError(f"sort1_rows: width {A} > {SORT1_MAX_WIDTH}")
+    if k1.data_ptr() % 16:       # the kernel loads 16-byte pieces
+        k1 = k1.clone()
     out = torch.empty_like(k1)
     err = _build.lib().mm2_sort1(k1.data_ptr(), out.data_ptr(), B, A,
                                  _build.stream_ptr(k1))

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Short check of the port's 3-plane sort kernel on one NVIDIA GPU:
+"""Short check of the port's sort kernels (csrc/sort3.cu, csrc/sort1.cu) on
+one NVIDIA GPU:
 
     python3 scripts/torch_sort3_check.py [--variant SRC[:NAME=VAL,...]]
 
@@ -13,15 +14,22 @@ at 512 x 16384 (2 lanes in 11 live, the rest 0x7FFFFFFF), the latter
 against the plain version applied twice with the keep cut.  Prints the
 kernel's blocks per SM at 2048, 4096 and 8192 lanes and its times (CUDA
 events, median) beside a 3-pass stable ``torch.sort``: rows, the chunked
-sort, and its two launches alone.  Each ``--variant`` is another source
-of the kernel (for example the parent commit's ``sort3.cu``, put under
-``build/``, or an edited copy there), built by nvcc with the given -D
-macros into ``build/``; it is checked and timed on the same planes, in
-turns with the package's kernel (package, variants, variants reversed,
-package).  A source with ``mm2_sort3`` instead of ``mm2_sort3_ex`` (the
-parent's) runs the chunked sort as two launches with a slice copy
-between them, as the parent's wrapper did.  Exits non-zero without a
-card or on a mismatch.
+sort, and its two launches alone.  Then ``sort1_rows``: bit-equal to
+``sort1_rows_plain`` at every power-of-two width from 2 to 32,768 on 4
+rows of full-range u32, and at 512 x 16384 on the HPC route's run-end
+keys (``hpc_compact``'s, of random codes and read lengths 8,000-11,000),
+where it is also held against ``torch.sort`` (unsigned order) and timed
+beside it; blocks per SM at 16384 and 32768 lanes.  Each ``--variant`` is
+another source of a kernel (for example a parent commit's ``sort3.cu``
+or ``sort1.cu``, put under ``build/``, or an edited copy there), built
+by nvcc with the given -D macros into ``build/``; it is
+checked and timed on the same inputs, in turns with the package's
+kernel (package, variants, variants reversed, package), in the parts
+whose entry points it has (``mm2_sort3`` / ``mm2_sort3_ex``,
+``mm2_sort1``).  A source with ``mm2_sort3`` instead of
+``mm2_sort3_ex`` (an earlier version's) runs the chunked sort as two
+launches with a slice copy between them, as its wrapper did.
+Exits non-zero without a card or on a mismatch.
 """
 import argparse
 import ctypes
@@ -36,7 +44,7 @@ sys.path.insert(1, os.path.join(ROOT, "scripts"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import cuda_ms, library_sort3  # noqa: E402
+from chip_smoke import cuda_ms, library_sort3, ptxas_usage  # noqa: E402
 from minimap2_tpu_torch.ops import _build, sort  # noqa: E402
 from torch_traceback_check import build_variant  # noqa: E402
 
@@ -107,14 +115,14 @@ def main():
     t0 = time.time()
     _build.lib()
     print(f"build {time.time() - t0:.1f}s")
-    on = False
-    for ln in _build.build_log.splitlines():
-        if ln.startswith("=="):
-            on = "sort3" in ln
-        if on and ("registers" in ln or "spill" in ln):
-            print("  ", ln.strip())
-    variants = [build_variant(v, ["mm2_sort3", "mm2_sort3_ex"])
-                for v in args.variant]
+    for src in ("sort3.cu", "sort1.cu"):
+        for ln in ptxas_usage(src):
+            print(f"   {src}: {ln}")
+    built = [build_variant(v, ["mm2_sort3", "mm2_sort3_ex", "mm2_sort1",
+                               "mm2_sort1_occupancy"])
+             for v in args.variant]
+    variants = [(label, fns) for label, fns in built
+                if "mm2_sort3" in fns or "mm2_sort3_ex" in fns]
     print("blocks per SM at 2048 / 4096 / 8192 lanes: "
           + " / ".join(str(_build.blocks_per_sm("sort3", a))
                        for a in (2048, 4096, 8192)))
@@ -185,9 +193,81 @@ def main():
     print(f"[chunked 512x16384]   package's launches: first level "
           f"({B * C} x {CHUNK}, keep {KEEP}) {first:.4f} ms, merge "
           f"({B} x {C * KEEP}) {merge:.4f} ms")
+    ok = check_sort1([(label, fns) for label, fns in built
+                      if "mm2_sort1" in fns]) and ok
     if not ok:
         raise SystemExit("torch_sort3_check: a kernel and the plain version "
                          "differ")
+
+
+def sort1_call(fn, k):
+    out = torch.empty_like(k)
+    _build.check(fn(k.data_ptr(), out.data_ptr(), *k.shape,
+                    _build.stream_ptr(k)), "mm2_sort1 (variant)")
+    return out
+
+
+def hpc_keys(rng, B, L):
+    """hpc_compact's run-end keys: a lane's position where a homopolymer
+    run ends inside the read, else 0x7FFFFFFF."""
+    codes = torch.from_numpy(rng.integers(0, 4, (B, L))).cuda()
+    lens = torch.from_numpy(rng.integers(8000, 11001, (B, 1))).cuda()
+    pos = torch.arange(L, device="cuda")[None, :]
+    nxt = torch.cat([codes[:, 1:], codes.new_full((B, 1), 4)], dim=1)
+    end = (pos < lens) & ((codes != nxt) | (pos == lens - 1))
+    return torch.where(end, pos, 0x7FFFFFFF).to(torch.int32)
+
+
+def check_sort1(variants):
+    """sort1_rows (and each variant with mm2_sort1) against the plain
+    version; times at 512 x 16384 on run-end keys."""
+    print("sort1 blocks per SM at 16384 / 32768 lanes: "
+          + " / ".join(str(_build.blocks_per_sm("sort1", a))
+                       for a in (16384, 32768)))
+    for label, fns in variants:
+        if "mm2_sort1_occupancy" in fns:
+            n = ctypes.c_int(0)
+            _build.check(fns["mm2_sort1_occupancy"](16384, ctypes.byref(n)),
+                         "mm2_sort1_occupancy (variant)")
+            print(f"  [{label}] blocks per SM at 16384 lanes: {n.value}")
+    rng = np.random.default_rng(9)
+    ok = True
+    A = 2
+    while A <= sort.SORT1_MAX_WIDTH:
+        k = torch.from_numpy(rng.integers(0, 1 << 32, (4, A), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).cuda()
+        want = sort.sort1_rows_plain(k)
+        same = torch.equal(sort.sort1_rows(k), want)
+        for label, fns in variants:
+            same = same and torch.equal(sort1_call(fns["mm2_sort1"], k), want)
+        if not same:
+            print(f"sort1 width {A}: a kernel differs from the plain version")
+        ok = ok and same
+        A *= 2
+    print(f"sort1 every width 2..{sort.SORT1_MAX_WIDTH}: bit-equal {ok}")
+    k = hpc_keys(rng, 512, 16384)
+    want = sort.sort1_rows_plain(k)
+    lib = torch.sort(k.to(torch.int64) & 0xFFFFFFFF, dim=1).values
+    calls = [("package", lambda: sort.sort1_rows(k))]
+    calls += [(label, lambda fn=fns["mm2_sort1"]: sort1_call(fn, k))
+              for label, fns in variants]
+    for label, call in calls:
+        got = call()
+        same = torch.equal(got, want) and torch.equal(
+            got.to(torch.int64) & 0xFFFFFFFF, lib)
+        print(f"[sort1 512x16384] {label}: bit-equal to the plain version "
+              f"and torch.sort {same}")
+        ok = ok and same
+    times = {label: [] for label, _ in calls}
+    for order in (calls, calls[::-1]):
+        for label, call in order:
+            times[label].append(cuda_ms(call, reps=20))
+    for label, _ in calls:
+        print(f"[sort1 512x16384]   {label}: {times[label][0]:.4f} / "
+              f"{times[label][1]:.4f} ms")
+    print(f"[sort1 512x16384]   torch.sort: "
+          f"{cuda_ms(lambda: torch.sort(k, dim=1), reps=5):.4f} ms")
+    return ok
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Port 3-plane bitonic sort vs sort_pallas in interpret mode: sort3_rows
 at widths 256 and 4096 and sort3_chunked at 16384, with duplicate keys
-and sentinel lanes; and the CUDA kernel's own code (csrc/sort3.cu on the
-host shim) vs the plain version.  Planes compare exactly."""
+and sentinel lanes; and the CUDA kernels' own code (csrc/sort3.cu and
+csrc/sort1.cu on the host shim) vs the plain versions.  Planes compare
+exactly."""
 import ctypes
 
 import numpy as np
@@ -156,3 +157,77 @@ def test_sort3_chunked_cuda_source_on_host_matches_plain(sort3_host, B, A,
     _check([_t(g.reshape(B, -1)) for g in got],
            [w.numpy().view(np.uint32)
             for w in tsort.sort3_rows_plain(*want)])
+
+
+_SORT1_RUNNER = r"""
+template <int A>
+int emu_sort1_at(const void* k1, void* o1, int rows, int width) {
+  if (width == A) {
+    emu_launch(rows, A / LANES<A>, [=] {
+      sort1_kernel<A>((const uint32_t*)k1, (uint32_t*)o1);
+    });
+    // the last block wrote no shared memory past what a launch requests
+    const unsigned char* p = (const unsigned char*)emu_smem;
+    for (size_t b = SMEM<A>; b < sizeof emu_smem; ++b)
+      if (p[b] != 0xA5) return 2;
+    return 0;
+  }
+  if constexpr (A < 32768) return emu_sort1_at<2 * A>(k1, o1, rows, width);
+  return 1;
+}
+extern "C" int emu_sort1(const void* k1, void* o1, int rows, int A) {
+  return emu_sort1_at<2>(k1, o1, rows, A);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def sort1_host(tmp_path_factory):
+    """csrc/sort1.cu's device code on the host shim: fn(keys (rows, A)
+    uint32) -> the sorted rows, as mm2_sort1."""
+    fn = build_on_host("sort1", _SORT1_RUNNER,
+                       tmp_path_factory.mktemp("sort1_host")).emu_sort1
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+
+    def run(keys):
+        keys = np.ascontiguousarray(keys, np.uint32)
+        out = np.full_like(keys, 0xDEADBEEF)
+        assert fn(keys.ctypes.data, out.ctypes.data, *keys.shape) == 0
+        return out
+    return run
+
+
+def _sort1_keys(seed, B, A):
+    """Row 0 full-range u32 (the top bit set on half the lanes), row 1
+    runs of duplicates among 0x7FFFFFFF sentinels and top-bit values, row
+    2 the HPC route's run-end keys (hpc_compact's ``key``: a lane's
+    position where a homopolymer run of random codes ends, else
+    0x7FFFFFFF, the tail past the read's length all sentinels)."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 1 << 32, (B, A), dtype=np.uint64).astype(np.uint32)
+    if B > 1:
+        dup = np.repeat(rng.integers(0, 1 << 32, A, dtype=np.uint64)
+                        .astype(np.uint32), rng.integers(1, 9, A))[:A]
+        dup[rng.random(A) < 0.3] = 0x7FFFFFFF
+        k[1] = dup
+    if B > 2:
+        n = int(rng.integers(A // 2, A + 1))
+        codes = np.repeat(rng.integers(0, 4, A), rng.integers(1, 6, A))[:n]
+        end = np.append(codes[1:] != codes[:-1], True)
+        k[2] = 0x7FFFFFFF
+        k[2, :n] = np.where(end, np.arange(n), 0x7FFFFFFF)
+    return k
+
+
+@pytest.mark.parametrize("A", [2, 8, 16, 64, 512, 1024, 2048, 16384, 32768])
+def test_sort1_cuda_source_on_host_matches_plain(sort1_host, A):
+    """The kernel's own code against the plain version, bit-equal, and no
+    shared memory written past what its launch requests: every tier
+    (registers from 2 lanes, shuffles from 32, the warp-lane and the
+    high-bit transposes from 1024) and each lanes-a-thread count (2 and 8
+    below 16 lanes, 16 up to 8192, 32 from 16384)."""
+    k = _sort1_keys(A + 7, 3, A)
+    want = tsort.sort1_rows_plain(_t(k)).numpy().view(np.uint32)
+    np.testing.assert_array_equal(sort1_host(k), want)
+    np.testing.assert_array_equal(want, np.sort(k, axis=1))
