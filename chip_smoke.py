@@ -12,6 +12,20 @@ seconds):
      ["--batch", "-x", "map-ont", ...])``; every kernel of the path must
      have launched, >= 90% of reads must land on their source interval and
      no mapq-60 primary may be wrong;
+  3b. the device index build (pos_fmt 1, h2r built in one piece) of phase
+     3's genome on the card: the sketch kernel launched in the build, its
+     tables decoded to host coordinates equal phase 3's host MiniIndex
+     (keys, run starts, positions) and mid_occ its cal_max_occ(2e-4); phase
+     3's reads mapped through it at phase 3's widths give byte-identical
+     PAF; each build stage's seconds and the peak device memory;
+  3c. the 3.1 Gb / 195-contig GRCh38 envelope: generated on the card
+     (alt0 and alt170 equal to the same contigs generated on the CPU),
+     1024 ONT-like reads sliced from its 24 big chromosomes, indexed on the
+     card with consume=True (pos_fmt 2, s_fmt 1, the chunked h2r build),
+     the reads mapped through ``engine.map_queries`` in two 512-read
+     batches at bench.py's widths (L 12288, M 2048, A 4096, long-join
+     pass on); the accuracy gates of phase 3, reads/s, the build's stages,
+     peak memory and counts;
   4. the -a path: the same genome and reads through ``cli.main(["--batch",
      "-a", "-x", "map-ont", ...])``; all five kernels launched, >= 90% of
      primaries on their source interval (fallback reads count as wrong),
@@ -31,9 +45,10 @@ seconds):
      mapq-60 primary, every primary CIGAR spans its read and reference
      interval, >= 80% of the true introns matched exactly by an N op;
   7. each kernel against its plain PyTorch version on the card at its
-     path's shapes (bit-equal; the sketch on random codes and on the first
+     path's shapes (bit-equal; the sketch on random codes, on the first
      batch of phases 3 (k15 w10), 5 (k19 w10, HPC-compacted codes) and 6
-     (k15 w5); sort3 on random planes and on phase 3's first compaction
+     (k15 w5), and with its validity plane on phase 3b's first build chunk
+     (8192 x 8192); sort3 on random planes and on phase 3's first compaction
      and anchor keys; extd2 on the first align launch of phase 4 (a
      batch's jobs), timed there and on its first 64 jobs, the traceback
      on those 64 jobs, sort1 on phase 5's first batch and on full-range
@@ -216,7 +231,7 @@ def phase_main_path(tmp):
     log(f"[main] simulated {GENOME_LEN / 1e6:.0f} Mb genome + {N_READS} "
         f"ONT-like, {N_READS} PacBio-like and {N_READS} cDNA reads in "
         f"{time.time() - t0:.1f}s")
-    del seqs, reads, hreads, gseqs, greads
+    del reads, hreads, gseqs, greads
 
     from minimap2_tpu_torch.parallel import batch, engine
     comp, anch, sk = {}, {}, {}
@@ -226,11 +241,162 @@ def phase_main_path(tmp):
                     _capture_first(batch, "sort3_rows", anch),
                     _capture_first(engine, "sketch_batch", sk)])
     paf_accuracy("main", paf, rnames)
-    return dict(run, rd=rd, ref=ref, rnames=rnames, hpc_rd=hpc_rd,
+    return dict(run, rd=rd, ref=ref, rnames=rnames, hpc_rd=hpc_rd, paf=paf,
+                genome=(names, seqs),
                 compaction_keys=comp["args"], anchor_keys=anch["args"],
                 sketch_in=sk["args"],
                 hnames=hnames, spl_ref=spl_ref, spl_rd=spl_rd, gnames=gnames,
                 introns=introns)
+
+
+def _build_on_card(tag, names, parts, w, k, **kw):
+    """build_device_index on the card with its sketch launches counted
+    (counts set to 0 just before, read just after) and its first sketch
+    call's inputs captured; logs the stages, the peak device memory above
+    what was held before, and the counts."""
+    from minimap2_tpu_torch.ops._build import launches
+    from minimap2_tpu_torch.parallel import devbuild
+    sk = {}
+    hook = _capture_first(devbuild, "sketch_batch", sk)
+    saved = devbuild.sketch_batch
+    devbuild.sketch_batch = hook[2]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    try:
+        di, meta = devbuild.build_device_index(names, parts, w, k,
+                                               device="cuda", **kw)
+        torch.cuda.synchronize()
+    finally:
+        devbuild.sketch_batch = saved
+    counts = dict(launches)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    require(counts.get("sketch", 0) > 0,
+            f"kernel sketch never launched in the {tag} index build")
+    stages = {n: round(t, 3) for n, t in meta.stage_s.items()}
+    log(f"[{tag}] device index build: {stages} s; peak device memory "
+        f"{peak_gb:.2f} GB above the {base / 1e9:.2f} GB held before; "
+        f"pos_fmt {di.pos_fmt}, s_fmt {di.s_fmt}, h2r {tuple(di.h2r.shape)}"
+        f" ({di.h2r_nb} buckets); n_mini {meta.n_mini}, distinct "
+        f"{meta.n_distinct}, mid_occ {meta.mid_occ}; launches {counts}")
+    return di, meta, dict(stages=stages, peak_gb=peak_gb, launches=counts,
+                          sketch_in=sk["args"], n_mini=meta.n_mini,
+                          n_distinct=meta.n_distinct, mid_occ=meta.mid_occ)
+
+
+def _map_on_card(tag, step, mi, rd, out_path):
+    """engine.map_queries in 512-read batches with the launches counted
+    around it; fails unless the PAF path's kernels launched."""
+    from minimap2_tpu_torch.ops._build import launches
+    from minimap2_tpu_torch.parallel import engine
+    torch.cuda.synchronize()
+    launches.clear()
+    t = time.time()
+    with open(out_path, "w") as out, torch.no_grad():
+        n = engine.map_queries(step, mi, [rd], out, 512)
+    torch.cuda.synchronize()
+    map_s = time.time() - t
+    counts = dict(launches)
+    for name in ("sketch", "sort3", "sort3_merge", "chain"):
+        require(counts.get(name, 0) > 0,
+                f"kernel {name} never launched on the {tag} mapping")
+    log(f"[{tag}] mapped {n} reads in {map_s:.2f}s ({n / map_s:.1f} reads/s"
+        f", the first batch with its warm-up); launches {counts}")
+    return dict(n=n, map_s=map_s, reads_per_s=n / map_s, launches=counts)
+
+
+def phase_devbuild(main, tmp):
+    """Phase 3's genome indexed on the card; held against phase 3's host
+    index and its PAF."""
+    from minimap2_tpu_torch.parallel import devbuild, engine
+    names, seqs = main.pop("genome")
+    mi = main["mi"]
+    di, meta, info = _build_on_card("devbuild", names, list(seqs), mi.w,
+                                    mi.k)
+    del seqs
+    t = time.time()
+    step = main["step"]
+    # the h2r table equals the one phase 3 built from the host index (the
+    # same keys dropped, <= 1e-6 of them); decoded, every key it holds has
+    # the host's run, and pos2 the host's positions
+    require(di.h2r_nb == step.di.h2r_nb and torch.equal(di.h2r, step.di.h2r),
+            "the device-built h2r table differs from phase 3's")
+    keys, starts, counts, pos = devbuild.host_tables(di, meta)
+    require(meta.n_mini == len(mi.pos) and meta.n_distinct == len(mi.keys),
+            f"device build counts {meta.n_mini} / {meta.n_distinct}, host "
+            f"{len(mi.pos)} / {len(mi.keys)}")
+    at = np.minimum(np.searchsorted(mi.keys, keys), len(mi.keys) - 1)
+    require(np.array_equal(mi.keys[at], keys), "device-built keys differ")
+    require(np.array_equal(mi.starts[at], starts)
+            and np.array_equal(np.minimum(np.diff(mi.starts)[at], 63),
+                               np.minimum(counts, 63)),
+            "device-built runs differ")
+    require(np.array_equal(pos, mi.pos), "device-built positions differ")
+    require(meta.mid_occ == mi.cal_max_occ(2e-4),
+            f"device-built mid_occ {meta.mid_occ} != {mi.cal_max_occ(2e-4)}")
+    log(f"[devbuild] h2r table equal to phase 3's; its {len(keys)} keys "
+        f"({len(mi.keys) - len(keys)} dropped, as in phase 3's), their runs "
+        f"and all {len(pos)} positions equal phase 3's host index, mid_occ "
+        f"{meta.mid_occ} (checked in {time.time() - t:.1f}s)")
+    dstep = engine.PafStep(di, step.p, step.K, step.min_sc)
+    paf = os.path.join(tmp, "devbuild.paf")
+    run = _map_on_card("devbuild", dstep, meta.seq_table(), main["rd"], paf)
+    with open(paf, "rb") as a, open(main["paf"], "rb") as b:
+        same = a.read() == b.read()
+    require(same, "PAF through the device-built index differs from phase 3's")
+    log("[devbuild] PAF through the device-built index byte-identical to "
+        "phase 3's")
+    return dict(info, map=run)
+
+
+def phase_grch38(tmp):
+    """The GRCh38 envelope generated, indexed and mapped on the card."""
+    from minimap2_tpu_torch.parallel import engine
+    from minimap2_tpu_torch.parallel.batch import BatchParams
+    from minimap2_tpu_torch.utils import simgenome_dev as sgd
+    from minimap2_tpu_torch.utils.simgenome import write_fasta
+    total, ncon = 3_100_000_000, 195
+    torch.cuda.synchronize()
+    t = time.time()
+    names, parts = sgd.grch38_envelope_parts(total, ncon, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.time() - t
+    n_bp = sum(int(p.shape[0]) for p in parts)
+    # two alt contigs against the same contigs made on the CPU
+    (_, nbig, _), (ts, ns, ss) = sgd.grch38_parts_plan(total, ncon)
+    t = time.time()
+    for c in (0, 170):
+        cpu = sgd.simulate_contig(ss, c, ts // ns, device="cpu")
+        require(torch.equal(parts[nbig + c].cpu(), cpu),
+                f"alt{c} generated on the card differs from the CPU's")
+    cmp_s = time.time() - t
+    t = time.time()
+    rnames, rcodes = sgd.simulate_reads_device(parts[:nbig], N_READS, seed=3,
+                                               names=names[:nbig])
+    rd = os.path.join(tmp, "grch38_reads.fa")
+    write_fasta(rd, rnames, rcodes)
+    reads_s = time.time() - t
+    log(f"[grch38] {n_bp} bp in {len(parts)} contigs generated on the card "
+        f"in {gen_s:.1f}s; alt0 and alt170 equal the CPU's ({cmp_s:.1f}s); "
+        f"{N_READS} reads sliced in {reads_s:.1f}s")
+    di, meta, info = _build_on_card("grch38", names, parts, 10, 15,
+                                    cap_frac=0.21, consume=True)
+    require(all(p is None for p in parts), "consume=True kept contigs")
+    del parts
+    require(di.pos_fmt == 2 and di.s_fmt == 1 and di.pstrand is not None
+            and di.h2r_nb > 0, "the envelope's index is not pos_fmt 2 / "
+            "s_fmt 1 with an h2r table")
+    p = BatchParams(L=12288, M=2048, A=4096,
+                    occ_cap=min(max(meta.mid_occ, 10), 64), chain_window=64,
+                    bw_long=20000)
+    step = engine.PafStep(di, p, K=5, min_sc=40)
+    paf = os.path.join(tmp, "grch38.paf")
+    run = _map_on_card("grch38", step, meta.seq_table(), rd, paf)
+    paf_accuracy("grch38", paf, rnames)
+    del step, di, info["sketch_in"]
+    torch.cuda.empty_cache()
+    return dict(info, map=run, genome_bp=n_bp, gen_s=gen_s, reads_s=reads_s)
 
 
 def paf_accuracy(tag, paf, rnames):
@@ -620,7 +786,7 @@ def kernel_launches(counts, name):
     return counts.get(name, 0) + counts.get(f"{name}_merge", 0)
 
 
-def phase_kernels(main, hpc, spl):
+def phase_kernels(main, hpc, spl, dvb, g38):
     from minimap2_tpu_torch.ops import _build, chain, sketch, sort
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -663,6 +829,34 @@ def phase_kernels(main, hpc, spl):
         log(f"[kernels] sketch on the {tag} path's first batch ({PB} x {PL},"
             f" k{k_} w{w_}): bit-equal, {paths[tag]['ms']:.4f} ms, "
             f"{paths[tag]['blocks_per_sm']} blocks per SM")
+    # the index build's rows (8192 x 8192, code-5 separators) with the
+    # validity plane: phase 3b's first chunk
+    b_args = tuple(dvb["sketch_in"])            # rows, lens, k, w
+    BB, BL = b_args[0].shape
+    bk, bw_ = b_args[2], b_args[3]
+    e = max_abs_err(sketch.sketch_batch(*b_args, with_valid=True),
+                    sketch.device_sketch(*b_args, with_valid=True))
+    require(e == 0, f"sketch differs from its plain version on the index "
+            f"build's first chunk, five planes ({e})")
+    err = max(err, e)
+    cb_ms, cb_by = bound(BB * BL * 12 + BB * 4,
+                         BB * BL * (8 * bk + 40 + 7 * bw_))
+    build_chunk = dict(
+        shape=[BB, BL], k=bk, w=bw_, max_abs_err=e,
+        ms=cuda_ms(lambda: sketch.sketch_batch(*b_args, with_valid=True)),
+        plain_ms=cuda_ms(lambda: sketch.device_sketch(*b_args,
+                                                      with_valid=True),
+                         reps=2, warmup=1),
+        bound_ms=cb_ms, bound_by=cb_by,
+        blocks_per_sm=_build.blocks_per_sm("sketch", BL, bw_),
+        launches_devbuild=dvb["launches"].get("sketch", 0),
+        launches_grch38=g38["launches"].get("sketch", 0))
+    log(f"[kernels] sketch with the validity plane on the index build's "
+        f"first chunk ({BB} x {BL}, k{bk} w{bw_}): bit-equal (5 planes), "
+        f"{build_chunk['ms']:.4f} ms, plain {build_chunk['plain_ms']:.1f} "
+        f"ms, bound {cb_ms:.4f} ms ({cb_by}); launches a build: 100 Mb "
+        f"{build_chunk['launches_devbuild']}, GRCh38 envelope "
+        f"{build_chunk['launches_grch38']}")
     bms, by = bound(B * L * 11 + B * 4, B * L * (8 * 15 + 40 + 7 * 10))
     rows.append(dict(
         name="sketch", route="cuda",
@@ -672,7 +866,8 @@ def phase_kernels(main, hpc, spl):
         ms=cuda_ms(lambda: sketch.sketch_batch(*args)),
         plain_ms=cuda_ms(lambda: sketch.device_sketch(*args), reps=3),
         bound_ms=bms, bound_by=by, library_ms=None, shape=[B, L],
-        blocks_per_sm=_build.blocks_per_sm("sketch", L, 10), paths=paths))
+        blocks_per_sm=_build.blocks_per_sm("sketch", L, 10), paths=paths,
+        build_chunk=build_chunk))
 
     # sort3_rows at 512 x 4096 (the anchor sort), sort3_chunked at
     # 512 x 16384 (minimizer compaction): random planes, then the first
@@ -1321,11 +1516,13 @@ def main():
     timed("build", phase_build)
     with tempfile.TemporaryDirectory() as tmp:
         main_ = timed("paf", phase_main_path, tmp)
+        dvb = timed("devbuild", phase_devbuild, main_, tmp)
+        g38 = timed("grch38", phase_grch38, tmp)
         aln = timed("align", phase_align_path, main_, tmp)
         aln["rd"] = main_["rd"]
         hpc = timed("hpc", phase_hpc_path, main_, tmp)
         spl = timed("splice", phase_splice_path, main_, tmp)
-        rows = timed("kernels", phase_kernels, main_, hpc, spl)
+        rows = timed("kernels", phase_kernels, main_, hpc, spl, dvb, g38)
         for r in rows:          # the PAF kernels also run on the other paths
             r["launches_align"] = kernel_launches(aln["launches"], r["name"])
             r["launches_hpc"] = kernel_launches(hpc["launches"], r["name"])
@@ -1349,7 +1546,10 @@ def main():
         f"{aln['mean_identity']:.4f}), {hpc['reads_per_s']:.1f} reads/s "
         f"(map-pb), {spl['reads_per_s']:.1f} reads/s (-a -x splice, "
         f"{100 * spl['intron_share']:.1f}% of introns exact) on the 100 Mb "
-        f"genome; {time.time() - t_start:.0f}s in all, by phase {secs}")
+        f"genome; {g38['map']['reads_per_s']:.1f} reads/s (PAF) on the "
+        f"GRCh38 envelope, its index built in {g38['stages']['total']:.1f}s "
+        f"(100 Mb: {dvb['stages']['total']:.1f}s); "
+        f"{time.time() - t_start:.0f}s in all, by phase {secs}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kinds,

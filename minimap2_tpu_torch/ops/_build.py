@@ -31,7 +31,7 @@ launches: Counter = Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "mm2_sketch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mm2_sketch": [_P] * 7 + [_I] * 4 + [_P],
     "mm2_sketch_occupancy": [_I, _I, _P],
     "mm2_sort3_ex": [_P] * 6 + [_I] * 5 + [_P],
     "mm2_sort3_occupancy": [_I, _P],

@@ -4,12 +4,17 @@
 // (the Pallas kernel at sketch_pallas.py:79-228).  Per read position i (the
 // k-mer ending at i) it writes hash64 of the canonical k-mer as two u32
 // planes (hi, lo), the strand z, and is_mini: i's hash equals the minimum
-// of at least one complete w-window covering i (ties included).  The
-// planes equal parallel/batch.device_sketch's at every position, invalid
-// ones included, so the plain PyTorch version is that function.
+// of at least one complete w-window covering i (ties included); and, when
+// the caller passes a buffer for it, valid: the k-mer ending at i has no
+// code >= 4 (4 = N, 5 = the index build's separator), i >= k - 1, i < len
+// and it is not its own reverse complement (bit 2 of the TPU kernel's flag
+// plane).  The planes equal parallel/batch.device_sketch's at every
+// position, invalid ones included, so the plain PyTorch version is that
+// function.
 //
 // What bounds it: device memory and integer issue.  A position reads 1
-// byte of codes and writes 10 bytes (two u32 hash words, z, is_mini), and
+// byte of codes and writes 10 bytes (two u32 hash words, z, is_mini; 11
+// with valid), and
 // its k-mer hash and window terms are a few dozen integer ops.
 // Design: a block covers a tile of TILE positions of one read plus a halo
 // of HL >= w - 1 positions on each side (HL a multiple of P), one thread a
@@ -22,7 +27,7 @@
 //     w k-mers ending at a position is complete iff none lies among the
 //     last w + k - 1 codes (`wend`, a bit a position);
 //   - hashes each of its positions once and stores hi and lo 16 bytes at a
-//     time, z 16 positions to a store;
+//     time, z (and valid) 16 positions to a store;
 //   - takes window minima by doubling: m_2s[e] = min(m_s[e], m_s[e + s])
 //     up to the largest power of two S <= w, then min(m_S[e], m_S[e + w -
 //     S]); each level publishes the values a neighbouring run reads
@@ -110,7 +115,8 @@ __global__ void __launch_bounds__(TILE / P + 256 / P, 3)
                   const int32_t* __restrict__ lens,
                   uint32_t* __restrict__ hhi, uint32_t* __restrict__ hlo,
                   uint8_t* __restrict__ zout, uint8_t* __restrict__ mini,
-                  int L, int k, int w, int tile, int n_tiles, int HL) {
+                  uint8_t* __restrict__ vout, int L, int k, int w, int tile,
+                  int n_tiles, int HL) {
   extern __shared__ uint4 smem[];
   const int runs = blockDim.x;
   const int runs_s = runs + 2 * PAD;
@@ -156,6 +162,7 @@ __global__ void __launch_bounds__(TILE / P + 256 / P, 3)
   const size_t o = (size_t)b * L + q0;
   unsigned long long x[P];
   uint32_t zb[4] = {0, 0, 0, 0};
+  uint32_t vb[4] = {0, 0, 0, 0};
   uint32_t wend = 0;
 #pragma unroll
   for (int v = 0; v < P / 4; ++v) {
@@ -171,7 +178,9 @@ __global__ void __launch_bounds__(TILE / P + 256 / P, 3)
                          q - roll.last_n >= w + k - 1) << i;
       const bool z = roll.kf >= roll.kr;
       const unsigned long long h = hash64(z ? roll.kr : roll.kf, mask);
-      x[i] = okp && roll.kf != roll.kr ? h : BIG;
+      const bool ok = okp && roll.kf != roll.kr;
+      x[i] = ok ? h : BIG;
+      vb[v] |= (uint32_t)ok << (8 * u);
       hi[u] = (uint32_t)(h >> 32);
       lo[u] = (uint32_t)h;
       zb[v] |= (uint32_t)z << (8 * u);
@@ -196,6 +205,15 @@ __global__ void __launch_bounds__(TILE / P + 256 / P, 3)
   } else if (own) {
     for (int i = 0; i < P && q0 + i < L; ++i)
       zout[o + i] = (zb[i >> 2] >> (8 * (i & 3))) & 1u;
+  }
+  if (vout != nullptr) {
+    if (own_vec) {
+      *reinterpret_cast<uint4*>(vout + o) = make_uint4(vb[0], vb[1], vb[2],
+                                                       vb[3]);
+    } else if (own) {
+      for (int i = 0; i < P && q0 + i < L; ++i)
+        vout[o + i] = (vb[i >> 2] >> (8 * (i & 3))) & 1u;
+    }
   }
 
   // window minima: m[e] = min(x[e .. e + w)) by doubling
@@ -304,9 +322,10 @@ Shape shape_of(int L, int w) {
 
 }  // namespace
 
+// valid may be null: the plane is then not written
 extern "C" int mm2_sketch(const void* codes, const void* lens, void* hhi,
-                          void* hlo, void* z, void* is_mini, int B, int L,
-                          int k, int w, void* stream) {
+                          void* hlo, void* z, void* is_mini, void* valid,
+                          int B, int L, int k, int w, void* stream) {
   if (B == 0 || L == 0) return 0;
   const Shape sh = shape_of(L, w);
   cudaError_t err = cudaFuncSetAttribute(
@@ -316,8 +335,8 @@ extern "C" int mm2_sketch(const void* codes, const void* lens, void* hhi,
   sketch_kernel<<<B * sh.n_tiles, sh.threads, sh.smem,
                   (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const int32_t*)lens, (uint32_t*)hhi,
-      (uint32_t*)hlo, (uint8_t*)z, (uint8_t*)is_mini, L, k, w, sh.tile,
-      sh.n_tiles, sh.HL);
+      (uint32_t*)hlo, (uint8_t*)z, (uint8_t*)is_mini, (uint8_t*)valid, L, k,
+      w, sh.tile, sh.n_tiles, sh.HL);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,10 @@ XLA twin; both give the same planes.  Per position i (the k-mer ending at
 i): hash64 of the canonical k-mer as (hi, lo) u32 planes, the strand z,
 and is_mini -- set when the hash equals the minimum of at least one
 complete w-window (ties included), the minimizer set of mm_sketch
-(sketch.c:77-143, non-HPC).
+(sketch.c:77-143, non-HPC); with ``with_valid``, also the validity plane
+(the k-mer has no code >= 4, starts in the row and ends before len, and
+is not its own reverse complement) that the index build's edge rule
+reads (parallel/devbuild.py).
 
 ``sketch_batch`` launches the kernel (csrc/sketch.cu) for CUDA tensors
 and runs ``device_sketch`` for CPU tensors; nothing else picks between
@@ -46,10 +49,12 @@ def _earlier(x, d, fill):
     return torch.cat([x.new_full((x.shape[0], d), fill), x[:, :-d]], dim=1)
 
 
-def device_sketch(codes: torch.Tensor, lens: torch.Tensor, k: int, w: int):
+def device_sketch(codes: torch.Tensor, lens: torch.Tensor, k: int, w: int,
+                  with_valid: bool = False):
     """Plain version (port of batch.device_sketch).  codes (B, L) uint8 nt4
-    (4 = ambiguous / padding), lens (B,) int32.  Returns (hhi, hlo, z,
-    is_mini): hash planes as int32 bit patterns, z and is_mini bool."""
+    (4 = ambiguous / padding; any code >= 4 is ambiguous), lens (B,) int32.
+    Returns (hhi, hlo, z, is_mini[, valid]): hash planes as int32 bit
+    patterns, the others bool."""
     B, L = codes.shape
     mask = (1 << (2 * k)) - 1
     c = codes.to(torch.int64)
@@ -88,13 +93,15 @@ def device_sketch(codes: torch.Tensor, lens: torch.Tensor, k: int, w: int):
         cv = torch.maximum(cv, _earlier(mx, d, 0))
         anyw = anyw | _earlier(wok, d, False)
     is_mini = valid & anyw & (cv == x) & (x != BIG)
-    return (h >> 32).to(torch.int32), i32(h & M32), z, is_mini
+    out = ((h >> 32).to(torch.int32), i32(h & M32), z, is_mini)
+    return out + (valid,) if with_valid else out
 
 
-def sketch_batch(codes: torch.Tensor, lens: torch.Tensor, k: int, w: int):
+def sketch_batch(codes: torch.Tensor, lens: torch.Tensor, k: int, w: int,
+                 with_valid: bool = False):
     """Sketch a read batch; same outputs as ``device_sketch``."""
     if codes.device.type == "cpu":
-        return device_sketch(codes, lens, k, w)
+        return device_sketch(codes, lens, k, w, with_valid)
     _build.require_cuda("sketch_batch", codes, lens)
     B, L = codes.shape
     if codes.dtype != torch.uint8 or lens.dtype != torch.int32 \
@@ -111,10 +118,12 @@ def sketch_batch(codes: torch.Tensor, lens: torch.Tensor, k: int, w: int):
     hlo = torch.empty_like(hhi)
     z = torch.empty((B, L), dtype=torch.bool, device=codes.device)
     is_mini = torch.empty_like(z)
+    valid = torch.empty_like(z) if with_valid else None
     err = _build.lib().mm2_sketch(
         codes.data_ptr(), lens.data_ptr(), hhi.data_ptr(), hlo.data_ptr(),
-        z.data_ptr(), is_mini.data_ptr(), B, L, k, w,
+        z.data_ptr(), is_mini.data_ptr(),
+        valid.data_ptr() if with_valid else None, B, L, k, w,
         _build.stream_ptr(codes))
     _build.check(err, "mm2_sketch")
     _build.launches["sketch"] += 1
-    return hhi, hlo, z, is_mini
+    return (hhi, hlo, z, is_mini) + ((valid,) if with_valid else ())

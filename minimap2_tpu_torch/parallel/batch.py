@@ -242,6 +242,25 @@ class DeviceIndex(nn.Module):
         return {a: getattr(self, a) for a in self.AUX}
 
     @classmethod
+    def from_tensors(cls, tables: dict, aux: dict):
+        """From tables already on one device (the index build's,
+        parallel/devbuild.py): no copy, no host round trip.  u32 tables are
+        int32 bit patterns; None = absent."""
+        dtypes = {"h2r": torch.int32, "pos2": torch.int32,
+                  "pstrand": torch.uint8, "S": torch.uint8,
+                  "seq_off": torch.int32, "seq_len": torch.int32,
+                  "rtab": torch.int32}
+        tabs = {n: t for n, t in tables.items() if t is not None}
+        devs = {t.device for t in tabs.values()}
+        if len(devs) != 1:
+            raise ValueError(f"DeviceIndex tables on several devices: {devs}")
+        for n, t in tabs.items():
+            if t.dtype != dtypes[n]:
+                raise ValueError(f"DeviceIndex table {n}: {t.dtype}, "
+                                 f"expected {dtypes[n]}")
+        return cls(tabs, aux)
+
+    @classmethod
     def from_numpy(cls, leaves: dict, aux: dict, device=None):
         """From NumPy tables named as the JAX DeviceIndex's leaves (extra
         leaves such as keys2/sc2 are ignored; None = absent)."""
@@ -445,9 +464,11 @@ def _rid_of(di: DeviceIndex, gpos_u):
     so_u = u32(di.seq_off)
     n_seq = so_u.shape[0]
     if n_seq <= 16:
-        # tiny contig tables: unrolled compares
+        # tiny contig tables: unrolled compares.  The first contig starts
+        # at seq_off[0], which is OV, not 0, in a device-built index (the
+        # JAX package starts at 0 here and shifts contig 0 by OV bases)
         rid = torch.zeros_like(gpos_u)
-        off_sel = torch.zeros_like(gpos_u)
+        off_sel = so_u[0] + torch.zeros_like(gpos_u)
         for j in range(1, n_seq):
             in_j = gpos_u >= so_u[j]
             rid = rid + in_j.to(rid.dtype)
