@@ -26,13 +26,21 @@ seconds):
      batches at bench.py's widths (L 12288, M 2048, A 4096, long-join
      pass on); the accuracy gates of phase 3, reads/s, the build's stages,
      peak memory and counts;
+  3d. reads longer than L: on phase 3's genome, 1024 ONT-like reads (5%
+     sub, 2.5% del, 2.5% ins; seeds 5, 6 and 7), 896 of 8-11 kb and 128 of
+     16.6-50 kb (past L = 16384) in a shuffled order, through
+     ``cli.main(["--batch", "-x", "map-ont", ...])``; all 128 long reads
+     must go through the host path and every record come out in input
+     order, >= 90% of reads correct, no wrong mapq-60 primary; reads/s and
+     the host path's share of the run's seconds;
   4. the -a path: the same genome and reads through ``cli.main(["--batch",
      "-a", "-x", "map-ont", ...])``; all five kernels launched, >= 90% of
-     primaries on their source interval (fallback reads count as wrong),
-     no wrong mapq-60 primary, <= 3% fallback reads (the JAX package's
-     decisions, which the port takes, give 2.25% on these reads), and
-     every primary's CIGAR spans the read and its aligned reference
-     interval;
+     primaries on their source interval (a fallback read is scored on the
+     record the host path writes for it), no wrong mapq-60 primary, <= 3%
+     fallback reads (the JAX package's decisions, which the port takes,
+     give 2.25% on these reads), and every primary's CIGAR spans the read
+     and its aligned reference interval; the host path's reads and
+     seconds;
   5. the HPC path: 1024 PacBio-CLR-like reads (2% sub, 3% del, 5% ins)
      through ``cli.main(["--batch", "-x", "map-pb", ...])`` on the same
      genome; sort1 launched, >= 90% of primaries on their source interval,
@@ -41,9 +49,10 @@ seconds):
      on each strand, canonical splice signals) and one cDNA read per gene
      through ``cli.main(["--batch", "-a", "-x", "splice", ...])``; sketch,
      sort3, chain, exts2 and the splice traceback launched, >= 90% of
-     primaries on their gene (fallback reads count as wrong), no wrong
-     mapq-60 primary, every primary CIGAR spans its read and reference
-     interval, >= 80% of the true introns matched exactly by an N op;
+     primaries on their gene (fallback reads scored on their host-path
+     records), no wrong mapq-60 primary, every primary CIGAR spans its
+     read and reference interval, >= 80% of the true introns matched
+     exactly by an N op;
   7. each kernel against its plain PyTorch version on the card at its
      path's shapes (bit-equal; the sketch on random codes, on the first
      batch of phases 3 (k15 w10), 5 (k19 w10, HPC-compacted codes) and 6
@@ -66,7 +75,9 @@ seconds):
      kernel launches, traceback, ops download, host regs + SAM emit);
   9. card vs CPU (plain versions): the first 128 reads of phases 3 and 5
      through PafStep give identical records, the first 8 reads of phases
-     4 and 6 through their -a paths identical SAM;
+     4 and 6 through their -a paths identical SAM, the first 8 long reads
+     of phase 3d with 8 of its short reads through the PAF driver
+     identical PAF;
  10. a ``kernels`` JSON line, then the ``ok`` line.
 """
 import io
@@ -399,6 +410,48 @@ def phase_grch38(tmp):
     return dict(info, map=run, genome_bp=n_bp, gen_s=gen_s, reads_s=reads_s)
 
 
+def phase_long_reads(main, tmp, n_short=896, n_long=128):
+    """Phase 3d: reads longer than L among shorter ones, through the CLI on
+    phase 3's genome; the long ones take the host path."""
+    from minimap2_tpu_torch.utils.simgenome import (simulate_reads,
+                                                    write_fasta)
+    names, seqs = main["genome"]
+    sn, sr = simulate_reads(seqs, n_short, np.random.default_rng(5),
+                            name_seqs=names)
+    ln_, lr = simulate_reads(seqs, n_long, np.random.default_rng(6),
+                             min_len=16_600, max_len=50_000,
+                             name_seqs=names)
+    ln_ = ["S2" + nm[2:] for nm in ln_]
+    order = np.random.default_rng(7).permutation(n_short + n_long)
+    rnames = [(sn + ln_)[i] for i in order]
+    reads = [(sr + lr)[i] for i in order]
+    n_past = sum(len(r) > 16384 for r in reads)
+    require(n_past == n_long,
+            f"{n_past} reads longer than L = 16384, not {n_long}")
+    rd, paf = (os.path.join(tmp, f) for f in ("long_reads.fa", "long.paf"))
+    write_fasta(rd, rnames, reads)
+    del reads
+    run = _paf_run("long", ["--batch", "-x", "map-ont", "-o", paf,
+                            main["ref"], rd],
+                   ("sketch", "sort3", "sort3_merge", "chain"))
+    host = run["host"]
+    require(host["reads"] == n_long,
+            f"{host['reads']} reads through the host path, not {n_long}")
+    pos = {nm: i for i, nm in enumerate(rnames)}
+    with open(paf) as f:
+        seq = [pos[ln.split("\t", 1)[0]] for ln in f]
+    require(all(a <= b for a, b in zip(seq, seq[1:])),
+            "phase 3d's records are not in input order")
+    n_long_out = len({i for i in seq if rnames[i].startswith("S2")})
+    share = host["seconds"] / run["map_s"]
+    log(f"[long] {run['reads_per_s']:.1f} reads/s; the host path took "
+        f"{host['seconds']:.3f}s of the {run['map_s']:.2f}s mapping run "
+        f"({100 * share:.1f}%) for the {n_long} reads longer than L; "
+        f"{n_long_out}/{n_long} of them have a record")
+    paf_accuracy("long", paf, rnames)
+    return dict(run, rd=rd, rnames=rnames, host_share=share)
+
+
 def paf_accuracy(tag, paf, rnames):
     """Gate PAF primaries against the simulated truth (paftools mapeval's
     rule): >= 90% on their source interval, no wrong mapq-60 primary."""
@@ -536,20 +589,25 @@ def phase_align_path(main, tmp):
 
 def _run_cli(argv, hooks):
     """cli.main(argv) with module attributes swapped for the run: hooks =
-    [(module, name, replacement)].  Returns (rc, launches, seconds)."""
+    [(module, name, replacement)].  Returns (rc, launches, seconds, host
+    path {reads, seconds})."""
     from minimap2_tpu_torch import cli
     from minimap2_tpu_torch.ops._build import launches
+    from minimap2_tpu_torch.parallel import engine
     saved = [(m, n, getattr(m, n)) for m, n, _ in hooks]
     for m, n, f in hooks:
         setattr(m, n, f)
     launches.clear()
+    engine.host_path.clear()
     t1 = time.time()
     try:
         rc = cli.main(argv)
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
-    return rc, dict(launches), time.time() - t1
+    host = {"reads": engine.host_path["reads"],
+            "seconds": engine.host_path["seconds"]}
+    return rc, dict(launches), time.time() - t1, host
 
 
 def _capture_first(mod, name, store):
@@ -573,31 +631,33 @@ def _paf_run(tag, argv, kernels, hooks=()):
     seen = {}
     map_queries = engine.map_queries
 
-    def timed(step, mi, queries, out, batch_reads):
+    def timed(step, mi, queries, out, batch_reads, opt=None):
         torch.cuda.synchronize()
         t = time.time()
-        n = map_queries(step, mi, queries, out, batch_reads)
+        n = map_queries(step, mi, queries, out, batch_reads, opt=opt)
         torch.cuda.synchronize()
-        seen.update(step=step, mi=mi, n=n, map_s=time.time() - t)
+        seen.update(step=step, mi=mi, opt=opt, n=n, map_s=time.time() - t)
         return n
-    rc, counts, total_s = _run_cli(
+    rc, counts, total_s, host = _run_cli(
         argv, [(engine, "map_queries", timed), *hooks])
     require(rc == 0, f"{tag}: cli.main returned {rc}")
     reads_per_s = seen["n"] / seen["map_s"]
     log(f"[{tag}] index build + upload {total_s - seen['map_s']:.1f}s; "
         f"mapped {seen['n']} reads in {seen['map_s']:.2f}s "
-        f"({reads_per_s:.1f} reads/s); launches {counts}")
+        f"({reads_per_s:.1f} reads/s); launches {counts}; host path "
+        f"{host['reads']} reads in {host['seconds']:.3f}s")
     for name in kernels:
         require(counts.get(name, 0) > 0,
                 f"kernel {name} never launched on the {tag} path")
-    return dict(seen, launches=counts, reads_per_s=reads_per_s)
+    return dict(seen, launches=counts, reads_per_s=reads_per_s, host=host)
 
 
 def _align_run(tag, argv, kernels, hooks=()):
     """cli.main(argv) on an -a path with its align loop timed, each
-    primary's Reg extent recorded and the SAM's primary records read
-    back; fails unless every kernel named launched.  Returns the step,
-    batcher, index, options, launches, reads/s and fallback reads."""
+    primary's Reg extent recorded (the device path's, and the host path's
+    for a fallback read) and the SAM's primary records read back; fails
+    unless every kernel named launched.  Returns the step, batcher, index,
+    options, launches, reads/s, fallback reads and host-path seconds."""
     from collections import Counter
 
     from minimap2_tpu_torch.parallel import engine
@@ -620,9 +680,20 @@ def _align_run(tag, argv, kernels, hooks=()):
             r = regs[0]
             prim_regs[rec.name] = (r.rs, r.re, len(rec.seq))
         return res
-    rc, counts, total_s = _run_cli(
+
+    map_fragment = engine.map_fragment
+
+    def recording_host(mi, opt, frag):
+        # the SAM primary of a host-path read is its sam_pri region
+        results = map_fragment(mi, opt, frag)
+        for r in results[0].regs:
+            if r.sam_pri:
+                prim_regs[frag[0].name] = (r.rs, r.re, len(frag[0].seq))
+        return results
+    rc, counts, total_s, host = _run_cli(
         argv, [(engine, "align_queries", timed),
-               (engine, "batch_build_regs", recording), *hooks])
+               (engine, "batch_build_regs", recording),
+               (engine, "map_fragment", recording_host), *hooks])
     require(rc == 0, f"{tag}: cli.main returned {rc}")
     n_reads, fallbacks = seen["res"]
     reads_per_s = n_reads / seen["align_s"]
@@ -630,8 +701,13 @@ def _align_run(tag, argv, kernels, hooks=()):
     log(f"[{tag}] index build + upload {total_s - seen['align_s']:.1f}s; "
         f"aligned {n_reads} reads in {seen['align_s']:.2f}s "
         f"({reads_per_s:.1f} reads/s); launches {counts}")
-    log(f"[{tag}] fallback reads (no record written): {len(fallbacks)} "
-        f"({100 * len(fallbacks) / n_reads:.2f}%) by cause {causes}")
+    log(f"[{tag}] fallback reads: {len(fallbacks)} "
+        f"({100 * len(fallbacks) / n_reads:.2f}%) by cause {causes}; the "
+        f"host path mapped {host['reads']} in {host['seconds']:.3f}s "
+        f"({100 * host['seconds'] / seen['align_s']:.1f}% of the run)")
+    require(host["reads"] == len(fallbacks),
+            f"{tag}: {len(fallbacks)} fallback reads, {host['reads']} "
+            "through the host path")
     for name in kernels:
         require(counts.get(name, 0) > 0,
                 f"kernel {name} never launched on the {tag} path")
@@ -643,7 +719,7 @@ def _align_run(tag, argv, kernels, hooks=()):
                 prim.setdefault(t[0], t)
     return dict(seen, launches=counts, reads_per_s=reads_per_s,
                 n_reads=n_reads, fallbacks=fallbacks, prim=prim,
-                prim_regs=prim_regs)
+                prim_regs=prim_regs, host=host)
 
 
 def phase_hpc_path(main, tmp):
@@ -1437,6 +1513,44 @@ def phase_align_cross_check(aln, tmp, n, splice=False):
         f"and CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
 
 
+def phase_long_cross_check(long_, tmp):
+    """The first 8 long reads of phase 3d, each after one of its short
+    reads, through the PAF driver on the card and on the CPU (plain
+    versions, CPU copies of the index): identical PAF."""
+    from minimap2_tpu_torch.parallel.batch import DeviceIndex
+    from minimap2_tpu_torch.parallel.engine import PafStep, map_queries
+    from minimap2_tpu_torch.utils.intfloat import SEQ_NT4
+    from minimap2_tpu_torch.utils.simgenome import write_fasta
+    step, mi, opt = long_["step"], long_["mi"], long_["opt"]
+    recs = _records(long_["rd"], 1024)
+    longs = [r for r in recs if len(r.seq) > step.p.L][:8]
+    shorts = [r for r in recs if len(r.seq) <= step.p.L][:8]
+    pick = [r for pair in zip(shorts, longs) for r in pair]
+    path = os.path.join(tmp, "x_long.fa")
+    write_fasta(path, [r.name for r in pick],
+                [SEQ_NT4[np.frombuffer(r.seq, np.uint8)] for r in pick])
+    di = step.di
+    di_cpu = DeviceIndex({nm: t.cpu() for nm, t in di.named_buffers()},
+                         di.aux_dict())
+    step_cpu = PafStep(di_cpu, step.p, step.K, step.min_sc)
+    outs, secs = [], []
+    for st_ in (step, step_cpu):
+        out = io.StringIO()
+        t = time.time()
+        with torch.no_grad():
+            map_queries(st_, mi, [path], out, 8, opt=opt)
+        secs.append(time.time() - t)
+        outs.append(out.getvalue())
+    names = {ln.split("\t", 1)[0] for ln in outs[0].splitlines()}
+    n_rec = sum(r.name in names for r in longs)
+    require(n_rec >= 3 * len(longs) // 4,
+            f"{n_rec} of {len(longs)} long reads have a record")
+    require(outs[0] == outs[1], "card and CPU long-read PAF differ")
+    log(f"[cross] 8 long + 8 short reads' PAF ({len(outs[0].splitlines())} "
+        f"records) identical on card and CPU (card {secs[0]:.2f}s, CPU "
+        f"plain versions {secs[1]:.1f}s)")
+
+
 def phase_breakdown(main, tag="PAF"):
     """Where one 512-read batch spends its time: host read/encode/pack,
     the device step (CUDA events, and torch.profiler's device time by
@@ -1516,6 +1630,7 @@ def main():
     timed("build", phase_build)
     with tempfile.TemporaryDirectory() as tmp:
         main_ = timed("paf", phase_main_path, tmp)
+        long_ = timed("long", phase_long_reads, main_, tmp)
         dvb = timed("devbuild", phase_devbuild, main_, tmp)
         g38 = timed("grch38", phase_grch38, tmp)
         aln = timed("align", phase_align_path, main_, tmp)
@@ -1538,15 +1653,21 @@ def main():
         timed("cross HPC", phase_cross_check, hpc, "HPC")
         timed("cross -a", phase_align_cross_check, aln, tmp, 8)
         timed("cross splice", phase_align_cross_check, spl, tmp, 8, True)
+        timed("cross long", phase_long_cross_check, long_, tmp)
     for ok, msg in aln["gates"] + spl["gates"]:
         require(ok, msg)
     kinds = torch.cuda.get_device_name(0)
     log(f"[main] card {card}: {main_['reads_per_s']:.1f} reads/s (PAF), "
+        f"{long_['reads_per_s']:.1f} reads/s (PAF with 128 reads past L, "
+        f"{100 * long_['host_share']:.1f}% of it on the host path), "
         f"{aln['reads_per_s']:.1f} reads/s (-a, mean identity "
-        f"{aln['mean_identity']:.4f}), {hpc['reads_per_s']:.1f} reads/s "
-        f"(map-pb), {spl['reads_per_s']:.1f} reads/s (-a -x splice, "
-        f"{100 * spl['intron_share']:.1f}% of introns exact) on the 100 Mb "
-        f"genome; {g38['map']['reads_per_s']:.1f} reads/s (PAF) on the "
+        f"{aln['mean_identity']:.4f}; host path {aln['host']['reads']} "
+        f"reads, {aln['host']['seconds']:.3f}s), {hpc['reads_per_s']:.1f} "
+        f"reads/s (map-pb), {spl['reads_per_s']:.1f} reads/s (-a -x "
+        f"splice, {100 * spl['intron_share']:.1f}% of introns exact; host "
+        f"path {spl['host']['reads']} reads, {spl['host']['seconds']:.3f}s) "
+        f"on the 100 Mb genome; {g38['map']['reads_per_s']:.1f} reads/s "
+        f"(PAF) on the "
         f"GRCh38 envelope, its index built in {g38['stages']['total']:.1f}s "
         f"(100 Mb: {dvb['stages']['total']:.1f}s); "
         f"{time.time() - t_start:.0f}s in all, by phase {secs}")

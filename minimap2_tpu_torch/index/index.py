@@ -103,6 +103,26 @@ class MiniIndex:
     def n_seq(self) -> int:
         return len(self.seq)
 
+    @property
+    def n_alt(self) -> int:
+        """ALT contigs (always 0 here: the port's CLI refuses --alt)."""
+        return sum(s.is_alt for s in self.seq)
+
+    def get(self, minier):
+        """Vectorized mm_idx_get (index.c:93-110): hash values -> (start,
+        count) into self.pos."""
+        q = np.atleast_1d(np.asarray(minier, dtype=np.uint64))
+        nk = len(self.keys)
+        idx = np.searchsorted(self.keys, q)
+        idx_c = np.minimum(idx, nk - 1) if nk else idx
+        found = (nk > 0) & (idx < nk)
+        if nk:
+            found = found & (self.keys[idx_c] == q)
+        row = np.minimum(idx_c, len(self.starts) - 2)
+        start = np.where(found, self.starts[row], 0)
+        cnt = np.where(found, self.starts[row + 1] - self.starts[row], 0)
+        return start.astype(np.int64), cnt.astype(np.int64)
+
     def getseq(self, rid: int, st: int, en: int,
                rev: bool = False) -> np.ndarray:
         """nt4 codes of reference rid in [st, en) (index.c:164-196),

@@ -1,0 +1,169 @@
+"""Per-fragment host mapping: the reference's mm_map_frag_core
+(map.c:227-378), single-segment (copy of minimap2_tpu.map.pipeline).
+
+The --batch drivers (parallel/engine.py) hand it the reads the device path
+does not take: PAF reads longer than the batch width L, and -c/-a reads
+whose device alignment failed its audit.  Sketch, anchors, chaining and
+the DPs run through the C++ routines of native/host_map.cpp.  The copy
+drops the --print-seeds / --print-chains dumps (the port's CLI has no
+debug output), paired ends (n_segs > 1) and the jump (--pass1 /
+--junc-bed) split, which the port's CLI refuses.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .. import native
+from ..config import (MM_F_ALL_CHAINS, MM_F_HARD_MLEVEL, MM_F_HEAP_SORT,
+                      MM_F_NO_HASH_NAME, MM_F_NO_LJOIN, MM_F_QSTRAND,
+                      MM_F_RMQ, MM_F_SPLICE, MM_F_SR, MM_F_SR_RNA,
+                      MM_MAX_SEG, MapOptions)
+from ..index.index import MiniIndex
+from ..utils.intfloat import SEQ_NT4, qname_hash
+from . import hit as hitmod
+from .align import align_regs
+from .chain import chain_dp, chain_rmq
+from .sdust import dust_minier
+from .seed import collect_seed_hits, collect_seed_hits_heap, seed_mz_flt
+
+
+def collect_minimizers(mi: MiniIndex, opt: MapOptions, seqs: list[bytes]):
+    """map.c:59-72, incl. the -T sdust minimizer mask."""
+    xs, ys = [], []
+    total = 0
+    for sid, s in enumerate(seqs):
+        codes = SEQ_NT4[np.frombuffer(s, dtype=np.uint8)]
+        if len(codes) > 0:
+            x, y = native.sketch(codes, mi.w, mi.k, sid, bool(mi.flag & 0x1))
+            with np.errstate(over="ignore"):
+                y = y + np.uint64((total << 1) & 0xFFFFFFFFFFFFFFFF)
+            if opt.sdust_thres > 0:   # mask low-complexity minimizers
+                x, y = dust_minier(x, y, len(s), s, opt.sdust_thres)
+            xs.append(x)
+            ys.append(y)
+        total += len(s)
+    if xs:
+        return np.concatenate(xs), np.concatenate(ys)
+    return np.empty(0, np.uint64), np.empty(0, np.uint64)
+
+
+class FragResult:
+    def __init__(self):
+        self.regs: list[hitmod.Reg] = []
+        self.rep_len = 0
+        self.frag_gap = 0
+        self.ax = None
+        self.ay = None
+
+
+def map_frag_core(mi: MiniIndex, seqs: list[bytes], opt: MapOptions,
+                  qname: str | None) -> list[FragResult]:
+    """Map one single-segment fragment. Returns [FragResult]."""
+    n_segs = len(seqs)
+    if n_segs > 1:
+        raise NotImplementedError("paired-end mapping (n_segs > 1) is a "
+                                  "later slice of the PyTorch/CUDA port")
+    qlens = [len(s) for s in seqs]
+    qlen_sum = sum(qlens)
+    results = [FragResult() for _ in range(n_segs)]
+    if qlen_sum == 0 or n_segs <= 0 or n_segs > MM_MAX_SEG:
+        return results
+    if opt.max_qlen > 0 and qlen_sum > opt.max_qlen:
+        return results
+
+    is_splice = bool(opt.flag & MM_F_SPLICE)
+    is_sr = bool(opt.flag & MM_F_SR)
+    is_sr_rna = bool(opt.flag & MM_F_SR_RNA)
+    hash_ = qname_hash(qname, qlen_sum, opt.seed,
+                       bool(opt.flag & MM_F_NO_HASH_NAME))
+
+    mx, my = collect_minimizers(mi, opt, seqs)
+    if opt.q_occ_frac > 0.0:
+        mx, my = seed_mz_flt(mx, my, opt.mid_occ, opt.q_occ_frac)
+    _collect = (collect_seed_hits_heap if opt.flag & MM_F_HEAP_SORT
+                else collect_seed_hits)     # map.c:252-253
+    ax, ay, rep_len, mini_pos = _collect(
+        mi, opt, opt.mid_occ, mx, my, qlen_sum, qname)
+
+    # chaining gaps (map.c:262-274)
+    if is_sr:
+        max_chain_gap_qry = max(qlen_sum, opt.max_gap)
+    else:
+        max_chain_gap_qry = opt.max_gap
+    if opt.max_gap_ref > 0:
+        max_chain_gap_ref = opt.max_gap_ref
+    elif opt.max_frag_len > 0:
+        max_chain_gap_ref = max(opt.max_frag_len - qlen_sum, opt.max_gap)
+    else:
+        max_chain_gap_ref = opt.max_gap
+
+    chn_pen_gap = np.float32(opt.chain_gap_scale * 0.01 * mi.k)
+    chn_pen_skip = np.float32(opt.chain_skip_scale * 0.01 * mi.k)
+
+    if opt.flag & MM_F_RMQ:
+        u, ax, ay = chain_rmq(opt.max_gap, opt.rmq_inner_dist, opt.bw,
+                              opt.max_chain_skip, opt.rmq_size_cap,
+                              opt.min_cnt, opt.min_chain_score, chn_pen_gap,
+                              chn_pen_skip, ax, ay)
+    else:
+        u, ax, ay = chain_dp(max_chain_gap_ref, max_chain_gap_qry, opt.bw,
+                             opt.max_chain_skip, opt.max_chain_iter,
+                             opt.min_cnt, opt.min_chain_score, chn_pen_gap,
+                             chn_pen_skip, is_splice, n_segs, ax, ay)
+    n_regs0 = len(u)
+
+    # long-join rescue (map.c:283-292) / sr re-chain (map.c:293-316)
+    if (opt.bw_long > opt.bw
+            and (opt.flag & (MM_F_SPLICE | MM_F_SR | MM_F_NO_LJOIN)) == 0
+            and n_segs == 1 and n_regs0 > 1):
+        st = int(np.int32(ay[0] & np.uint64(0xFFFFFFFF)))
+        en = int(np.int32(ay[int(u[0] & np.uint64(0xFFFFFFFF)) - 1]
+                          & np.uint64(0xFFFFFFFF)))
+        if (qlen_sum - (en - st) > opt.rmq_rescue_size
+                or en - st > qlen_sum * opt.rmq_rescue_ratio):
+            order = np.argsort(ax, kind="stable")
+            ax, ay = ax[order], ay[order]
+            u, ax, ay = chain_rmq(opt.max_gap, opt.rmq_inner_dist,
+                                  opt.bw_long, opt.max_chain_skip,
+                                  opt.rmq_size_cap, opt.min_cnt,
+                                  opt.min_chain_score, chn_pen_gap,
+                                  chn_pen_skip, ax, ay)
+    elif (opt.max_occ > opt.mid_occ and rep_len > 0
+          and not (opt.flag & MM_F_RMQ)):
+        # single segment: the best chain always covers every segment, so
+        # the sr re-chain runs only when there is no chain (map.c:293-316)
+        if n_regs0 == 0:
+            ax, ay, rep_len, mini_pos = _collect(
+                mi, opt, opt.max_occ, mx, my, qlen_sum, qname)
+            u, ax, ay = chain_dp(max_chain_gap_ref, max_chain_gap_qry,
+                                 opt.bw, opt.max_chain_skip,
+                                 opt.max_chain_iter, opt.min_cnt,
+                                 opt.min_chain_score, chn_pen_gap,
+                                 chn_pen_skip, is_splice, n_segs, ax, ay)
+
+    regs0 = hitmod.gen_regs(hash_, qlen_sum, u, ax, ay,
+                            bool(opt.flag & MM_F_QSTRAND))
+    if mi.n_alt:
+        hitmod.mark_alt(mi, regs0)
+        regs0 = hitmod.hit_sort(regs0, opt.alt_drop)
+
+    # chain_post (map.c:206-213)
+    if not (opt.flag & MM_F_ALL_CHAINS):
+        hitmod.set_parent(regs0, opt.mask_level, opt.mask_len,
+                          opt.a * 2 + opt.b,
+                          bool(opt.flag & MM_F_HARD_MLEVEL), opt.alt_drop)
+        regs0 = hitmod.select_sub(regs0, opt.pri_ratio, mi.k * 2, opt.best_n,
+                                  True, int(opt.max_gap * 0.8))
+    if not is_sr and not (opt.flag & MM_F_QSTRAND):
+        hitmod.est_err(mi, qlen_sum, regs0, ax, ay, mini_pos)
+        regs0 = hitmod.filter_strand_retained(regs0)
+
+    regs0 = align_regs(opt, mi, qlens[0], seqs[0], regs0, ax, ay)
+    hitmod.set_mapq(regs0, opt.min_chain_score, opt.a, rep_len,
+                    is_sr or is_sr_rna, is_splice)
+    res = results[0]
+    res.regs = regs0
+    res.rep_len = rep_len
+    res.frag_gap = max_chain_gap_ref
+    res.ax, res.ay = ax, ay
+    return results

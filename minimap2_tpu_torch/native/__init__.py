@@ -1,12 +1,20 @@
-"""ctypes binding of the host scans the --batch -c/-a path runs per
-alignment (host_scans.cpp: the Kadane trim of a forced global CIGAR, the
-z-drop scan and the mm_update_extra statistics).
+"""ctypes bindings of the port's host C++ routines.
 
-The library is built with g++ at first use into
-``build/minimap2_tpu_torch/`` at the repository root, named by a hash of
-the source and the flags (those of minimap2_tpu.native, so both packages
-compute the same floats).  Without g++ this raises: the port has no other
-route for these scans.
+Two sources, each built with g++ at first use into
+``build/minimap2_tpu_torch/`` at the repository root and named by a hash
+of the source, the flags (those of minimap2_tpu.native, so both packages
+compute the same floats) and the CPU's feature flags (-march=native):
+
+- ``host_scans.cpp``: the scans the --batch -c/-a path runs per alignment
+  (the Kadane trim of a forced global CIGAR, the z-drop scan and the
+  mm_update_extra statistics);
+- ``host_map.cpp``: the host mapping path's sketch, anchor collection,
+  chaining DPs (mg_lchain_dp, mg_lchain_rmq) and ksw2 extensions (extd2,
+  extz2, exts2, ll).
+
+Without g++ this raises: the port has no other route for these routines.
+Their NumPy versions (index/sketch.py, map/seed.py, map/chain.py,
+ops/ksw2_np.py, ops/ksw2_exts.py) are called by name from the tests only.
 """
 from __future__ import annotations
 
@@ -20,34 +28,57 @@ from pathlib import Path
 import numpy as np
 
 from ..ops._build import BUILD_DIR
+from ..ops.ksw2_np import ExtzResult
 
-SRC = Path(__file__).resolve().parent / "host_scans.cpp"
+_HERE = Path(__file__).resolve().parent
+SRC = _HERE / "host_scans.cpp"
+MAP_SRC = _HERE / "host_map.cpp"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "--param",
              "vect-max-version-for-alias-checks=40"]
 
-_lib = None
+_libs: dict = {}
+
+
+def _cpu_flags() -> bytes:
+    """The CPU's feature flags: -march=native code is valid only on a CPU
+    that has them, so they go into the library's name."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return next((ln for ln in f if ln.startswith(b"flags")), b"")
+    except OSError:
+        return b""
+
+
+def _build(src: Path, stem: str):
+    h = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode()
+                       + _cpu_flags())
+    so = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found: the port's host routines "
+                               f"(native/{src.name}) need a C++ compiler")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([gxx, *GXX_FLAGS, str(src), "-o", str(tmp)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed on {src.name}:\n{res.stderr}")
+        os.replace(tmp, so)
+    return C.CDLL(str(so))
+
+
+class _EzOut(C.Structure):
+    _fields_ = [(n, C.c_int32) for n in (
+        "max", "zdropped", "max_q", "max_t", "mqe", "mqe_t", "mte", "mte_q",
+        "score", "reach_end", "n_cigar", "pad")]
 
 
 def lib():
     """The loaded host-scan library, built on first call."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    h = hashlib.sha256(SRC.read_bytes() + " ".join(GXX_FLAGS).encode())
-    so = BUILD_DIR / f"libmm2host-{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found: the -c/-a path's host scans "
-                               "(native/host_scans.cpp) need a C++ compiler")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([gxx, *GXX_FLAGS, str(SRC), "-o", str(tmp)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"g++ failed on {SRC.name}:\n{res.stderr}")
-        os.replace(tmp, so)
-    lb = C.CDLL(str(so))
+    if "scans" in _libs:
+        return _libs["scans"]
+    lb = _build(SRC, "libmm2host")
     P, I, I64 = C.c_void_p, C.c_int, C.c_int64
     lb.mm_zdrop_scan.argtypes = [P, P, P, I64, P, I, I, I, P]
     lb.mm_update_extra_scan.argtypes = [P, P, P, I64, P, I, I, I, I, P]
@@ -56,7 +87,33 @@ def lib():
     for fn in (lb.mm_zdrop_scan, lb.mm_update_extra_scan,
                lb.mm_cigar_kadane_trim):
         fn.restype = None
-    _lib = lb
+    _libs["scans"] = lb
+    return lb
+
+
+def map_lib():
+    """The loaded host-mapping library, built on first call."""
+    if "map" in _libs:
+        return _libs["map"]
+    lb = _build(MAP_SRC, "libmm2hostmap")
+    P, I, I64, F = C.c_void_p, C.c_int, C.c_int64, C.c_float
+    EZ = C.POINTER(_EzOut)
+    sigs = {
+        "mm_sketch_nt4": [P, I64, I, I, C.c_uint32, I, P, P, I64],
+        "mm_collect_anchors": [P, P, I64, P, P, I64, P, I64, I64, I64, I64,
+                               P, P, I64, P, P, P],
+        "ksw_extd2_cpp": [I, P, I, P, I, P] + [I] * 8 + [EZ, P, I64],
+        "ksw_extz2_cpp": [I, P, I, P, I, P] + [I] * 6 + [EZ, P, I64],
+        "ksw_exts2_cpp": [I, P, I, P, I, P] + [I] * 9 + [P, EZ, P, I64],
+        "mg_lchain_dp_cpp": [I64] * 7 + [F, F, I, I, I64] + [P] * 6,
+        "mg_lchain_rmq_cpp": [I64] * 7 + [F, F, I64] + [P] * 6,
+        "ksw_ll_cpp": [I, P, I, P, I, P, I, I, P, P],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lb, name)
+        fn.argtypes = args
+        fn.restype = I64
+    _libs["map"] = lb
     return lb
 
 
@@ -104,3 +161,158 @@ def update_extra_scan(qseq, tseq, cigar, mat, m, q, e, log_gap):
                                _ptr(mt), m, q, e, int(log_gap), _ptr(out))
     return (int(out[0]), int(out[1]), int(out[2]), int(out[3]),
             bool(out[4]))
+
+
+def sketch(codes: np.ndarray, w: int, k: int, rid: int, is_hpc: bool):
+    """mm_sketch over nt4 codes -> (x, y) u64 arrays (index/sketch.py's
+    ``sketch`` is the plain version)."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    cap = max(16, 2 * len(codes) // max(w, 1) + 64)
+    while True:
+        out_x = np.empty(cap, np.uint64)
+        out_y = np.empty(cap, np.uint64)
+        n = map_lib().mm_sketch_nt4(_ptr(codes), len(codes), w, k, rid,
+                                    int(is_hpc), _ptr(out_x), _ptr(out_y),
+                                    cap)
+        if n <= cap:
+            return out_x[:n], out_y[:n]
+        cap = int(n) + 64
+
+
+def collect_anchors(mx, my, keys, starts, pos, qlen: int, max_occ: int,
+                    max_max_occ: int, dist: int):
+    """Seed lookup + selection + anchor expansion + stable sort by x
+    (map/seed.py's ``collect_seed_hits_np`` is the plain version).
+    Returns (ax, ay, rep_len, mini_pos)."""
+    mx = np.ascontiguousarray(mx, dtype=np.uint64)
+    my = np.ascontiguousarray(my, dtype=np.uint64)
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    pos = np.ascontiguousarray(pos, dtype=np.uint64)
+    cap = max(1024, 64 * len(mx))
+    rep = np.zeros(1, np.int64)
+    n_mini = np.zeros(1, np.int64)
+    while True:
+        ax = np.empty(cap, np.uint64)
+        ay = np.empty(cap, np.uint64)
+        minipos = np.empty(cap, np.uint64)
+        n = map_lib().mm_collect_anchors(
+            _ptr(mx), _ptr(my), len(mx), _ptr(keys), _ptr(starts),
+            len(keys), _ptr(pos), qlen, max_occ, max_max_occ, dist,
+            _ptr(ax), _ptr(ay), cap, _ptr(rep), _ptr(minipos),
+            _ptr(n_mini))
+        if n < cap:
+            return ax[:n], ay[:n], int(rep[0]), minipos[:int(n_mini[0])]
+        cap *= 4
+
+
+def _ez_call(fn, qlen, query, tlen, target, m, mat, mid_args, ez):
+    query = np.ascontiguousarray(query, dtype=np.uint8)
+    target = np.ascontiguousarray(target, dtype=np.uint8)
+    mat = np.ascontiguousarray(mat, dtype=np.int8)
+    eo = _EzOut()
+    cap = 2 * (qlen + tlen) + 16
+    cig = np.empty(cap, np.uint32)
+    fn(qlen, _ptr(query), tlen, _ptr(target), m, _ptr(mat), *mid_args,
+       C.byref(eo), _ptr(cig), cap)
+    assert eo.n_cigar <= cap, "cigar overflow (truncated native buffer)"
+    ez.max, ez.zdropped = eo.max, bool(eo.zdropped)
+    ez.max_q, ez.max_t = eo.max_q, eo.max_t
+    ez.mqe, ez.mqe_t = eo.mqe, eo.mqe_t
+    ez.mte, ez.mte_q = eo.mte, eo.mte_q
+    ez.score, ez.reach_end = eo.score, bool(eo.reach_end)
+    ez.cigar = cig[:eo.n_cigar].tolist()
+    return ez
+
+
+def ksw_extd2(qlen, query, tlen, target, m, mat, q, e, q2, e2, w, zdrop,
+              end_bonus, flag, ez: ExtzResult | None = None) -> ExtzResult:
+    """ksw_extd2_sse (dual affine), as ops.ksw2_np.ksw_extd2."""
+    if ez is None:
+        ez = ExtzResult()
+    ez.reset()
+    if m <= 1 or qlen <= 0 or tlen <= 0:
+        return ez
+    return _ez_call(map_lib().ksw_extd2_cpp, qlen, query, tlen, target, m,
+                    mat, (q, e, q2, e2, w, zdrop, end_bonus, flag), ez)
+
+
+def ksw_extz2(qlen, query, tlen, target, m, mat, q, e, w, zdrop, end_bonus,
+              flag, ez: ExtzResult | None = None) -> ExtzResult:
+    """ksw_extz2_sse (single affine), as ops.ksw2_np.ksw_extz2."""
+    if ez is None:
+        ez = ExtzResult()
+    ez.reset()
+    if m <= 0 or qlen <= 0 or tlen <= 0:
+        return ez
+    return _ez_call(map_lib().ksw_extz2_cpp, qlen, query, tlen, target, m,
+                    mat, (q, e, w, zdrop, end_bonus, flag), ez)
+
+
+def ksw_exts2(qlen, query, tlen, target, m, mat, q, e, q2, noncan, zdrop,
+              end_bonus, junc_bonus, junc_pen, flag, junc,
+              ez: ExtzResult | None = None) -> ExtzResult:
+    """ksw_exts2_sse (spliced), as ops.ksw2_exts.ksw_exts2."""
+    if ez is None:
+        ez = ExtzResult()
+    ez.reset()
+    if m <= 1 or qlen <= 0 or tlen <= 0 or q2 <= q + e:
+        return ez
+    jptr = None
+    if junc is not None:
+        junc = np.ascontiguousarray(junc, dtype=np.uint8)
+        jptr = _ptr(junc)
+    return _ez_call(map_lib().ksw_exts2_cpp, qlen, query, tlen, target, m,
+                    mat, (q, e, q2, noncan, zdrop, end_bonus, junc_bonus,
+                          junc_pen, flag, jptr), ez)
+
+
+def ksw_ll(qlen, query, tlen, target, m, mat, gapo, gape):
+    """Farrar local SW, score and ends -> (score, qe, te), as
+    ops.ksw2_np.ksw_ll."""
+    if qlen <= 0 or tlen <= 0:
+        return 0, -1, -1
+    query = np.ascontiguousarray(query, dtype=np.uint8)
+    target = np.ascontiguousarray(target, dtype=np.uint8)
+    mat = np.ascontiguousarray(mat, dtype=np.int8)
+    qe = np.zeros(1, np.int32)
+    te = np.zeros(1, np.int32)
+    sc = map_lib().ksw_ll_cpp(qlen, _ptr(query), tlen, _ptr(target), m,
+                              _ptr(mat), gapo, gape, _ptr(qe), _ptr(te))
+    return int(sc), int(qe[0]), int(te[0])
+
+
+def _chain_out(n):
+    return tuple(np.empty(max(n, 1), np.uint64) for _ in range(3)) + (
+        np.zeros(1, np.int64),)
+
+
+def lchain_dp(max_dist_x, max_dist_y, bw, max_skip, max_iter, min_cnt,
+              min_sc, chn_pen_gap, chn_pen_skip, is_cdna, n_seg, ax, ay):
+    """mg_lchain_dp -> (u, new_ax, new_ay), as map/chain.py chain_dp_np."""
+    ax = np.ascontiguousarray(ax, dtype=np.uint64)
+    ay = np.ascontiguousarray(ay, dtype=np.uint64)
+    n = len(ax)
+    u, oax, oay, na = _chain_out(n)
+    n_u = map_lib().mg_lchain_dp_cpp(
+        max_dist_x, max_dist_y, bw, max_skip, max_iter, min_cnt, min_sc,
+        float(chn_pen_gap), float(chn_pen_skip), int(is_cdna), int(n_seg),
+        n, _ptr(ax), _ptr(ay), _ptr(u), _ptr(oax), _ptr(oay), _ptr(na))
+    k = int(na[0])
+    return u[:n_u].copy(), oax[:k].copy(), oay[:k].copy()
+
+
+def lchain_rmq(max_dist, max_dist_inner, bw, max_chn_skip, cap_rmq_size,
+               min_cnt, min_sc, chn_pen_gap, chn_pen_skip, ax, ay):
+    """mg_lchain_rmq -> (u, new_ax, new_ay), as map/chain.py
+    chain_rmq_np."""
+    ax = np.ascontiguousarray(ax, dtype=np.uint64)
+    ay = np.ascontiguousarray(ay, dtype=np.uint64)
+    n = len(ax)
+    u, oax, oay, na = _chain_out(n)
+    n_u = map_lib().mg_lchain_rmq_cpp(
+        max_dist, max_dist_inner, bw, max_chn_skip, cap_rmq_size, min_cnt,
+        min_sc, float(chn_pen_gap), float(chn_pen_skip), n, _ptr(ax),
+        _ptr(ay), _ptr(u), _ptr(oax), _ptr(oay), _ptr(na))
+    k = int(na[0])
+    return u[:n_u].copy(), oax[:k].copy(), oay[:k].copy()

@@ -12,6 +12,12 @@ Without -c/-a (``run_batched_cli``) the records become PAF with ``_mapq``
 (seed/chain/mapq only, map.c:227-341).  With -c/-a
 (``run_batched_align_cli``) each chosen chain's extent is aligned on the
 device (parallel/align_batch.py) and written as SAM or PAF with cg:Z.
+
+Both drivers hand the reads the device path does not take to the host
+mapping path (map/pipeline.py map_frag_core, in C++ through native/), where
+the JAX package does: PAF reads longer than L, and -c/-a reads whose device
+alignment failed its audit.  ``host_path`` counts those reads and their
+seconds.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from ..io import format as fmt
 from ..io.fastx import FastxReader
 from ..map import hit as hitmod
 from ..map.align_engine import gen_ts_mat
+from ..map.driver import map_fragment, write_fragment
+from ..map.pipeline import map_frag_core
 from ..ops.chain import chain_batch
 from ..ops.sketch import sketch_batch
 from ..utils.intfloat import SEQ_NT4
@@ -46,6 +54,33 @@ from .batch import (BatchParams, DeviceIndex, _chain_scan,
 RESCUE_SIZE = 1000
 RESCUE_RATIO = np.float32(0.1)
 WAYPOINTS = 64      # chain waypoints per read for the -c/-a path
+
+# reads mapped on the host path and the seconds they took, accumulated
+# over calls (clear() starts a count)
+host_path: Counter = Counter()
+
+
+def _host_paf(mi, opt, rec, out):
+    """Map one read longer than L on the host path and write its PAF as the
+    JAX package does (its engine.py:315-323: no qseq, no comment)."""
+    t0 = time.perf_counter()
+    res = map_frag_core(mi, [rec.seq], opt, rec.name)[0]
+    for r in res.regs:
+        out.write(fmt.write_paf(mi, rec.name, len(rec.seq), r, opt.flag,
+                                res.rep_len) + "\n")
+    host_path["reads"] += 1
+    host_path["seconds"] += time.perf_counter() - t0
+
+
+def _host_record(mi, opt, rec, out):
+    """Map one -c/-a fallback read on the host path and write its records
+    (map_fragment + write_fragment, as the JAX package does)."""
+    t0 = time.perf_counter()
+    results = map_fragment(mi, opt, [rec])
+    write_fragment(out, mi, opt, [rec], [res.regs for res in results],
+                   [res.rep_len for res in results])
+    host_path["reads"] += 1
+    host_path["seconds"] += time.perf_counter() - t0
 
 
 class PafStep(nn.Module):
@@ -327,21 +362,23 @@ def run_batched_cli(mi, opt, queries, out, batch_reads: int = 512,
                    batch_params(mi, opt, L),
                    K=opt.best_n if opt.best_n < 8 else 5,
                    min_sc=opt.min_chain_score)
-    return map_queries(step, mi, queries, out, batch_reads)
+    return map_queries(step, mi, queries, out, batch_reads, opt=opt)
 
 
-def map_queries(step: PafStep, mi, queries, out, batch_reads: int) -> int:
+def map_queries(step: PafStep, mi, queries, out, batch_reads: int,
+                opt=None) -> int:
     """Map FASTA/FASTQ files in read mega-batches and write PAF.
 
     A feeder thread encodes, uploads and enqueues batch n+1 while the
     caller's thread fetches batch n and writes its PAF (the kt_pipeline
     read/map/write overlap, kthread.c:97-159); output order is the input
-    order.  Reads longer than L raise: the JAX package maps them on its
-    host parity path, which this port does not carry yet."""
+    order.  A read longer than L flushes and drains the pipeline and is
+    mapped on the host path, as in the JAX package; that needs ``opt`` and
+    a host index ``mi`` (one with its sequence), and raises without."""
     p = step.p
     L = p.L
     t0 = time.time()
-    n_reads = n_mapped = 0
+    n_reads = n_mapped = n_host = 0
     names, seqs = [], []
     q_disp: queue.Queue = queue.Queue(maxsize=2)
     q_done: queue.Queue = queue.Queue(maxsize=4)
@@ -395,9 +432,16 @@ def map_queries(step: PafStep, mi, queries, out, batch_reads: int) -> int:
                         break
                     n_reads += 1
                     if len(rec.seq) > L:
-                        raise NotImplementedError(
-                            f"read {rec.name} is longer than L={L}: the "
-                            "host fallback for such reads is a later slice")
+                        if opt is None or mi.S is None:
+                            raise ValueError(
+                                f"read {rec.name} is longer than L={L}: its "
+                                "host path needs the options and the host "
+                                "index")
+                        n_host += 1
+                        flush()
+                        drain(0)
+                        _host_paf(mi, opt, rec, out)
+                        continue
                     names.append(rec.name)
                     seqs.append(rec.seq)
                     if len(names) >= batch_reads:
@@ -412,7 +456,9 @@ def map_queries(step: PafStep, mi, queries, out, batch_reads: int) -> int:
     dt = time.time() - t0
     print(f"[M::batch] mapped {n_reads} reads in {dt:.2f}s "
           f"({n_reads / max(dt, 1e-9):.1f} reads/s) on "
-          f"{step.di.h2r.device}", file=sys.stderr)
+          f"{step.di.h2r.device}; host path (reads longer than L): "
+          f"{n_host} ({100.0 * n_host / max(n_reads, 1):.1f}%)",
+          file=sys.stderr)
     return n_reads
 
 
@@ -489,12 +535,11 @@ def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode,
     (2, B, WP) waypoints).  With splice_mode, ab is a SpliceAlignBatcher
     whose jobs come back as (cigar, transcript strand, score).  Returns
     (by_read: id(rec) -> (rec, [Reg...]), fallback [(rec, cause)],
-    unmapped [rec], fb_ids).  A fallback read is
-    one the JAX package maps on its host parity path, which the port does
-    not carry; its causes are "oversize" (an extent segment exceeds the
-    DP shape), "empty cigar", "stitch" (a segmented extent failed its
-    audit), "kadane" (empty max-scoring trim), "zdrop" (internal z-drop)
-    and "no primary"."""
+    unmapped [rec], fb_ids).  A fallback read goes to the host mapping
+    path; its causes are "oversize" (an extent segment exceeds the DP
+    shape), "empty cigar", "stitch" (a segmented extent failed its audit),
+    "kadane" (empty max-scoring trim), "zdrop" (internal z-drop) and "no
+    primary"."""
     from .align_batch import build_reg, revcomp_codes, split_extent
     wp = None
     if isinstance(map_out, tuple):
@@ -706,10 +751,13 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
                   batch_reads: int):
     """Map and align FASTA/FASTQ files in read mega-batches and write SAM
     (-a) or PAF with cg:Z (-c).  The next batch's mapping step is enqueued
-    before the previous batch is aligned and written.  Reads the JAX
-    package would send to its host path get no record: they are counted
-    by cause on the [M::batch] line and returned as (reads, [(name,
-    cause)])."""
+    before the previous batch is aligned and written.  Each batch writes
+    its device records, then maps and writes its fallback reads on the host
+    path, then its unmapped SAM lines, in the JAX package's order.  A read
+    longer than L is cut to its first L bases for the mapping step in both
+    packages (encode_batch) and usually falls back as "oversize".  The
+    fallback reads are counted by cause on the [M::batch] line and returned
+    as (reads, [(name, cause)])."""
     mat = gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi)
     sam = bool(opt.flag & MM_F_OUT_SAM)
     t0 = time.time()
@@ -740,6 +788,8 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
                                             comment=rec.comment))
                     out.write("\n")
         fallbacks.extend((rec.name, cause) for rec, cause in fallback)
+        for rec, _cause in fallback:
+            _host_record(mi, opt, rec, out)
         for rec in unmapped:
             if sam and not (opt.flag & MM_F_SAM_HIT_ONLY):
                 out.write(fmt.write_sam(mi, rec, 0, -1, 1, [0], [[]],
@@ -778,7 +828,7 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
                     sorted(Counter(c for _, c in fallbacks).items()))
     print(f"[M::batch] aligned {n_reads} reads in {dt:.2f}s "
           f"({n_reads / max(dt, 1e-9):.1f} reads/s) on {ab.device}; "
-          f"fallback reads (host path not ported, no record): {n_fb} "
+          f"host path (fallback reads): {n_fb} "
           f"({100.0 * n_fb / max(n_reads, 1):.1f}%)"
           + (f" [{why}]" if why else ""), file=sys.stderr)
     return n_reads, fallbacks

@@ -5,11 +5,13 @@
 (b) topk_chains(with_sec) and chain_waypoints planes;
 (c) split_extent, build_reg and batch_build_regs: segments, regs and the
     fallback list;
-(d) run_batched_align_cli end to end: byte-identical SAM and -c PAF, and
-    the same reads reported as fallbacks (the JAX package maps those on its
-    host path, which is patched out here), at test_align_batch.py's KW
-    shapes and at a wider query capacity where the short reads align on
-    the device; the SV deletion of test_longjoin.py through waypoints;
+(d) run_batched_align_cli end to end: byte-identical SAM and -c PAF, the
+    fallback reads' host-path records included, and the same reads
+    reported as fallbacks (the JAX package's host path records their
+    names and maps them), at test_align_batch.py's KW shapes and at a
+    wider query capacity where the short reads align on the device; the
+    same without any patch on the JAX package; the SV deletion of
+    test_longjoin.py through waypoints;
 (e) cli.main -a / -c: the SAM header and the routing.
 The JAX Pallas kernels run in interpret mode (AlignBatcher picks it off the
 TPU); the port runs its plain versions on the CPU.
@@ -241,17 +243,18 @@ def test_build_reg_and_batch_build_regs_match_jax():
 def _run_both(monkeypatch, tmp_path, names, seqs, reads, flag, L, kw,
               batch_reads=4, **mo_kw):
     """run_batched_align_cli of both packages on the same reads; the JAX
-    package's host path is patched to record its reads and write nothing.
+    package's host path records the names of its reads and maps them.
     Returns (jax text, jax fallback names, port text, port result)."""
     jmi, pmi, jmo, pmo = _indexes(names, seqs, flag, **mo_kw)
     fa = tmp_path / "reads.fa"
     fa.write_text("".join(f">rd{i}\n{s.decode()}\n"
                           for i, s in enumerate(reads)))
     host = []
+    map_fragment = jax_driver.map_fragment
     monkeypatch.setattr(jax_driver, "map_fragment",
                         lambda mi, opt, frag: host.extend(
-                            r.name for r in frag) or [])
-    monkeypatch.setattr(jax_driver, "write_fragment", lambda *a, **k: None)
+                            r.name for r in frag) or map_fragment(mi, opt,
+                                                                  frag))
     want = io.StringIO()
     jax_engine.run_batched_align_cli(jmi, jmo, [str(fa)], want,
                                      batch_reads=batch_reads, L=L,
@@ -263,27 +266,35 @@ def _run_both(monkeypatch, tmp_path, names, seqs, reads, flag, L, kw,
     return want.getvalue(), host, got.getvalue(), res
 
 
-@pytest.mark.parametrize("sam", [False, True], ids=["paf", "sam"])
-@pytest.mark.parametrize("kw", [KW, KW_WIDE, KW_MULTI],
-                         ids=["KW", "wide", "multi"])
-def test_run_batched_align_cli_matches_jax(monkeypatch, tmp_path, sam, kw):
-    ref, dup = _worlds()
+def _align_reads(ref, dup):
     rng = np.random.default_rng(9)
     read = bytearray(ref[1000:1220])
     read[40] = ord("A") if read[40] != ord("A") else ord("C")
     del read[120]
     comp = bytes.maketrans(b"ACGT", b"TGCA")
-    reads = [bytes(read),                                  # SNP + deletion
-             ref[2000:2200].translate(comp)[::-1],         # reverse strand
-             ref[500:1500],                                # oversize
-             ref[1000:1150] + rng.choice(ACGT, 80).tobytes(),   # junk tail
-             ref[800:1100] + rng.choice(ACGT, 600).tobytes()
-             + ref[1700:2000],                             # junk middle
-             dup[1000:1220]]                               # secondary
-    # with the cs tag on PAF and the MD tag on SAM (io/tags.py)
-    flag = jax_config.MM_F_CIGAR | (
+    return [bytes(read),                                   # SNP + deletion
+            ref[2000:2200].translate(comp)[::-1],          # reverse strand
+            ref[500:1500],                                 # oversize
+            ref[1000:1150] + rng.choice(ACGT, 80).tobytes(),    # junk tail
+            ref[800:1100] + rng.choice(ACGT, 600).tobytes()
+            + ref[1700:2000],                              # junk middle
+            dup[1000:1220]]                                # secondary
+
+
+def _align_flag(sam):
+    """-a with the MD tag, or -c with the cs tag (io/tags.py)."""
+    return jax_config.MM_F_CIGAR | (
         jax_config.MM_F_OUT_SAM | jax_config.MM_F_OUT_MD if sam
         else jax_config.MM_F_OUT_CG | jax_config.MM_F_OUT_CS)
+
+
+@pytest.mark.parametrize("sam", [False, True], ids=["paf", "sam"])
+@pytest.mark.parametrize("kw", [KW, KW_WIDE, KW_MULTI],
+                         ids=["KW", "wide", "multi"])
+def test_run_batched_align_cli_matches_jax(monkeypatch, tmp_path, sam, kw):
+    ref, dup = _worlds()
+    reads = _align_reads(ref, dup)
+    flag = _align_flag(sam)
     rows = []               # rows of each port launch
     pack = align_batch._pack_jobs
     monkeypatch.setattr(align_batch, "_pack_jobs", lambda ab, chunk, n: (
@@ -311,6 +322,35 @@ def test_run_batched_align_cli_matches_jax(monkeypatch, tmp_path, sam, kw):
         assert {"rd0", "rd1", "rd3", "rd5"} <= {t[0] for t in lines}
         sec = [t for t in lines if "tp:A:S" in t]
         assert sec and all(int(t[0][2:]) % 6 == 5 for t in sec)    # rd5
+
+
+@pytest.mark.parametrize("sam", [False, True], ids=["paf", "sam"])
+def test_run_batched_align_cli_unpatched_matches_jax(tmp_path, sam):
+    """No patch on the JAX package: its whole output, host-path records of
+    the oversize (rd2) and junk-middle (rd4) reads included, is the
+    port's byte for byte."""
+    ref, dup = _worlds()
+    reads = _align_reads(ref, dup)
+    flag = _align_flag(sam)
+    jmi, pmi, jmo, pmo = _indexes(["chrT", "chrD"], [ref, dup], flag)
+    fa = tmp_path / "reads.fa"
+    fa.write_text("".join(f">rd{i}\n{s.decode()}\n"
+                          for i, s in enumerate(reads)))
+    want = io.StringIO()
+    jax_engine.run_batched_align_cli(jmi, jmo, [str(fa)], want,
+                                     batch_reads=4, L=1536, align_kw=KW)
+    got = io.StringIO()
+    engine.host_path.clear()
+    n, fallbacks = engine.run_batched_align_cli(
+        pmi, pmo, [str(fa)], got, batch_reads=4, L=1536, align_kw=KW,
+        device="cpu")
+    assert got.getvalue() == want.getvalue()
+    assert n == len(reads)
+    fb = [name for name, _ in fallbacks]
+    assert "rd4" in fb
+    assert engine.host_path["reads"] == len(fb)
+    written = [ln.split("\t")[0] for ln in got.getvalue().splitlines()]
+    assert {"rd2", "rd4"} <= set(written)
 
 
 def test_sv_deletion_through_waypoints(monkeypatch, tmp_path):

@@ -7,7 +7,8 @@
 (b) run_batched_cli's PAF is byte-identical to the JAX engine's;
 (c) cli.main parses options as the JAX CLI does, and off-slice options
     raise NotImplementedError;
-(d) a read longer than L raises;
+(d) a read longer than L takes the host path and gives the JAX package's
+    PAF;
 (e) the device occurrence cap reads MM2TPU_OCC_CAP as the JAX package does.
 """
 import functools
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 
 import minimap2_tpu.cli as jax_cli
 import minimap2_tpu.parallel.engine as jax_engine
+import minimap2_tpu.config as jax_config
 from minimap2_tpu.config import IndexOptions, MapOptions, mapopt_update, \
     set_opt
 from minimap2_tpu.index.index import MiniIndex as JaxMiniIndex
@@ -211,16 +213,57 @@ def test_cli_off_slice_options_raise(conc_world, opts):
         port_cli.main([*opts, ref, reads], device="cpu")
 
 
-def test_read_longer_than_L_raises(conc_world, tmp_path):
+@pytest.mark.parametrize("preset", ["map-ont", "map-pb"])
+def test_read_longer_than_L_matches_jax(conc_world, tmp_path, preset):
+    """Reads longer than L, between shorter reads of the same batch, go to
+    the host path and give the JAX package's PAF byte for byte, in input
+    order."""
+    ref, _, _ = conc_world
+    rng = np.random.default_rng(3)
+    comp = str.maketrans("ACGT", "TGCA")
+    mixed = tmp_path / "mixed.fa"
+    with open(mixed, "w") as f:
+        for i in range(12):
+            n = 1500 if i in (3, 4, 9) else 400         # L = 512
+            st = int(rng.integers(0, len(ref) - n))
+            seq = ref[st:st + n]
+            if i % 4 == 1:
+                seq = seq.translate(comp)[::-1]
+            f.write(f">m{i}\n{seq}\n")
+    texts = []
+    for cfg, MI, eng, kw in (
+            (port_config, MiniIndex, engine, {"device": "cpu"}),
+            (jax_config, JaxMiniIndex, jax_engine, {})):
+        io_, mo = cfg.IndexOptions(), cfg.MapOptions()
+        cfg.set_opt(preset, io_, mo)
+        mi = MI.build(["c1"], [ref], w=io_.w, k=io_.k, flag=io_.flag)
+        cfg.mapopt_update(mo, mi)
+        out = io.StringIO()
+        engine.host_path.clear()
+        assert eng.run_batched_cli(mi, mo, [str(mixed)], out, batch_reads=8,
+                                   L=512, **kw) == 12
+        texts.append(out.getvalue())
+        if eng is engine:
+            assert engine.host_path["reads"] == 3
+    got, want = texts
+    assert got == want
+    names = [ln.split("\t")[0] for ln in got.splitlines()]
+    assert {"m3", "m4", "m9"} <= set(names)
+    assert names == sorted(names, key=lambda n: int(n[1:]))
+
+
+def test_read_longer_than_L_needs_the_host_index(conc_world, tmp_path):
     ref, _, _ = conc_world
     long_reads = tmp_path / "long.fa"
     long_reads.write_text(f">long\n{ref[:600]}\n")
     tmi = MiniIndex.build(["c1"], [ref], w=10, k=15)
-    tio, tmo = port_config.IndexOptions(), port_config.MapOptions()
+    tmo = port_config.MapOptions()
     port_config.mapopt_update(tmo, tmi)
-    with pytest.raises(NotImplementedError, match="longer than L"):
-        engine.run_batched_cli(tmi, tmo, [str(long_reads)], io.StringIO(),
-                               batch_reads=8, L=512, device="cpu")
+    step = engine.PafStep(DeviceIndex.from_host(tmi, "cpu"),
+                          engine.batch_params(tmi, tmo, 512), K=5,
+                          min_sc=tmo.min_chain_score)
+    with pytest.raises(ValueError, match="longer than L"):
+        engine.map_queries(step, tmi, [str(long_reads)], io.StringIO(), 8)
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):

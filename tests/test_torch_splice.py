@@ -243,16 +243,17 @@ def _splice_world(names, seqs, flag, preset):
 def _run_both_splice(monkeypatch, tmp_path, names, seqs, reads, flag, kw,
                      preset="splice", batch_reads=4):
     """run_batched_align_cli of both packages; the JAX package's host path
-    is patched to record its reads and write nothing."""
+    records the names of its reads and maps them."""
     (jmi, jmo), (pmi, pmo) = _splice_world(names, seqs, flag, preset)
     fa = tmp_path / "reads.fa"
     fa.write_text("".join(f">rd{i}\n{s.decode()}\n"
                           for i, s in enumerate(reads)))
     host = []
+    map_fragment = jax_driver.map_fragment
     monkeypatch.setattr(jax_driver, "map_fragment",
                         lambda mi, opt, frag: host.extend(
-                            r.name for r in frag) or [])
-    monkeypatch.setattr(jax_driver, "write_fragment", lambda *a, **k: None)
+                            r.name for r in frag) or map_fragment(mi, opt,
+                                                                  frag))
     want = io.StringIO()
     jax_engine.run_batched_align_cli(jmi, jmo, [str(fa)], want,
                                      batch_reads=batch_reads, L=512,
