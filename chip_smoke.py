@@ -41,6 +41,17 @@ seconds):
      give 2.25% on these reads), and every primary's CIGAR spans the read
      and its aligned reference interval; the host path's reads and
      seconds;
+  4b. the short-read paired-end path: on the same genome, 2048 simulated
+     Illumina-like FR pairs (4096 ends of 150 bp; fragments ~N(350, 50)
+     clipped to [200, 600], half from the minus strand; 0.5% substitutions,
+     0.01% deletions and 0.01% insertions; seed 8) in two FASTQ files
+     through ``cli.main(["--batch", "-ax", "sr", ref, r1, r2])`` (a k21 w11
+     host index, 512 ends a step, L 1024, A 2048, extd2 at W 256); sketch,
+     sort3, chain, extd2 and the traceback launched, >= 90% of ends with a
+     primary on their source interval, no wrong mapq-60 primary, >= 90% of
+     pairs proper (0x2), every primary CIGAR spanning its read, <= 5% of
+     the fragments on the host path; reads/s and the host path's reads and
+     seconds;
   5. the HPC path: 1024 PacBio-CLR-like reads (2% sub, 3% del, 5% ins)
      through ``cli.main(["--batch", "-x", "map-pb", ...])`` on the same
      genome; sort1 launched, >= 90% of primaries on their source interval,
@@ -63,21 +74,27 @@ seconds):
      on those 64 jobs, sort1 on phase 5's first batch and on full-range
      u32, exts2 on the first 32 jobs of phase 6's first launch and on
      that whole launch (both strand rounds of a sub-batch), the splice
-     traceback on those 32 jobs and on that whole launch), timed with
-     CUDA events; extd2's DP cell-updates/s as bench.py defines them;
+     traceback on those 32 jobs and on that whole launch; at phase 4b's
+     sr shapes: the sketch (k21 w11) on its first batch, sort3 on its
+     first compaction and anchor keys, the chain on its first batch's
+     anchor planes, extd2 (W 256) and the traceback on its first align
+     launch), timed with CUDA events; extd2's DP cell-updates/s as
+     bench.py defines them;
      blocks per SM of every kernel, and the sketch's, sort3's and sort1's
      registers and spills (ptxas); the chain's longest read (valid
      anchors n, ns a step) and each traceback's longest walk (diagonals,
      ns a diagonal);
   8. where one 512-read batch spends its time, for the PAF and HPC paths
      (host read/encode/emit, device step with CUDA events and
-     torch.profiler), the -a path and the splice path (mapping step, DP
-     kernel launches, traceback, ops download, host regs + SAM emit);
+     torch.profiler), the -a, splice and sr paired-end paths (mapping
+     step, DP kernel launches, traceback, ops download, host regs, and
+     the SAM emit, for sr with mm_pair);
   9. card vs CPU (plain versions): the first 128 reads of phases 3 and 5
-     through PafStep give identical records, the first 8 reads of phases
-     4 and 6 through their -a paths identical SAM, the first 8 long reads
-     of phase 3d with 8 of its short reads through the PAF driver
-     identical PAF;
+     through PafStep give identical records, the first 8 reads of phase
+     4 and the first 4 of phase 6 through their -a paths identical SAM,
+     the first 4 long reads of phase 3d with 4 of its short reads through
+     the PAF driver identical PAF, the first 16 pairs of phase 4b through
+     ``engine.align_pairs`` identical SAM;
  10. a ``kernels`` JSON line, then the ``ok`` line.
 """
 import io
@@ -88,6 +105,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -95,6 +113,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 NONTENSOR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 GENOME_LEN, N_CONTIGS, N_READS = 100_000_000, 8, 1024
+SR_PAIRS, SR_LEN = 2048, 150
 
 
 def log(msg):
@@ -239,10 +258,18 @@ def phase_main_path(tmp):
                        ("splice_ref.fa", "splice_reads.fa"))
     write_fasta(spl_ref, names, gseqs)
     write_fasta(spl_rd, gnames, greads)
+    # phase 4b's short-read pairs
+    sr_names, sr1, sr2 = simulate_sr_pairs(names, seqs, SR_PAIRS,
+                                           np.random.default_rng(8))
+    sr_rd = [os.path.join(tmp, f"sr_r{e}.fq") for e in (1, 2)]
+    for path, e, ends in zip(sr_rd, (1, 2), (sr1, sr2)):
+        write_fastq(path, [f"{nm}/{e}" for nm in sr_names], ends)
+    sr_lens = {(nm, e): len(x) for e, ends in ((1, sr1), (2, sr2))
+               for nm, x in zip(sr_names, ends)}
     log(f"[main] simulated {GENOME_LEN / 1e6:.0f} Mb genome + {N_READS} "
-        f"ONT-like, {N_READS} PacBio-like and {N_READS} cDNA reads in "
-        f"{time.time() - t0:.1f}s")
-    del reads, hreads, gseqs, greads
+        f"ONT-like, {N_READS} PacBio-like and {N_READS} cDNA reads and "
+        f"{SR_PAIRS} short-read pairs in {time.time() - t0:.1f}s")
+    del reads, hreads, gseqs, greads, sr1, sr2
 
     from minimap2_tpu_torch.parallel import batch, engine
     comp, anch, sk = {}, {}, {}
@@ -257,7 +284,8 @@ def phase_main_path(tmp):
                 compaction_keys=comp["args"], anchor_keys=anch["args"],
                 sketch_in=sk["args"],
                 hnames=hnames, spl_ref=spl_ref, spl_rd=spl_rd, gnames=gnames,
-                introns=introns)
+                introns=introns, sr_rd=sr_rd, sr_names=sr_names,
+                sr_lens=sr_lens)
 
 
 def _build_on_card(tag, names, parts, w, k, **kw):
@@ -536,6 +564,63 @@ def simulate_spliced(names, seqs, n_genes, rng):
     return seqs, rnames, reads, introns
 
 
+def simulate_sr_pairs(names, seqs, n_pairs, rng):
+    """Illumina-like FR pairs: a fragment of ~N(350, 50) bases clipped to
+    [200, 600] (inside sr's max_frag_len 800) from a contig drawn by
+    length, every other one from the minus strand; r1 its first SR_LEN
+    bases, r2 the reverse complement of its last SR_LEN; each end with
+    0.5% substitutions, 0.01% deletions and 0.01% insertions.  Returns
+    (qnames '<id>!<contig>!<fragment start>!<fragment end>!<fragment
+    strand>' (mapeval's truth; each end's interval follows from it, see
+    sr_truth), r1 codes, r2 codes)."""
+    tot = np.array([len(x) for x in seqs], np.float64)
+    pchr = tot / tot.sum()
+    qnames, r1s, r2s = [], [], []
+    for i in range(n_pairs):
+        ci = int(rng.choice(len(seqs), p=pchr))
+        flen = int(np.clip(round(rng.normal(350, 50)), 200, 600))
+        st = int(rng.integers(0, len(seqs[ci]) - flen))
+        frag = seqs[ci][st:st + flen].astype(np.uint8)
+        minus = i % 2 == 1
+        if minus:
+            frag = (3 - frag)[::-1]
+        ends = []
+        for x in (frag[:SR_LEN], (3 - frag[-SR_LEN:])[::-1]):
+            x = x.astype(np.uint8)
+            r = rng.random(len(x))
+            msub = r < 0.005
+            x[msub] = (x[msub] + rng.integers(1, 4, int(msub.sum()),
+                                              dtype=np.uint8)) % 4
+            x = x[~((r >= 0.005) & (r < 0.0051))]
+            mins = np.flatnonzero(rng.random(len(x)) < 0.0001)
+            x = np.insert(x, mins, rng.integers(0, 4, len(mins))
+                          .astype(np.uint8))
+            ends.append(x)
+        qnames.append(f"P{i}!{names[ci]}!{st}!{st + flen}!"
+                      f"{'-' if minus else '+'}")
+        r1s.append(ends[0])
+        r2s.append(ends[1])
+    return qnames, r1s, r2s
+
+
+def sr_truth(qname, end):
+    """(contig, start, end, strand) of one end of a simulated pair: r1 is
+    the fragment's start on its strand, r2 its end on the other."""
+    _, chrom, st, en, strand = qname.split("!")
+    st, en = int(st), int(en)
+    first = (strand == "+") == (end == 1)
+    iv = (st, st + SR_LEN) if first else (en - SR_LEN, en)
+    return chrom, iv[0], iv[1], strand if end == 1 else "+-"[strand == "+"]
+
+
+def write_fastq(path, names, codes):
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "wb") as f:
+        for nm, x in zip(names, codes):
+            f.write(b"@%s\n%s\n+\n%s\n" % (nm.encode(), acgt[x].tobytes(),
+                                           b"I" * len(x)))
+
+
 def phase_align_path(main, tmp):
     """The -a path through the CLI on the same genome and reads.  Records
     the first align sub-batch's inputs (for phase 7)."""
@@ -587,6 +672,116 @@ def phase_align_path(main, tmp):
                 gates=gates)
 
 
+def phase_sr_path(main, tmp):
+    """Phase 4b: the paired-end short-read path through the CLI on the same
+    genome.  Records, for phase 7, the first batch's sketch input, its
+    compaction and anchor sort keys, its chain input and its first align
+    launch's inputs."""
+    from minimap2_tpu_torch.parallel import align_batch, batch, engine
+    sam = os.path.join(tmp, "sr.sam")
+    first_job, sk, ch, sorts = {}, {}, {}, []
+    run = _pe_run(
+        "sr", ["--batch", "-ax", "sr", "-o", sam, main["ref"],
+               *main["sr_rd"]],
+        ("sketch", "sort3", "chain", "extd2", "traceback"),
+        [_capture_first(align_batch, "_align_step", first_job),
+         _capture_first(engine, "sketch_batch", sk),
+         _capture_first(engine, "chain_batch", ch),
+         _capture_calls(batch, "sort3_rows", sorts, 2)])
+    prim, proper = {}, Counter()
+    with open(sam) as f:
+        for ln in f:
+            if ln.startswith("@"):
+                continue
+            t = ln.rstrip("\n").split("\t")
+            flag = int(t[1])
+            if flag & 0x904 == 0:
+                end = 1 if flag & 0x40 else 2
+                prim.setdefault((t[0], end), t)
+                proper[t[0]] += bool(flag & 0x2)
+    n_ok = n_q60 = n_q60_wrong = 0
+    bad_cigar = []
+    for nm in main["sr_names"]:
+        for end in (1, 2):
+            t = prim.get((nm, end))
+            if t is None:
+                continue
+            chrom, st, en, strand = sr_truth(nm, end)
+            q_len, r_len, _ = _cigar_spans(t[5])
+            if q_len != main["sr_lens"][(nm, end)] or len(t[9]) != q_len:
+                bad_cigar.append((nm, end))
+            pos = int(t[3]) - 1
+            ok = (t[2] == chrom and ("-" if int(t[1]) & 16 else "+") == strand
+                  and pos < en and pos + r_len > st)
+            n_ok += ok
+            if int(t[4]) == 60:
+                n_q60 += 1
+                n_q60_wrong += not ok
+    n_ends, n_pairs = 2 * len(main["sr_names"]), len(main["sr_names"])
+    frac = n_ok / n_ends
+    n_proper = sum(v == 2 for v in proper.values())
+    n_fb = len(run["fallbacks"])
+    log(f"[sr] {n_ok}/{n_ends} ends with a primary on their source interval "
+        f"({100 * frac:.1f}%), {n_q60} at mapq 60 of which {n_q60_wrong} "
+        f"wrong; {n_proper}/{n_pairs} pairs proper "
+        f"({100 * n_proper / n_pairs:.1f}%); "
+        f"{len(prim) - len(bad_cigar)}/{len(prim)} primary CIGARs span their "
+        f"read; {n_fb} fragments ({100 * n_fb / n_pairs:.2f}%) on the host "
+        "path")
+    gates = [(not bad_cigar, f"sr CIGAR lengths disagree for "
+              f"{bad_cigar[:5]}"),
+             (frac >= 0.90, f"only {100 * frac:.1f}% of sr ends correct"),
+             (n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 sr primaries"),
+             (n_proper >= 0.90 * n_pairs,
+              f"only {n_proper}/{n_pairs} sr pairs proper"),
+             (n_fb <= 0.05 * n_pairs,
+              f"{n_fb} sr fragments on the host path (> 5%)")]
+    return dict(run, first_job=first_job, sketch_in=sk["args"],
+                chain_in=ch, compaction_keys=sorts[0]["args"],
+                anchor_keys=sorts[1]["args"], gates=gates,
+                rd=main["sr_rd"], correct=frac,
+                proper=n_proper / n_pairs)
+
+
+def _pe_run(tag, argv, kernels, hooks=()):
+    """cli.main(argv) on the paired-end path with its fragment loop timed;
+    fails unless every kernel named launched.  Returns the step, batcher,
+    index, options, launches, reads/s, host-path fragments and seconds."""
+    from minimap2_tpu_torch.parallel import engine
+    seen = {}
+    align_pairs = engine.align_pairs
+
+    def timed(step, ab, mi, opt, queries, out, batch_frags):
+        torch.cuda.synchronize()
+        t = time.time()
+        res = align_pairs(step, ab, mi, opt, queries, out, batch_frags)
+        torch.cuda.synchronize()
+        seen.update(step=step, ab=ab, mi=mi, opt=opt, res=res,
+                    batch_frags=batch_frags, align_s=time.time() - t)
+        return res
+    rc, counts, total_s, host = _run_cli(
+        argv, [(engine, "align_pairs", timed), *hooks])
+    require(rc == 0, f"{tag}: cli.main returned {rc}")
+    n_reads, fallbacks = seen["res"]
+    reads_per_s = n_reads / seen["align_s"]
+    causes = dict(Counter(c for _, c in fallbacks))
+    log(f"[{tag}] index build + upload {total_s - seen['align_s']:.1f}s; "
+        f"aligned {n_reads} paired reads in {seen['align_s']:.2f}s "
+        f"({reads_per_s:.1f} reads/s); launches {counts}")
+    log(f"[{tag}] fragments on the host path: {len(fallbacks)} by cause "
+        f"{causes}; the host path mapped {host['reads']} reads in "
+        f"{host['seconds']:.3f}s "
+        f"({100 * host['seconds'] / seen['align_s']:.1f}% of the run)")
+    require(host["reads"] == 2 * len(fallbacks),
+            f"{tag}: {len(fallbacks)} fragments on the host path, "
+            f"{host['reads']} reads through it")
+    for name in kernels:
+        require(counts.get(name, 0) > 0,
+                f"kernel {name} never launched on the {tag} path")
+    return dict(seen, launches=counts, reads_per_s=reads_per_s,
+                n_reads=n_reads, fallbacks=fallbacks, host=host)
+
+
 def _run_cli(argv, hooks):
     """cli.main(argv) with module attributes swapped for the run: hooks =
     [(module, name, replacement)].  Returns (rc, launches, seconds, host
@@ -619,6 +814,19 @@ def _capture_first(mod, name, store):
         if not store:
             store.update(args=[x.clone() if torch.is_tensor(x) else x
                                for x in args], kw=kw)
+        return fn(*args, **kw)
+    return mod, name, capturing
+
+
+def _capture_calls(mod, name, store, n):
+    """A hook for mod.name that records the first n calls' arguments
+    (tensors cloned) in the list store, then calls the original."""
+    fn = getattr(mod, name)
+
+    def capturing(*args, **kw):
+        if len(store) < n:
+            store.append(dict(args=[x.clone() if torch.is_tensor(x) else x
+                                    for x in args], kw=kw))
         return fn(*args, **kw)
     return mod, name, capturing
 
@@ -658,8 +866,6 @@ def _align_run(tag, argv, kernels, hooks=()):
     for a fallback read) and the SAM's primary records read back; fails
     unless every kernel named launched.  Returns the step, batcher, index,
     options, launches, reads/s, fallback reads and host-path seconds."""
-    from collections import Counter
-
     from minimap2_tpu_torch.parallel import engine
     seen, prim_regs = {}, {}
     align_queries = engine.align_queries
@@ -751,8 +957,6 @@ def phase_splice_path(main, tmp):
     """The spliced -a path through the CLI on the genome with planted
     genes; records the first exts2 launch's inputs and the first sketch
     input (for phase 7)."""
-    from collections import Counter
-
     from minimap2_tpu_torch.parallel import align_batch, engine
     sam = os.path.join(tmp, "splice.sam")
     first, sk = {}, {}
@@ -1023,7 +1227,6 @@ def phase_kernels(main, hpc, spl, dvb, g38):
         f"(phase 3's compaction keys {rows[-1]['chunked']['path_ms']:.4f}),"
         f" bound {cb:.4f} ms ({cby})")
     del got, gotc, lib
-
     # chain DP at 512 x 4096 on the anchor planes of the first batch, both
     # passes' bands (500, and 20000 for the long-join rescue)
     step = main["step"]
@@ -1066,15 +1269,15 @@ def phase_kernels(main, hpc, spl, dvb, g38):
     return rows
 
 
-def phase_align_kernels(aln):
-    """extd2 against its plain version on the whole first launch of the -a
-    run (a 512-read batch's jobs), timed on that launch and on its first
-    64 jobs (the earlier 64-job sub-batch); the traceback likewise on that
-    launch's p; extd2's DP cell-updates/s on bench.py's 64 x 10,240 x
-    10,240 random pairs."""
+def _extd2_traceback(job, n_first=64):
+    """extd2 against its plain version on one captured align launch (the
+    whole launch, and timed on its first n_first jobs too), and the
+    traceback likewise on that launch's p: bit-equal, timed with CUDA
+    events, each beside its bound.  Returns (extd2 dict, traceback dict,
+    the ext_kw of the launch)."""
     from minimap2_tpu_torch.ops import _build, extend, traceback
-    qr, sf, lens = aln["first_job"]["args"]
-    kw = aln["first_job"]["kw"]
+    qr, sf, lens = job["args"]
+    kw = job["kw"]
     N, QP = qr.shape
     TP = kw["TP"]
     G, W, RB, w = kw["G"], kw["W"], kw["RB"], kw["w"]
@@ -1095,7 +1298,7 @@ def phase_align_kernels(aln):
     err = max([max_abs_err_u8([p[i:i + 16]], [pp[i:i + 16]])
                for i in range(0, N, 16)] + [max_abs_err([ez], [ezp])])
     require(err == 0, f"extd2 differs from its plain version on the whole "
-            f"first launch ({err})")
+            f"first launch ({err}; W={W}, QP={QP}, TP={TP})")
     del pp
 
     def extd2_bound(lens_t):
@@ -1106,10 +1309,51 @@ def phase_align_kernels(aln):
     cells, bms, by = extd2_bound(lens)
     ext_ms = cuda_ms(lambda: extend.extd2_batch2(qr, sf, lens, **ext_kw),
                      reps=3)
-    f64 = [x[:64] for x in (qr, sf, lens)]
-    cells64, bms64, by64 = extd2_bound(f64[2])
-    ms64 = cuda_ms(lambda: extend.extd2_batch2(*f64, **ext_kw), reps=5)
+    f_n = [x[:n_first] for x in (qr, sf, lens)]
+    cells_n, bms_n, by_n = extd2_bound(f_n[2])
+    ms_n = cuda_ms(lambda: extend.extd2_batch2(*f_n, **ext_kw), reps=5)
     per_sm = _build.blocks_per_sm("extd2", W, QP, TP)
+    ext = dict(max_abs_err=err, ms=ext_ms, plain_ms=ext_plain_ms,
+               bound_ms=bms, bound_by=by, shape=[N, QP, TP, W, RT],
+               band_cells=cells, blocks_per_sm=per_sm,
+               first64=dict(ms=ms_n, bound_ms=bms_n, bound_by=by_n,
+                            band_cells=cells_n))
+
+    ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
+    (ops2, fin2), tb_plain_ms = timed_once(
+        lambda: traceback.traceback_batch_plain(p, lens, RB=RB, w=w))
+    err = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
+    require(err == 0, f"traceback differs from its plain version on the "
+            f"whole first launch ({err}; W={W})")
+
+    def tb_bound(ops_t):     # one p byte per visited diagonal, ops, lens, fin
+        n, visited = ops_t.shape[0], int((ops_t != 0).sum())
+        return (visited,) + bound(visited + n * RT + n * 8 + n * 8, 0)
+    visited, tbms, tby = tb_bound(ops)
+    visited_n, tbms_n, tby_n = tb_bound(ops[:n_first])
+    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, RB=RB, w=w),
+                    reps=3)
+    p_n = p[:n_first]
+    tb_ms_n = cuda_ms(lambda: traceback.traceback_batch(p_n, f_n[2], RB=RB,
+                                                        w=w), reps=5)
+    walk = longest_walk(ops)
+    tb = dict(max_abs_err=err, ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=tbms,
+              bound_by=tby, shape=[N, RT, W], visited=visited,
+              longest_walk=walk, ns_per_diagonal=1e6 * tb_ms / max(walk, 1),
+              blocks_per_sm=_build.blocks_per_sm("traceback", 0),
+              first64=dict(ms=tb_ms_n, bound_ms=tbms_n, bound_by=tby_n,
+                           visited=visited_n))
+    return ext, tb, ext_kw
+
+
+def phase_align_kernels(aln):
+    """extd2 against its plain version on the whole first launch of the -a
+    run (a 512-read batch's jobs), timed on that launch and on its first
+    64 jobs (the earlier 64-job sub-batch); the traceback likewise on that
+    launch's p; extd2's DP cell-updates/s on bench.py's 64 x 10,240 x
+    10,240 random pairs."""
+    from minimap2_tpu_torch.ops import extend
+    ext, tb, ext_kw = _extd2_traceback(aln["first_job"])
     # bench.py:262-292: 64 x 10,240 x 10,240 random pairs, band 500
     rng = np.random.default_rng(0)
     NB, QB, w_b = 64, 10240, 500
@@ -1125,63 +1369,133 @@ def phase_align_kernels(aln):
     b_cells = int(np.minimum.reduce([np.full_like(rr, w_b), rr + 1,
                                      2 * QB - 1 - rr]).sum()) * NB
     dp_rate = b_cells / (b_ms / 1e3)
-    log(f"[kernels] extd2 on the first launch, {N} jobs (QP={QP}, TP={TP}, "
-        f"W={W}, R={RT}, {cells} band cells, {per_sm} blocks per SM): "
-        f"{ext_ms:.3f} ms, plain "
-        f"{ext_plain_ms:.0f} ms, bound {bms:.4f} ms "
-        f"({by}); on its first 64 jobs ({cells64} band cells): "
-        f"{ms64:.3f} ms, bound {bms64:.4f} ms ({by64}); bench.py's 64 x "
-        f"10,240^2 pairs: {b_ms:.3f} ms = {dp_rate:.4g} DP cell-updates/s")
+    del b_args
+    _log_extd2_traceback("-a", ext, tb, ext_kw)
+    log(f"[kernels] extd2 on bench.py's 64 x 10,240^2 pairs: {b_ms:.3f} ms "
+        f"= {dp_rate:.4g} DP cell-updates/s")
     rows = [dict(
         name="extd2", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/extd2.cu",
         replaces="minimap2_tpu/ops/extend_pallas2.py:658",
-        launches=aln["launches"].get("extd2", 0), max_abs_err=err,
-        ms=ext_ms, plain_ms=ext_plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[N, QP, TP, W, RT], band_cells=cells,
-        blocks_per_sm=per_sm,
-        first64=dict(ms=ms64, bound_ms=bms64, bound_by=by64,
-                     band_cells=cells64),
+        launches=aln["launches"].get("extd2", 0), **ext, library_ms=None,
         dp_cells_per_s=dp_rate, dp_bench_ms=b_ms)]
-    del b_args
-
-    ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
-    (ops2, fin2), tb_plain_ms = timed_once(
-        lambda: traceback.traceback_batch_plain(p, lens, RB=RB, w=w))
-    err = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
-    require(err == 0, f"traceback differs from its plain version on the "
-            f"whole first launch ({err})")
-
-    def tb_bound(ops_t):     # one p byte per visited diagonal, ops, lens, fin
-        n, visited = ops_t.shape[0], int((ops_t != 0).sum())
-        return (visited,) + bound(visited + n * RT + n * 8 + n * 8, 0)
-    visited, bms, by = tb_bound(ops)
-    visited64, bms64, by64 = tb_bound(ops[:64])
-    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, RB=RB, w=w),
-                    reps=3)
-    p64 = p[:64]
-    tb_ms64 = cuda_ms(lambda: traceback.traceback_batch(p64, f64[2], RB=RB,
-                                                        w=w), reps=5)
-    walk = longest_walk(ops)
-    tb_sm = _build.blocks_per_sm("traceback", 0)
-    log(f"[kernels] traceback on the whole first launch's p ({N} jobs, "
-        f"{visited} diagonals visited, the longest walk {walk} diagonals, "
-        f"{tb_sm} blocks per SM): {tb_ms:.3f} ms = "
-        f"{1e6 * tb_ms / max(walk, 1):.1f} ns a diagonal of the longest "
-        f"walk, plain {tb_plain_ms:.0f} ms, bound {bms:.6f} ms ({by}); on "
-        f"its first 64 jobs: {tb_ms64:.3f} ms, bound {bms64:.6f} ms ({by64})")
     rows.append(dict(
         name="traceback", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/traceback.cu",
         replaces="minimap2_tpu/ops/traceback_pallas.py:155",
-        launches=aln["launches"].get("traceback", 0), max_abs_err=err,
-        ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[N, RT, W], visited=visited,
-        longest_walk=walk, ns_per_diagonal=1e6 * tb_ms / max(walk, 1),
-        blocks_per_sm=tb_sm,
-        first64=dict(ms=tb_ms64, bound_ms=bms64, bound_by=by64,
-                     visited=visited64)))
+        launches=aln["launches"].get("traceback", 0), **tb, library_ms=None))
     return rows
+
+
+def _log_extd2_traceback(tag, x, y, k):
+    """The log lines of one _extd2_traceback result."""
+    N, QP, TP, W, RT = x["shape"]
+    log(f"[kernels] extd2 on the {tag} path's first launch, {N} jobs "
+        f"(QP={QP}, TP={TP}, W={W}, w={k['w']}, R={RT}, scores "
+        f"a{k['sc_mch']} b{-k['sc_mis']} q{k['q']} e{k['e']} q{k['q2']} "
+        f"e{k['e2']}, {x['band_cells']} band cells, "
+        f"{x['blocks_per_sm']} blocks per SM): {x['ms']:.3f} ms, plain "
+        f"{x['plain_ms']:.0f} ms, bound {x['bound_ms']:.4f} ms "
+        f"({x['bound_by']}); on its first 64 jobs "
+        f"({x['first64']['band_cells']} band cells): "
+        f"{x['first64']['ms']:.3f} ms, bound "
+        f"{x['first64']['bound_ms']:.4f} ms ({x['first64']['bound_by']})")
+    log(f"[kernels] traceback on the {tag} path's first launch's p ({N} "
+        f"jobs, {y['visited']} diagonals visited, the longest walk "
+        f"{y['longest_walk']} diagonals, {y['blocks_per_sm']} blocks per "
+        f"SM): {y['ms']:.3f} ms = {y['ns_per_diagonal']:.1f} ns a "
+        f"diagonal of the longest walk, plain {y['plain_ms']:.0f} ms, "
+        f"bound {y['bound_ms']:.6f} ms ({y['bound_by']}); on its first "
+        f"64 jobs: {y['first64']['ms']:.3f} ms, bound "
+        f"{y['first64']['bound_ms']:.6f} ms ({y['first64']['bound_by']})")
+
+
+def phase_sr_kernels(srp, rows):
+    """Phase 7 at the sr path's shapes, on phase 4b's first batch: the
+    sketch at k21 w11 (512 x 1024), sort3 on its compaction and anchor
+    keys, the chain on its anchor planes (512 x 2048, band 100), extd2 (W
+    256, sr scores) and the traceback on its first align launch; each
+    bit-equal to its plain version, timed, beside its bound.  Adds an "sr"
+    entry to each kernel's row."""
+    from minimap2_tpu_torch.ops import _build, chain, sketch, sort
+    by = {r["name"]: r for r in rows}
+    p_args = tuple(srp["sketch_in"])
+    PB, PL = p_args[0].shape
+    k_, w_ = p_args[2], p_args[3]
+    e = max_abs_err(sketch.sketch_batch(*p_args),
+                    sketch.device_sketch(*p_args))
+    require(e == 0, f"sketch differs from its plain version on the sr "
+            f"path's first batch ({e})")
+    s_ms, s_by = bound(PB * PL * 11 + PB * 4,
+                       PB * PL * (8 * k_ + 40 + 7 * w_))
+    sk = dict(k=k_, w=w_, shape=[PB, PL], max_abs_err=e,
+              ms=cuda_ms(lambda: sketch.sketch_batch(*p_args)),
+              plain_ms=cuda_ms(lambda: sketch.device_sketch(*p_args), reps=3),
+              bound_ms=s_ms, bound_by=s_by,
+              blocks_per_sm=_build.blocks_per_sm("sketch", PL, w_))
+    by["sketch"]["paths"]["sr"] = sk
+    by["sketch"]["max_abs_err"] = max(by["sketch"]["max_abs_err"], e)
+    log(f"[kernels] sketch on the sr path's first batch ({PB} x {PL}, k{k_} "
+        f"w{w_}): bit-equal, {sk['ms']:.4f} ms, plain {sk['plain_ms']:.2f} "
+        f"ms, bound {s_ms:.4f} ms ({s_by}), {sk['blocks_per_sm']} blocks "
+        f"per SM")
+    # the sr path's first compaction (512 x 1024) and anchor keys, both
+    # through sort3_rows
+    sr3 = {}
+    for tag, keys in (("compaction", srp["compaction_keys"]),
+                      ("anchors", srp["anchor_keys"])):
+        e = max_abs_err(sort.sort3_rows(*keys), sort.sort3_rows_plain(*keys))
+        require(e == 0, f"sort3_rows differs from its plain version on the sr"
+                f" path's first {tag} keys ({e})")
+        B_, A_ = keys[0].shape
+        b_ms, b_by = bound(B_ * A_ * 24, B_ * (A_ // 2) * sort_stages(A_) * 8)
+        sr3[tag] = dict(
+            shape=[B_, A_], max_abs_err=e,
+            ms=cuda_ms(lambda k=keys: sort.sort3_rows(*k)),
+            plain_ms=cuda_ms(lambda k=keys: sort.sort3_rows_plain(*k),
+                             reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda k=keys: library_sort3(*k), reps=5),
+            blocks_per_sm=_build.blocks_per_sm("sort3", A_))
+        log(f"[kernels] sort3 on the sr path's first {tag} keys ({B_} x "
+            f"{A_}): bit-equal, {sr3[tag]['ms']:.4f} ms, plain "
+            f"{sr3[tag]['plain_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"torch.sort x3 {sr3[tag]['library_ms']:.4f} ms, "
+            f"{sr3[tag]['blocks_per_sm']} blocks per SM")
+    by["sort3"]["sr"] = sr3
+    by["sort3"]["max_abs_err"] = max(
+        by["sort3"]["max_abs_err"], *(x["max_abs_err"] for x in sr3.values()))
+
+    # the sr path's first batch (512 x 2048, band 100)
+    sr_planes, sr_kw = srp["chain_in"]["args"], srp["chain_in"]["kw"]
+    e = max_abs_err(chain.chain_batch(*sr_planes, **sr_kw),
+                    chain.chain_batch_plain(*sr_planes, **sr_kw))
+    require(e == 0, f"chain differs from its plain version on the sr path's "
+            f"first batch ({e})")
+    B_, A_ = sr_planes[0].shape
+    n_sr = int(sr_planes[5].sum())
+    n_max_sr = chain.last_valid(sr_planes[5])
+    b_ms, b_by = bound(B_ * A_ * (21 + 16), n_sr * sr_kw["WND"] * 30)
+    sr_ms = cuda_ms(lambda: chain.chain_batch(*sr_planes, **sr_kw))
+    by["chain"]["sr"] = dict(
+        shape=[B_, A_], bw=sr_kw["bw"], max_abs_err=e, ms=sr_ms,
+        plain_ms=cuda_ms(lambda: chain.chain_batch_plain(*sr_planes, **sr_kw),
+                         reps=2, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, valid_anchors=n_sr, longest_n=n_max_sr,
+        ns_per_step=1e6 * sr_ms / max(n_max_sr, 1))
+    by["chain"]["max_abs_err"] = max(by["chain"]["max_abs_err"], e)
+    log(f"[kernels] chain on the sr path's first batch ({B_} x {A_}, band "
+        f"{sr_kw['bw']}, {n_sr} valid anchors, the longest read's n "
+        f"{n_max_sr}): bit-equal, {sr_ms:.3f} ms, plain "
+        f"{by['chain']['sr']['plain_ms']:.1f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+
+    ext, tb, ext_kw = _extd2_traceback(srp["first_job"])
+    _log_extd2_traceback("sr", ext, tb, ext_kw)
+    for name, x in (("extd2", ext), ("traceback", tb)):
+        by[name]["sr"] = x
+        by[name]["max_abs_err"] = max(by[name]["max_abs_err"],
+                                      x["max_abs_err"])
 
 
 def phase_new_kernels(hpc, spl):
@@ -1356,18 +1670,26 @@ def _records(path, n):
     return recs
 
 
-def phase_align_breakdown(aln, splice=False):
+def phase_align_breakdown(aln, splice=False, pe=False):
     """Where one 512-read -a batch spends its time: the mapping step
     (CUDA events), the DP kernel (extd2, or exts2 with both strand rounds
     in a launch) and the traceback per sub-batch (CUDA events), the ops
     download, the host's regs (trim, audits, fix_cigar, mapq) and the SAM
-    emit."""
+    emit.  With pe, the batch is the first 256 pairs of the sr path, r2
+    reverse-complemented, and the emit is mm_pair + the fragments' SAM."""
+    import itertools
+
     from minimap2_tpu_torch.io import format as fmt
     from minimap2_tpu_torch.map.align_engine import gen_ts_mat
+    from minimap2_tpu_torch.map.driver import iter_fragments
     from minimap2_tpu_torch.ops.traceback import decode_ops
     from minimap2_tpu_torch.parallel import align_batch, engine
     step, ab, mi, opt = aln["step"], aln["ab"], aln["mi"], aln["opt"]
-    recs = _records(aln["rd"], 512)
+    if pe:
+        frags = list(itertools.islice(iter_fragments(aln["rd"], True), 256))
+        recs, flips = engine.flatten_fragments(frags, opt.pe_ori)
+    else:
+        recs = _records(aln["rd"], 512)
     seqs = [r.seq for r in recs]
     codes, lens = engine.encode_batch(seqs, step.p.L)
     packed, nbits = engine.pack_codes(codes)
@@ -1425,7 +1747,7 @@ def phase_align_breakdown(aln, splice=False):
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.time()
-        by_read, fallback, _, _ = engine.batch_build_regs(
+        by_read, fallback, _, fb_ids = engine.batch_build_regs(
             recs, map_out, ab, mi, opt, mat, step.with_sec, splice)
         t1 = time.time()
     finally:
@@ -1438,13 +1760,24 @@ def phase_align_breakdown(aln, splice=False):
     tb_ms = sum(s.elapsed_time(e) for s, e in evs["traceback_batch"])
     out = io.StringIO()
     t2 = time.time()
-    for rec, regs in by_read.values():
-        for i in range(len(regs)):
-            out.write(fmt.write_sam(mi, rec, 0, i, 1, [len(regs)], [regs],
-                                    opt.flag, 0) + "\n")
+    if pe:      # the device fragments (the host path's are not timed here)
+        idx = 0
+        for frag in frags:
+            ends = recs[idx:idx + len(frag)]
+            regss = [by_read.get(id(r), (None, []))[1] for r in ends]
+            if not any(id(r) in fb_ids for r in ends) and \
+                    all(not rg or rg[0].id == 0 for rg in regss):
+                engine.pair_and_write(out, mi, opt, frag, regss,
+                                      flips[idx:idx + len(frag)])
+            idx += len(frag)
+    else:
+        for rec, regs in by_read.values():
+            for i in range(len(regs)):
+                out.write(fmt.write_sam(mi, rec, 0, i, 1, [len(regs)],
+                                        [regs], opt.flag, 0) + "\n")
     t3 = time.time()
     host_s = (t1 - t0) - (dp_ms + tb_ms) / 1e3 - dl[0]
-    tag = "splice" if splice else "-a"
+    tag = "sr" if pe else "splice" if splice else "-a"
     dp_bound = ""
     if not splice:      # the batch's extd2 work: its p bytes vs band cells
         nbytes = cells = 0
@@ -1459,7 +1792,8 @@ def phase_align_breakdown(aln, splice=False):
         f"{ab.sub} (jobs a launch {jobs}): {dp.split('_')[0]} "
         f"{dp_ms:.2f} ms{dp_bound}, traceback "
         f"{tb_ms:.2f} ms, ops download {1e3 * dl[0]:.2f} ms; host regs "
-        f"(trim, audits, fix_cigar, mapq) {host_s:.3f} s, SAM emit "
+        f"(trim, audits, fix_cigar, mapq) {host_s:.3f} s, "
+        f"{'mm_pair + ' if pe else ''}SAM emit "
         f"{t3 - t2:.3f} s; {len(fallback)} fallback reads; device memory "
         f"peak of the alignment {peak_gb:.3f} GB above the "
         f"{base / 1e9:.3f} GB held before it")
@@ -1513,8 +1847,49 @@ def phase_align_cross_check(aln, tmp, n, splice=False):
         f"and CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
 
 
-def phase_long_cross_check(long_, tmp):
-    """The first 8 long reads of phase 3d, each after one of its short
+def phase_sr_cross_check(srp, tmp, n_pairs=16):
+    """The first n_pairs pairs of phase 4b through ``engine.align_pairs``
+    on the card and on the CPU (plain versions, CPU copies of the index):
+    identical SAM.  Both sides take them as one batch (2 x n_pairs rows:
+    the windowed chain scan, as the JAX dispatch rule says) at the path's
+    widths, in 16-job sub-batches."""
+    from minimap2_tpu_torch.parallel.align_batch import AlignBatcher
+    from minimap2_tpu_torch.parallel.batch import DeviceIndex
+    from minimap2_tpu_torch.parallel.engine import PafStep, align_pairs
+    from minimap2_tpu_torch.utils.intfloat import SEQ_NT4
+    step, ab, mi, opt = srp["step"], srp["ab"], srp["mi"], srp["opt"]
+    paths = []
+    for e, path in enumerate(srp["rd"], 1):
+        recs = _records(path, n_pairs)
+        paths.append(os.path.join(tmp, f"x_sr{e}.fq"))
+        write_fastq(paths[-1], [r.name for r in recs],
+                    [SEQ_NT4[np.frombuffer(r.seq, np.uint8)] for r in recs])
+    di = step.di
+    di_cpu = DeviceIndex({nm: t.cpu() for nm, t in di.named_buffers()},
+                         di.aux_dict())
+    step_cpu = PafStep(di_cpu, step.p, step.K, step.min_sc,
+                       with_sec=step.with_sec)
+    ab_card, ab_cpu = (AlignBatcher(
+        mi, opt, device=d, QP=ab.QP, TP=ab.TP, G=ab.G, W=ab.W, RB=ab.RB,
+        sub=16) for d in ("cuda", "cpu"))
+    outs, secs = [], []
+    for st_, ab_ in ((step, ab_card), (step_cpu, ab_cpu)):
+        out = io.StringIO()
+        t = time.time()
+        with torch.no_grad():
+            align_pairs(st_, ab_, mi, opt, paths, out, n_pairs)
+        secs.append(time.time() - t)
+        outs.append(out.getvalue())
+    n_rec = len(outs[0].splitlines())
+    require(n_rec >= 2 * n_pairs, f"only {n_rec} sr SAM records for "
+            f"{n_pairs} pairs")
+    require(outs[0] == outs[1], "card and CPU sr SAM differ")
+    log(f"[cross] {n_pairs}-pair sr SAM ({n_rec} records) identical on card "
+        f"and CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
+
+
+def phase_long_cross_check(long_, tmp, n=4):
+    """The first n long reads of phase 3d, each after one of its short
     reads, through the PAF driver on the card and on the CPU (plain
     versions, CPU copies of the index): identical PAF."""
     from minimap2_tpu_torch.parallel.batch import DeviceIndex
@@ -1523,8 +1898,8 @@ def phase_long_cross_check(long_, tmp):
     from minimap2_tpu_torch.utils.simgenome import write_fasta
     step, mi, opt = long_["step"], long_["mi"], long_["opt"]
     recs = _records(long_["rd"], 1024)
-    longs = [r for r in recs if len(r.seq) > step.p.L][:8]
-    shorts = [r for r in recs if len(r.seq) <= step.p.L][:8]
+    longs = [r for r in recs if len(r.seq) > step.p.L][:n]
+    shorts = [r for r in recs if len(r.seq) <= step.p.L][:n]
     pick = [r for pair in zip(shorts, longs) for r in pair]
     path = os.path.join(tmp, "x_long.fa")
     write_fasta(path, [r.name for r in pick],
@@ -1546,9 +1921,9 @@ def phase_long_cross_check(long_, tmp):
     require(n_rec >= 3 * len(longs) // 4,
             f"{n_rec} of {len(longs)} long reads have a record")
     require(outs[0] == outs[1], "card and CPU long-read PAF differ")
-    log(f"[cross] 8 long + 8 short reads' PAF ({len(outs[0].splitlines())} "
-        f"records) identical on card and CPU (card {secs[0]:.2f}s, CPU "
-        f"plain versions {secs[1]:.1f}s)")
+    log(f"[cross] {n} long + {n} short reads' PAF "
+        f"({len(outs[0].splitlines())} records) identical on card and CPU "
+        f"(card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
 
 
 def phase_breakdown(main, tag="PAF"):
@@ -1635,26 +2010,31 @@ def main():
         g38 = timed("grch38", phase_grch38, tmp)
         aln = timed("align", phase_align_path, main_, tmp)
         aln["rd"] = main_["rd"]
+        srp = timed("sr", phase_sr_path, main_, tmp)
         hpc = timed("hpc", phase_hpc_path, main_, tmp)
         spl = timed("splice", phase_splice_path, main_, tmp)
         rows = timed("kernels", phase_kernels, main_, hpc, spl, dvb, g38)
+        rows += timed("align kernels", phase_align_kernels, aln)
+        rows += timed("new kernels", phase_new_kernels, hpc, spl)
+        timed("sr kernels", phase_sr_kernels, srp, rows)
         for r in rows:          # the PAF kernels also run on the other paths
             r["launches_align"] = kernel_launches(aln["launches"], r["name"])
             r["launches_hpc"] = kernel_launches(hpc["launches"], r["name"])
             r["launches_splice"] = kernel_launches(spl["launches"],
                                                    r["name"])
-        rows += timed("align kernels", phase_align_kernels, aln)
-        rows += timed("new kernels", phase_new_kernels, hpc, spl)
+            r["launches_sr"] = kernel_launches(srp["launches"], r["name"])
         timed("breakdown", phase_breakdown, main_)
         timed("hpc breakdown", phase_breakdown, hpc, "HPC")
         timed("align breakdown", phase_align_breakdown, aln)
         timed("splice breakdown", phase_align_breakdown, spl, True)
+        timed("sr breakdown", phase_align_breakdown, srp, False, True)
         timed("cross PAF", phase_cross_check, main_)
         timed("cross HPC", phase_cross_check, hpc, "HPC")
         timed("cross -a", phase_align_cross_check, aln, tmp, 8)
-        timed("cross splice", phase_align_cross_check, spl, tmp, 8, True)
+        timed("cross splice", phase_align_cross_check, spl, tmp, 4, True)
         timed("cross long", phase_long_cross_check, long_, tmp)
-    for ok, msg in aln["gates"] + spl["gates"]:
+        timed("cross sr", phase_sr_cross_check, srp, tmp)
+    for ok, msg in aln["gates"] + spl["gates"] + srp["gates"]:
         require(ok, msg)
     kinds = torch.cuda.get_device_name(0)
     log(f"[main] card {card}: {main_['reads_per_s']:.1f} reads/s (PAF), "
@@ -1662,8 +2042,12 @@ def main():
         f"{100 * long_['host_share']:.1f}% of it on the host path), "
         f"{aln['reads_per_s']:.1f} reads/s (-a, mean identity "
         f"{aln['mean_identity']:.4f}; host path {aln['host']['reads']} "
-        f"reads, {aln['host']['seconds']:.3f}s), {hpc['reads_per_s']:.1f} "
-        f"reads/s (map-pb), {spl['reads_per_s']:.1f} reads/s (-a -x "
+        f"reads, {aln['host']['seconds']:.3f}s), {srp['reads_per_s']:.1f} "
+        f"reads/s (-ax sr paired, {100 * srp['correct']:.1f}% of ends "
+        f"correct, {100 * srp['proper']:.1f}% of pairs proper; host path "
+        f"{srp['host']['reads']} reads, {srp['host']['seconds']:.3f}s), "
+        f"{hpc['reads_per_s']:.1f} reads/s (map-pb), "
+        f"{spl['reads_per_s']:.1f} reads/s (-a -x "
         f"splice, {100 * spl['intron_share']:.1f}% of introns exact; host "
         f"path {spl['host']['reads']} reads, {spl['host']['seconds']:.3f}s) "
         f"on the 100 Mb genome; {g38['map']['reads_per_s']:.1f} reads/s "

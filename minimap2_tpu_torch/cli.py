@@ -2,17 +2,20 @@
 with -c/-a, as PAF with cg:Z or SAM.
 
     python -m minimap2_tpu_torch.cli --batch [-x map-ont] [-a|-c] ref.fa reads.fq
+    python -m minimap2_tpu_torch.cli --batch -x sr [-a] ref.fa r1.fq [r2.fq]
 
 Presets on the --batch paths: map-ont / lr, lr:hq / map-hifi, map-pb (and
--H: HPC minimizers), splice / splice:hq / cdna (spliced -c/-a).  The
-option parsing is minimap2_tpu.cli's (main.c:24-526: presets first, then
-flags that override them), so IndexOptions/MapOptions come out the same.
-Then FASTA -> MiniIndex -> mapopt_update -> run_batched_cli (or
-run_batched_align_cli with -c/-a) on the device.  What the port does not
-carry yet raises NotImplementedError naming the later slice: the RMQ tier,
-sr and splice:sr, paired ends, --eqx, splice side data (--junc-bed, -j,
---spsc, --pass1), .mmi/.npz targets, -d, a multi-part -I split, and the
-host (non --batch) path.
+-H: HPC minimizers), splice / splice:hq / cdna (spliced -c/-a), sr (short
+reads, single-end or paired-end).  The option parsing is
+minimap2_tpu.cli's (main.c:24-526: presets first, then flags that
+override them), so IndexOptions/MapOptions come out the same.  Then FASTA
+-> MiniIndex -> mapopt_update -> on the device: run_batched_pe_cli for two
+or more query files in fragment mode (paired ends), else
+run_batched_align_cli with -c/-a, else run_batched_cli.  What the port
+does not carry yet raises NotImplementedError naming the later slice: the
+RMQ tier, splice:sr, --eqx, splice side data (--junc-bed, -j, --spsc,
+--pass1), .mmi/.npz targets, -d, a multi-part -I split, and the host (non
+--batch) path's CLI wiring.
 """
 from __future__ import annotations
 
@@ -402,14 +405,14 @@ def check_slice(io: IndexOptions, mo: MapOptions, args: Args) -> None:
     """Raise NotImplementedError for what the port's --batch paths do not
     carry, naming the later slice that will."""
     off = [
-        (not args.batch, "the host (non --batch) mapping path"),
+        (not args.batch, "the host (non --batch) mapping path: its CLI "
+         "wiring (iter_fragments + map_fragment per fragment)"),
         (mo.flag & C.MM_F_RMQ, "the RMQ chaining tier (asm, lr:hqae, --rmq)"),
         ((mo.flag & C.MM_F_EQX) and (mo.flag & C.MM_F_CIGAR),
          "--eqx (=/X CIGAR operators, mm_update_cigar_eqx)"),
-        (mo.flag & (C.MM_F_SR | C.MM_F_SR_RNA),
-         "short-read mode (sr, splice:sr)"),
-        (len(args.pos) > 2 and (mo.flag & C.MM_F_FRAG_MODE),
-         "paired-end mapping"),
+        (mo.flag & C.MM_F_SR_RNA,
+         "short-read RNA mode (splice:sr, --sr=rna: align_sr_rna and the "
+         "junction side data)"),
     ]
     for cond, what in off:
         if cond:
@@ -460,11 +463,13 @@ def main(argv=None, device=None) -> int:
     if args.out_file and args.out_file != "-":
         out = open(args.out_file, "w")
     try:
-        if mo.flag & (C.MM_F_CIGAR | C.MM_F_OUT_SAM):
-            if args.sam:
-                out.write(fmt.write_sam_hdr(
-                    mi, None, C.MM_VERSION,
-                    "minimap2 " + " ".join(orig_argv)) + "\n")
+        if args.sam:
+            out.write(fmt.write_sam_hdr(
+                mi, None, C.MM_VERSION,
+                "minimap2 " + " ".join(orig_argv)) + "\n")
+        if len(queries) > 1 and (mo.flag & C.MM_F_FRAG_MODE):
+            engine.run_batched_pe_cli(mi, mo, queries, out, device=device)
+        elif mo.flag & (C.MM_F_CIGAR | C.MM_F_OUT_SAM):
             engine.run_batched_align_cli(mi, mo, queries, out,
                                          device=device)
         else:

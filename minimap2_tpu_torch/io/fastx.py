@@ -1,6 +1,7 @@
 """FASTA/FASTQ streaming reader: the pure-Python path of
 minimap2_tpu.io.fastx (bseq.c + kseq.h semantics: plain or gzip input,
-U->T conversion), without the native scanner."""
+U->T conversion), without the native scanner, and the pairing helpers
+qname_same and revcomp_record."""
 from __future__ import annotations
 
 import gzip
@@ -89,6 +90,11 @@ class FastxReader:
         return SeqRecord(name=name, seq=seq, qual=qual, comment=comment)
 
 
+def qname_same(a: str, b: str) -> bool:
+    """bseq.h:38 mm_qname_same: names equal ignoring a trailing /[0-9]."""
+    return qname_len(a) == qname_len(b) and a[:qname_len(a)] == b[:qname_len(b)]
+
+
 def qname_len(s: str) -> int:
     """Length of a read name without a trailing /1 or /2."""
     n = len(s)
@@ -109,3 +115,12 @@ def read_fasta(path: str) -> tuple[list[str], list[bytes]]:
         seqs.append(rec.seq)
     r.close()
     return names, seqs
+
+
+def revcomp_record(rec: SeqRecord) -> SeqRecord:
+    """mm_revcomp_bseq (bseq.c): reverse-complement sequence and reverse qual."""
+    comp = bytes.maketrans(b"ACGTUacgtuRYSWKMBDHVryswkmbdhv",
+                           b"TGCAAtgcaaYRSWMKVHDByrswmkvhdb")
+    return SeqRecord(name=rec.name, seq=rec.seq[::-1].translate(comp),
+                     qual=rec.qual[::-1] if rec.qual else None,
+                     comment=rec.comment)

@@ -1,13 +1,16 @@
 """Per-fragment host mapping: the reference's mm_map_frag_core
-(map.c:227-378), single-segment (copy of minimap2_tpu.map.pipeline).
+(map.c:227-378) for one or more segments (copy of
+minimap2_tpu.map.pipeline).
 
 The --batch drivers (parallel/engine.py) hand it the reads the device path
-does not take: PAF reads longer than the batch width L, and -c/-a reads
-whose device alignment failed its audit.  Sketch, anchors, chaining and
-the DPs run through the C++ routines of native/host_map.cpp.  The copy
-drops the --print-seeds / --print-chains dumps (the port's CLI has no
-debug output), paired ends (n_segs > 1) and the jump (--pass1 /
---junc-bed) split, which the port's CLI refuses.
+does not take: PAF reads longer than L, -c/-a reads whose device alignment
+failed its audit, and paired-end fragments with an end the device path
+could not align.  A fragment of two segments (paired ends) is chained
+jointly, split per segment (map/pe.seg_gen), aligned per segment and
+paired by mm_pair (map/pe.pair).  Sketch, anchors, chaining and the DPs run
+through the C++ routines of native/host_map.cpp.  The copy drops the
+--print-seeds / --print-chains dumps (the port's CLI has no debug output)
+and the jump (--pass1 / --junc-bed) split, which the port's CLI refuses.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import numpy as np
 
 from .. import native
 from ..config import (MM_F_ALL_CHAINS, MM_F_HARD_MLEVEL, MM_F_HEAP_SORT,
-                      MM_F_NO_HASH_NAME, MM_F_NO_LJOIN, MM_F_QSTRAND,
+                      MM_F_CIGAR, MM_F_NO_HASH_NAME, MM_F_NO_LJOIN,
+                      MM_F_QSTRAND,
                       MM_F_RMQ, MM_F_SPLICE, MM_F_SR, MM_F_SR_RNA,
                       MM_MAX_SEG, MapOptions)
 from ..index.index import MiniIndex
@@ -23,6 +27,8 @@ from ..utils.intfloat import SEQ_NT4, qname_hash
 from . import hit as hitmod
 from .align import align_regs
 from .chain import chain_dp, chain_rmq
+from .pe import pair as mm_pair
+from .pe import seg_gen, select_sub_multi
 from .sdust import dust_minier
 from .seed import collect_seed_hits, collect_seed_hits_heap, seed_mz_flt
 
@@ -58,11 +64,8 @@ class FragResult:
 
 def map_frag_core(mi: MiniIndex, seqs: list[bytes], opt: MapOptions,
                   qname: str | None) -> list[FragResult]:
-    """Map one single-segment fragment. Returns [FragResult]."""
+    """Map one fragment (1..n segments). Returns per-segment results."""
     n_segs = len(seqs)
-    if n_segs > 1:
-        raise NotImplementedError("paired-end mapping (n_segs > 1) is a "
-                                  "later slice of the PyTorch/CUDA port")
     qlens = [len(s) for s in seqs]
     qlen_sum = sum(qlens)
     results = [FragResult() for _ in range(n_segs)]
@@ -130,9 +133,21 @@ def map_frag_core(mi: MiniIndex, seqs: list[bytes], opt: MapOptions,
                                   chn_pen_skip, ax, ay)
     elif (opt.max_occ > opt.mid_occ and rep_len > 0
           and not (opt.flag & MM_F_RMQ)):
-        # single segment: the best chain always covers every segment, so
-        # the sr re-chain runs only when there is no chain (map.c:293-316)
-        if n_regs0 == 0:
+        rechain = False
+        if n_regs0 > 0:
+            # does the best chain cover all segments?
+            scores = (u >> np.uint64(32)).astype(np.int64)
+            cnts = (u & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            max_i = int(np.argmax(scores))
+            off = int(cnts[:max_i].sum())
+            seg_ids = ((ay[off:off + int(cnts[max_i])] & np.uint64(0xFF << 48))
+                       >> np.uint64(48))
+            n_chained_segs = 1 + int(np.sum(seg_ids[1:] != seg_ids[:-1]))
+            if n_chained_segs < n_segs:
+                rechain = True
+        else:
+            rechain = True
+        if rechain:
             ax, ay, rep_len, mini_pos = _collect(
                 mi, opt, opt.max_occ, mx, my, qlen_sum, qname)
             u, ax, ay = chain_dp(max_chain_gap_ref, max_chain_gap_qry,
@@ -152,18 +167,40 @@ def map_frag_core(mi: MiniIndex, seqs: list[bytes], opt: MapOptions,
         hitmod.set_parent(regs0, opt.mask_level, opt.mask_len,
                           opt.a * 2 + opt.b,
                           bool(opt.flag & MM_F_HARD_MLEVEL), opt.alt_drop)
-        regs0 = hitmod.select_sub(regs0, opt.pri_ratio, mi.k * 2, opt.best_n,
-                                  True, int(opt.max_gap * 0.8))
+        if n_segs <= 1:
+            regs0 = hitmod.select_sub(regs0, opt.pri_ratio, mi.k * 2,
+                                      opt.best_n, True,
+                                      int(opt.max_gap * 0.8))
+        else:
+            regs0 = select_sub_multi(regs0, opt.pri_ratio, 0.2, 0.7,
+                                     max_chain_gap_ref, mi.k * 2, opt.best_n,
+                                     n_segs, qlens)
     if not is_sr and not (opt.flag & MM_F_QSTRAND):
         hitmod.est_err(mi, qlen_sum, regs0, ax, ay, mini_pos)
         regs0 = hitmod.filter_strand_retained(regs0)
 
-    regs0 = align_regs(opt, mi, qlens[0], seqs[0], regs0, ax, ay)
-    hitmod.set_mapq(regs0, opt.min_chain_score, opt.a, rep_len,
-                    is_sr or is_sr_rna, is_splice)
-    res = results[0]
-    res.regs = regs0
-    res.rep_len = rep_len
-    res.frag_gap = max_chain_gap_ref
-    res.ax, res.ay = ax, ay
+    if n_segs == 1:
+        regs0 = align_regs(opt, mi, qlens[0], seqs[0], regs0, ax, ay)
+        hitmod.set_mapq(regs0, opt.min_chain_score, opt.a, rep_len,
+                        is_sr or is_sr_rna, is_splice)
+        results[0].regs = regs0
+    else:
+        segs = seg_gen(hash_, qlens, regs0, ax, ay)
+        for i in range(n_segs):
+            sregs, sax, say = segs[i]
+            hitmod.set_parent(sregs, opt.mask_level, opt.mask_len,
+                              opt.a * 2 + opt.b,
+                              bool(opt.flag & MM_F_HARD_MLEVEL), opt.alt_drop)
+            sregs = align_regs(opt, mi, qlens[i], seqs[i], sregs, sax, say)
+            hitmod.set_mapq(sregs, opt.min_chain_score, opt.a, rep_len,
+                            is_sr or is_sr_rna, is_splice)
+            results[i].regs = sregs
+        if n_segs == 2 and opt.pe_ori >= 0 and (opt.flag & MM_F_CIGAR):
+            mm_pair(max_chain_gap_ref, opt.pe_bonus, opt.a * 2 + opt.b,
+                    opt.a, qlens, [res.regs for res in results])
+
+    for res in results:
+        res.rep_len = rep_len
+        res.frag_gap = max_chain_gap_ref
+    results[0].ax, results[0].ay = ax, ay
     return results

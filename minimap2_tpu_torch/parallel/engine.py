@@ -13,11 +13,15 @@ Without -c/-a (``run_batched_cli``) the records become PAF with ``_mapq``
 (``run_batched_align_cli``) each chosen chain's extent is aligned on the
 device (parallel/align_batch.py) and written as SAM or PAF with cg:Z.
 
-Both drivers hand the reads the device path does not take to the host
+With two query files in fragment mode (``-x sr r1.fq r2.fq``,
+``run_batched_pe_cli``) both ends of each pair are mapped and aligned as
+single reads on the device, then paired by mm_pair on the host.
+
+The drivers hand the reads the device path does not take to the host
 mapping path (map/pipeline.py map_frag_core, in C++ through native/), where
-the JAX package does: PAF reads longer than L, and -c/-a reads whose device
-alignment failed its audit.  ``host_path`` counts those reads and their
-seconds.
+the JAX package does: PAF reads longer than L, -c/-a reads whose device
+alignment failed its audit, and whole pairs with such an end.
+``host_path`` counts those reads and their seconds.
 """
 from __future__ import annotations
 
@@ -38,10 +42,12 @@ from .. import native
 from ..config import (MM_F_EQX, MM_F_NO_LJOIN, MM_F_OUT_SAM, MM_F_RMQ,
                       MM_F_SAM_HIT_ONLY, MM_F_SPLICE, MM_F_SR, MM_I_HPC)
 from ..io import format as fmt
-from ..io.fastx import FastxReader
+from ..io.fastx import FastxReader, revcomp_record
 from ..map import hit as hitmod
 from ..map.align_engine import gen_ts_mat
-from ..map.driver import map_fragment, write_fragment
+from ..map.driver import flip_back, iter_fragments, map_fragment, \
+    write_fragment
+from ..map.pe import pair as pe_pair
 from ..map.pipeline import map_frag_core
 from ..ops.chain import chain_batch
 from ..ops.sketch import sketch_batch
@@ -830,5 +836,150 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
           f"({n_reads / max(dt, 1e-9):.1f} reads/s) on {ab.device}; "
           f"host path (fallback reads): {n_fb} "
           f"({100.0 * n_fb / max(n_reads, 1):.1f}%)"
+          + (f" [{why}]" if why else ""), file=sys.stderr)
+    return n_reads, fallbacks
+
+
+def run_batched_pe_cli(mi, opt, queries, out, batch_frags: int = 256,
+                       L: int = 1024, align_kw: dict | None = None,
+                       device=None):
+    """--batch paired-end (-x sr r1.fq r2.fq, SAM or PAF): build the step
+    and the aligner at the JAX driver's widths (JAX engine.py:831-954): 2 x
+    batch_frags reads a step, L, M = max(256, L // 4), A = 2048, chain
+    window 64, K = 3 with secondaries, no waypoints and no long-join pass;
+    AlignBatcher QP = L, TP = L + 512, W = 256 unless align_kw says
+    otherwise.  Then ``align_pairs``."""
+    from .align_batch import AlignBatcher
+    dev = resolve_device(device)
+    p = BatchParams(L=L, M=max(256, L // 4), A=2048,
+                    occ_cap=_occ_cap(opt), chain_window=64,
+                    k=mi.k, w=mi.w, max_dist_x=opt.max_gap,
+                    max_dist_y=opt.max_gap, bw=opt.bw,
+                    hpc=bool(mi.flag & MM_I_HPC))
+    sec_mode = opt.best_n > 0 and opt.pri_ratio > 0
+    step = PafStep(DeviceIndex.from_host(mi, dev), p, K=3 if sec_mode else 1,
+                   min_sc=opt.min_chain_score, with_sec=sec_mode)
+    ab = AlignBatcher(mi, opt, device=dev, **{"QP": L, "TP": L + 512,
+                                              "W": 256, **(align_kw or {})})
+    return align_pairs(step, ab, mi, opt, queries, out, batch_frags)
+
+
+def flatten_fragments(frags, pe_ori: int):
+    """The reads of a batch of fragments, an end reverse-complemented as
+    pe_ori says (worker_for map.c:437-442; as in the JAX driver, the first
+    and second read of any fragment): (records, flipped flags)."""
+    recs, flips = [], []
+    for frag in frags:
+        for j, rec in enumerate(frag):
+            flip = bool((j == 0 and (pe_ori >> 1) & 1)
+                        or (j == 1 and pe_ori & 1))
+            recs.append(revcomp_record(rec) if flip else rec)
+            flips.append(flip)
+    return recs, flips
+
+
+def pair_and_write(out, mi, opt, frag, regss, flips):
+    """A device fragment's output: mm_pair on its per-end regions (for two
+    ends), which max_chain_gap_ref (map.c:266-271) bounds as at map.c:354,
+    then each reverse-complemented end's regions back to its read strand,
+    then its records."""
+    n_seg = len(frag)
+    if n_seg == 2:
+        qlens = [len(r.seq) for r in frag]
+        if opt.max_gap_ref > 0:
+            mgr = opt.max_gap_ref
+        elif opt.max_frag_len > 0:
+            mgr = max(opt.max_frag_len - sum(qlens), opt.max_gap)
+        else:
+            mgr = opt.max_gap
+        pe_pair(mgr, opt.pe_bonus, opt.a * 2 + opt.b, opt.a, qlens, regss)
+    for j in range(n_seg):
+        if flips[j]:
+            flip_back(regss[j], len(frag[j].seq))
+    write_fragment(out, mi, opt, frag, regss, [0] * n_seg)
+
+
+def align_pairs(step: PafStep, ab, mi, opt, queries, out, batch_frags: int):
+    """Map and align the fragments of ``queries`` (iter_fragments: the files
+    interleaved, grouped by qname) in batches of batch_frags fragments:
+    both ends of a pair map and align independently on the device (the
+    reference's weak-pairing mode, map.c:380-390), then mm_pair's sort +
+    windowed join rescues proper pairs and blends the pair mapq
+    (pe.c:81-182), in the mapped orientation, before the
+    reverse-complemented end flips back to its read strand.  A fragment
+    with an end whose device alignment failed its audit goes to the host
+    path whole; an end past the DP shape is written unmapped, as in the
+    JAX package (it is not among batch_build_regs' fb_ids).  Records are
+    written fragment by fragment in input order; the next batch's mapping
+    step is enqueued before the previous batch is aligned.  Returns
+    (reads, [(fragment's first read name, cause)] of the host-path
+    fragments)."""
+    mat = gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi)
+    B = 2 * batch_frags
+    t0 = time.time()
+    n_reads = 0
+    fallbacks = []
+
+    def emit(frags, recs, flips, map_out):
+        by_read, fallback, _unm, fb_ids = batch_build_regs(
+            recs, map_out, ab, mi, opt, mat, step.with_sec, False)
+        cause = {id(rec): c for rec, c in fallback}
+        idx = 0
+        for frag in frags:
+            n_seg = len(frag)
+            regss = []
+            why = None
+            for j in range(n_seg):
+                rec = recs[idx + j]
+                if id(rec) in fb_ids:
+                    why = cause[id(rec)]
+                    break
+                regs = by_read.get(id(rec), (None, []))[1]
+                if regs and regs[0].id != 0:
+                    why = "no primary"
+                    break
+                regss.append(regs)
+            if why is not None:
+                idx += n_seg
+                fallbacks.append((frag[0].name, why))
+                t = time.perf_counter()
+                results = map_fragment(mi, opt, frag)
+                write_fragment(out, mi, opt, frag,
+                               [res.regs for res in results],
+                               [res.rep_len for res in results])
+                host_path["reads"] += n_seg
+                host_path["seconds"] += time.perf_counter() - t
+                continue
+            pair_and_write(out, mi, opt, frag, regss,
+                           flips[idx:idx + n_seg])
+            idx += n_seg
+
+    pending = []    # [(frags, recs, flips, map output)]
+
+    def queue_batch(frags):
+        nonlocal n_reads
+        recs, flips = flatten_fragments(frags, opt.pe_ori)
+        n_reads += len(recs)
+        pending.append((frags, recs, flips, dispatch_batch(
+            step, [r.seq for r in recs], step.p, pad_to=B)))
+        while len(pending) > 1:
+            emit(*pending.pop(0))
+
+    buf = []
+    for frag in iter_fragments(queries, True):
+        buf.append(frag)
+        if len(buf) >= batch_frags:
+            queue_batch(buf)
+            buf = []
+    if buf:
+        queue_batch(buf)
+    while pending:
+        emit(*pending.pop(0))
+    dt = time.time() - t0
+    why = ", ".join(f"{c} {n}" for c, n in
+                    sorted(Counter(c for _, c in fallbacks).items()))
+    print(f"[M::batch] aligned {n_reads} paired reads in {dt:.2f}s "
+          f"({n_reads / max(dt, 1e-9):.1f} reads/s) on {ab.device}; "
+          f"host path (whole fragments): {len(fallbacks)}"
           + (f" [{why}]" if why else ""), file=sys.stderr)
     return n_reads, fallbacks

@@ -205,12 +205,20 @@ def test_cli_options_match_jax(conc_world, monkeypatch, opts):
 @pytest.mark.parametrize("opts", [
     ["--batch", "-x", "splice:sr"], ["--batch", "-c", "--eqx"],
     ["--batch", "-x", "splice", "--junc-bed", "junc.bed"],
-    ["--batch", "-x", "asm5"], ["--batch", "-x", "sr"], ["-x", "map-ont"],
+    ["--batch", "-x", "asm5"], ["-x", "map-ont"],
 ])
 def test_cli_off_slice_options_raise(conc_world, opts):
     _, ref, reads = conc_world
     with pytest.raises(NotImplementedError, match="later slice"):
         port_cli.main([*opts, ref, reads], device="cpu")
+
+
+def test_cli_paired_splice_sr_raises(conc_world):
+    """splice:sr stays off the port's paths with two query files too."""
+    _, ref, reads = conc_world
+    with pytest.raises(NotImplementedError, match="splice:sr.*later slice"):
+        port_cli.main(["--batch", "-x", "splice:sr", ref, reads, reads],
+                      device="cpu")
 
 
 @pytest.mark.parametrize("preset", ["map-ont", "map-pb"])

@@ -161,6 +161,12 @@ def _host_cases():
         (256, 256, 256, 64, 150, [(160, 97), (1, 1), (200, 1), (1, 120),
                                   (256, 256), (64, 129)],
          sc, 2, -4, 0, True),
+        # the sr path's widths and scores (QP = L = 1024, TP = L + 512,
+        # W = 256, band w = bw = 100; a2 b8 q12 e2 q24 e1): 150 bp ends
+        # against their extents, a band that dies (|qlen - tlen| > w)
+        (1024, 1536, 256, 64, 100, [(150, 150), (150, 162), (101, 96),
+                                    (150, 141), (60, 170), (150, 150)],
+         (12, 2, 24, 1), 2, -8, 0, True),
     ]
     rng = np.random.default_rng(11)
     for _ in range(10):

@@ -299,10 +299,12 @@ def _host_chain_planes(seed, B, A):
 
 
 @pytest.mark.parametrize("bw,B,A", [(500, 12, 256), (20000, 12, 256),
-                                    (500, 8, 400), (20000, 8, 144)])
+                                    (500, 8, 400), (20000, 8, 144),
+                                    (100, 8, 2048)])
 def test_chain_cuda_source_on_host_matches_plain(chain_host, bw, B, A):
     """The kernel's own code against the plain version, bit-equal: both
-    bands, chunks of 128 anchors with a ragged last one (A = 400, 144)."""
+    bands, chunks of 128 anchors with a ragged last one (A = 400, 144), and
+    the sr path's band 100 at its A = 2048."""
     planes = _host_chain_planes(bw + A, B, A)
     args = dict(CHAIN_ARGS, bw=bw, max_dist_x=max(5000, bw),
                 max_dist_y=max(5000, bw))

@@ -55,7 +55,7 @@ def _reads(seed, B=8, L=1024):
     return codes, lens
 
 
-@pytest.mark.parametrize("k,w", [(15, 10), (16, 8), (19, 19)])
+@pytest.mark.parametrize("k,w", [(15, 10), (16, 8), (19, 19), (21, 11)])
 def test_plain_sketch_matches_jax(k, w):
     codes, lens = _reads(k * 31 + w)
     hhi, hlo, z, mini = (x.numpy() for x in sketch_batch(
@@ -168,6 +168,7 @@ def sketch_host(tmp_path_factory):
 
 @pytest.mark.parametrize("k,w,B,L", [(15, 10, 6, 1024), (19, 10, 6, 1024),
                                      (15, 5, 6, 1024), (19, 19, 6, 1024),
+                                     (21, 11, 6, 1024),
                                      (28, 98, 6, 600), (15, 10, 2, 4112),
                                      (15, 10, 2, 8192)])
 def test_sketch_cuda_source_on_host_matches_plain(sketch_host, k, w, B, L):
