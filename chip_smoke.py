@@ -26,6 +26,14 @@ seconds):
      batches at bench.py's widths (L 12288, M 2048, A 4096, long-join
      pass on); the accuracy gates of phase 3, reads/s, the build's stages,
      peak memory and counts;
+  3e. the one-call device step: ``batch.map_batch`` on phase 3b's
+     device-built index with 512 simulated ONT-like reads of 1.2-2 kb (seed
+     10) in one call at the port's BatchParams defaults (L 2048, M 512, A
+     1024, QP = TP 2048, W 640, ext_w 500): sketch, sort3 and extd2 (its
+     score-only mode) launched, the chain kernel not (the step chains with
+     the scan, as the JAX package's does); >= 90% of reads with contig
+     and strand right and [rs, re) on their source interval, ext_score > 0
+     on every mapped read; reads/s and the chain scan's seconds;
   3d. reads longer than L: on phase 3's genome, 1024 ONT-like reads (5%
      sub, 2.5% del, 2.5% ins; seeds 5, 6 and 7), 896 of 8-11 kb and 128 of
      16.6-50 kb (past L = 16384) in a shuffled order, through
@@ -52,6 +60,17 @@ seconds):
      pairs proper (0x2), every primary CIGAR spanning its read, <= 5% of
      the fragments on the host path; reads/s and the host path's reads and
      seconds;
+  4c. the RMQ tier: 1024 simulated ONT Q20-like reads (8-11 kb, 0.5%
+     substitutions, 0.25% deletions, 0.25% insertions; seed 9) on the same
+     genome through ``cli.main(["--batch", "-a", "-x", "lr:hqae", ...])``
+     (k25 w51), then the PAF route on the same host index through
+     ``engine.run_batched_cli``; sketch, sort3, extd2 and the traceback
+     launched and the chain kernel not (the RMQ tier chains with the scan
+     and its strided second window); -a: >= 90% of primaries on their
+     source interval (fallback reads on their host-path records), no wrong
+     mapq-60 primary, every primary CIGAR spanning its read, <= 5%
+     fallback reads; PAF: phase 3's gates; reads/s of both, the chain
+     scan's seconds a batch and the host path's share;
   5. the HPC path: 1024 PacBio-CLR-like reads (2% sub, 3% del, 5% ins)
      through ``cli.main(["--batch", "-x", "map-pb", ...])`` on the same
      genome; sort1 launched, >= 90% of primaries on their source interval,
@@ -78,8 +97,12 @@ seconds):
      sr shapes: the sketch (k21 w11) on its first batch, sort3 on its
      first compaction and anchor keys, the chain on its first batch's
      anchor planes, extd2 (W 256) and the traceback on its first align
-     launch), timed with CUDA events; extd2's DP cell-updates/s as
-     bench.py defines them;
+     launch; at phase 4c's shapes: the sketch (k25 w51) on its first
+     batch and at k19 w19 on random codes, sort3 on its first compaction
+     (chunked) and anchor keys, extd2 and the traceback on its first align
+     launch; extd2's score-only mode on phase 3e's launch, its own row of
+     the kernels line, with its cell-updates/s), timed with CUDA events;
+     extd2's DP cell-updates/s as bench.py defines them;
      blocks per SM of every kernel, and the sketch's, sort3's and sort1's
      registers and spills (ptxas); the chain's longest read (valid
      anchors n, ns a step) and each traceback's longest walk (diagonals,
@@ -92,11 +115,18 @@ seconds):
   9. card vs CPU (plain versions): the first 128 reads of phases 3 and 5
      through PafStep give identical records, the first 8 reads of phase
      4 and the first 4 of phase 6 through their -a paths identical SAM,
-     the first 4 long reads of phase 3d with 4 of its short reads through
+     the first 2 long reads of phase 3d with 2 of its short reads through
      the PAF driver identical PAF, the first 16 pairs of phase 4b through
-     ``engine.align_pairs`` identical SAM;
+     ``engine.align_pairs`` identical SAM, the first 8 reads of phase 4c
+     through its -a path identical SAM, the first 32 reads of phase 3e
+     through ``map_batch`` identical dicts;
+  9b. the CLI without --batch (the host mapping path, no kernel may
+     launch): a 10 Mb cut of phase 3's first contig and 128 ONT-like reads
+     (seed 11) through ``cli.main(["-c", "-x", "map-ont", "-t", "8", ...])``
+     and with -t 1: byte-identical PAF, phase 3's accuracy gates; reads/s;
  10. a ``kernels`` JSON line, then the ``ok`` line.
 """
+import contextlib
 import io
 import json
 import os
@@ -114,6 +144,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 NONTENSOR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 GENOME_LEN, N_CONTIGS, N_READS = 100_000_000, 8, 1024
 SR_PAIRS, SR_LEN = 2048, 150
+MB_READS, HOST_CUT, HOST_READS = 512, 10_000_000, 128
 
 
 def log(msg):
@@ -266,10 +297,30 @@ def phase_main_path(tmp):
         write_fastq(path, [f"{nm}/{e}" for nm in sr_names], ends)
     sr_lens = {(nm, e): len(x) for e, ends in ((1, sr1), (2, sr2))
                for nm, x in zip(sr_names, ends)}
+    # phase 4c's ONT Q20-like reads, phase 3e's short ONT-like reads and
+    # phase 9b's world (a 10 Mb cut of the first contig and its reads)
+    qnames, qreads = simulate_reads(seqs, N_READS, np.random.default_rng(9),
+                                    sub=0.005, dele=0.0025, ins=0.0025,
+                                    name_seqs=names)
+    q_rd = os.path.join(tmp, "q20_reads.fa")
+    write_fasta(q_rd, qnames, qreads)
+    mb_names, mb_reads = simulate_reads(seqs, MB_READS,
+                                        np.random.default_rng(10),
+                                        min_len=1200, max_len=2000,
+                                        name_seqs=names)
+    cut_name = [names[0]]
+    cut_names, cut_reads = simulate_reads([seqs[0][:HOST_CUT]], HOST_READS,
+                                          np.random.default_rng(11),
+                                          name_seqs=cut_name)
+    cut_ref, cut_rd = (os.path.join(tmp, f) for f in ("cut.fa", "cut_reads.fa"))
+    write_fasta(cut_ref, cut_name, [seqs[0][:HOST_CUT]])
+    write_fasta(cut_rd, cut_names, cut_reads)
     log(f"[main] simulated {GENOME_LEN / 1e6:.0f} Mb genome + {N_READS} "
-        f"ONT-like, {N_READS} PacBio-like and {N_READS} cDNA reads and "
-        f"{SR_PAIRS} short-read pairs in {time.time() - t0:.1f}s")
-    del reads, hreads, gseqs, greads, sr1, sr2
+        f"ONT-like, {N_READS} PacBio-like, {N_READS} cDNA and {N_READS} "
+        f"ONT Q20-like reads, {SR_PAIRS} short-read pairs, {MB_READS} "
+        f"short ONT-like reads and a {HOST_CUT / 1e6:.0f} Mb cut with "
+        f"{HOST_READS} reads in {time.time() - t0:.1f}s")
+    del reads, hreads, gseqs, greads, sr1, sr2, qreads
 
     from minimap2_tpu_torch.parallel import batch, engine
     comp, anch, sk = {}, {}, {}
@@ -285,7 +336,9 @@ def phase_main_path(tmp):
                 sketch_in=sk["args"],
                 hnames=hnames, spl_ref=spl_ref, spl_rd=spl_rd, gnames=gnames,
                 introns=introns, sr_rd=sr_rd, sr_names=sr_names,
-                sr_lens=sr_lens)
+                sr_lens=sr_lens, q_rd=q_rd, qnames=qnames,
+                mb_names=mb_names, mb_reads=mb_reads, cut_ref=cut_ref,
+                cut_rd=cut_rd, cut_names=cut_names)
 
 
 def _build_on_card(tag, names, parts, w, k, **kw):
@@ -296,19 +349,14 @@ def _build_on_card(tag, names, parts, w, k, **kw):
     from minimap2_tpu_torch.ops._build import launches
     from minimap2_tpu_torch.parallel import devbuild
     sk = {}
-    hook = _capture_first(devbuild, "sketch_batch", sk)
-    saved = devbuild.sketch_batch
-    devbuild.sketch_batch = hook[2]
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     launches.clear()
-    try:
+    with _hooked([_capture_first(devbuild, "sketch_batch", sk)]):
         di, meta = devbuild.build_device_index(names, parts, w, k,
                                                device="cuda", **kw)
         torch.cuda.synchronize()
-    finally:
-        devbuild.sketch_batch = saved
     counts = dict(launches)
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     require(counts.get("sketch", 0) > 0,
@@ -386,7 +434,72 @@ def phase_devbuild(main, tmp):
     require(same, "PAF through the device-built index differs from phase 3's")
     log("[devbuild] PAF through the device-built index byte-identical to "
         "phase 3's")
-    return dict(info, map=run)
+    return dict(info, map=run, di=di, contigs=list(names))
+
+
+def _truth_ok(name, contigs, rid, rev, rs, re_):
+    """A mapping (contig index, strand, [rs, re)) on the simulated read's
+    source interval."""
+    _, chrom, st, en, strand = name.split("!")
+    return (contigs[rid] == chrom and rev == (strand == "-")
+            and rs < int(en) and re_ > int(st))
+
+
+def phase_map_batch(main, dvb):
+    """Phase 3e: the one-call device step ``batch.map_batch`` on phase 3b's
+    device-built index, 512 short ONT-like reads in one batch at the
+    port's BatchParams defaults; the chain scan's seconds, extd2's first
+    (score-only) launch for phase 7."""
+    from minimap2_tpu_torch.ops._build import launches
+    from minimap2_tpu_torch.parallel import batch, engine
+    p = batch.BatchParams()
+    di = dvb["di"]
+    require((p.k, p.w) == (15, 10), "phase 3b's index is k15 w10")
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    reads = main["mb_reads"]
+    codes, lens = engine.encode_batch([acgt[r].tobytes() for r in reads],
+                                      p.L)
+    require((lens == [len(r) for r in reads]).all(),
+            "a map_batch read does not fit L")
+    c_t, l_t = (torch.from_numpy(x).cuda() for x in (codes, lens))
+    job, scans = {}, []
+    torch.cuda.synchronize()
+    launches.clear()
+    t = time.time()
+    with _hooked([_capture_first(batch, "extd2_batch2", job),
+                  _scan_timer(batch, scans)]), torch.no_grad():
+        out = batch.map_batch(di, c_t, l_t, p)
+        torch.cuda.synchronize()
+    map_s = time.time() - t
+    counts = dict(launches)
+    for name in ("sketch", "sort3", "extd2"):
+        require(counts.get(name, 0) > 0,
+                f"kernel {name} never launched in map_batch")
+    require(counts.get("chain", 0) == 0,
+            "the chain kernel launched in map_batch (the JAX package's "
+            "step chains with the scan)")
+    o = {k: v.cpu().numpy() for k, v in out.items()}
+    contigs = dvb["contigs"]
+    n_ok = sum(bool(o["mapped"][i]) and _truth_ok(
+        nm, contigs, int(o["rid"][i]), int(o["rev"][i]), int(o["rs"][i]),
+        int(o["re"][i])) for i, nm in enumerate(main["mb_names"]))
+    n_mapped = int(o["mapped"].sum())
+    n_ext = int((o["ext_score"][o["mapped"]] > 0).sum())
+    frac = n_ok / len(main["mb_names"])
+    log(f"[map_batch] {len(codes)} reads ({int(lens.min())}-"
+        f"{int(lens.max())} bp) in one call in {map_s:.3f}s "
+        f"({len(codes) / map_s:.1f} reads/s, with its warm-up); the chain "
+        f"scan {scans[0][0]:.3f}s ({scans[0][1]} steps); "
+        f"{n_ok} ({100 * frac:.1f}%) on their contig, strand and source "
+        f"interval; {n_mapped} mapped, {n_ext} of them with ext_score > 0;"
+        f" launches {counts}")
+    require(frac >= 0.90, f"map_batch: only {100 * frac:.1f}% of reads "
+            "correct")
+    require(n_ext == n_mapped, f"map_batch: {n_mapped - n_ext} mapped reads "
+            "with ext_score <= 0")
+    return dict(p=p, di=di, codes=codes, lens=lens, out=o, launches=counts,
+                map_s=map_s, scan_s=scans[0][0], first_job=job,
+                reads_per_s=len(codes) / map_s, correct=frac)
 
 
 def phase_grch38(tmp):
@@ -621,21 +734,18 @@ def write_fastq(path, names, codes):
                                            b"I" * len(x)))
 
 
-def phase_align_path(main, tmp):
-    """The -a path through the CLI on the same genome and reads.  Records
-    the first align sub-batch's inputs (for phase 7)."""
-    from minimap2_tpu_torch.parallel import align_batch
-    sam = os.path.join(tmp, "out.sam")
-    first_job = {}
-    run = _align_run(
-        "align", ["--batch", "-a", "-x", "map-ont", "-o", sam, main["ref"],
-                  main["rd"]], ("sketch", "sort3", "sort3_merge", "chain",
-                                "extd2", "traceback"),
-        [_capture_first(align_batch, "_align_step", first_job)])
+def _align_gates(tag, run, rnames, max_fallback):
+    """The -a path's gates on an _align_run: every primary CIGAR spans its
+    read and its Reg's reference interval, >= 90% of primaries on their
+    source interval (a fallback read scored on its host-path record), no
+    wrong mapq-60 primary, at most max_fallback of the reads on the host
+    path.  Returns (gates, mean identity of the primaries); the gates are
+    checked after the later phases, so that a run that fails them still
+    measures the kernels."""
     prim, prim_regs = run["prim"], run["prim_regs"]
     n_ok = n_q60 = n_q60_wrong = 0
     idents, bad_cigar = [], []
-    for nm in main["rnames"]:
+    for nm in rnames:
         t = prim.get(nm)
         if t is None:
             continue
@@ -652,24 +762,132 @@ def phase_align_path(main, tmp):
             n_q60 += 1
             n_q60_wrong += not ok
         idents += [1.0 - float(x[5:]) for x in t if x.startswith("de:f:")]
-    frac = n_ok / len(main["rnames"])
+    frac = n_ok / len(rnames)
     mean_ident = statistics.fmean(idents) if idents else 0.0
-    log(f"[align] {n_ok}/{len(main['rnames'])} primaries correct "
+    n_fb = len(run["fallbacks"])
+    log(f"[{tag}] {n_ok}/{len(rnames)} primaries correct "
         f"({100 * frac:.1f}%), {n_q60} at mapq 60 of which {n_q60_wrong} "
         f"wrong; mean identity of the primaries {mean_ident:.4f}; "
         f"{len(prim) - len(bad_cigar)}/{len(prim)} CIGARs span read and "
-        "reference interval")
-    # checked after the later phases, so that a run that fails them still
-    # measures the kernels
-    gates = [(not bad_cigar, f"CIGAR lengths disagree for {bad_cigar[:5]}"),
-             (frac >= 0.90, f"only {100 * frac:.1f}% of primaries correct"),
-             (n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 primaries"),
-             # the port takes the JAX package's fallback decisions; on
-             # these seeded reads they come to 2.25% (PERF.md, section 6)
-             (len(run["fallbacks"]) <= 0.03 * run["n_reads"],
-              f"{len(run['fallbacks'])} fallback reads (> 3%)")]
+        f"reference interval; {n_fb} fallback reads "
+        f"({100 * n_fb / run['n_reads']:.2f}%)")
+    gates = [(not bad_cigar, f"{tag}: CIGAR lengths disagree for "
+              f"{bad_cigar[:5]}"),
+             (frac >= 0.90, f"{tag}: only {100 * frac:.1f}% of primaries "
+              "correct"),
+             (n_q60_wrong == 0, f"{tag}: {n_q60_wrong} wrong mapq-60 "
+              "primaries"),
+             (n_fb <= max_fallback * run["n_reads"],
+              f"{tag}: {n_fb} fallback reads (> {100 * max_fallback:.0f}%)")]
+    return gates, mean_ident
+
+
+def phase_align_path(main, tmp):
+    """The -a path through the CLI on the same genome and reads.  Records
+    the first align sub-batch's inputs (for phase 7)."""
+    from minimap2_tpu_torch.parallel import align_batch
+    sam = os.path.join(tmp, "out.sam")
+    first_job = {}
+    run = _align_run(
+        "align", ["--batch", "-a", "-x", "map-ont", "-o", sam, main["ref"],
+                  main["rd"]], ("sketch", "sort3", "sort3_merge", "chain",
+                                "extd2", "traceback"),
+        [_capture_first(align_batch, "_align_step", first_job)])
+    # the port takes the JAX package's fallback decisions; on these seeded
+    # reads they come to 2.25% (PERF.md, section 6)
+    gates, mean_ident = _align_gates("align", run, main["rnames"], 0.03)
     return dict(run, first_job=first_job, mean_identity=mean_ident,
                 gates=gates)
+
+
+def _scan_timer(mod, store):
+    """A hook for mod._chain_scan (engine's or batch's) that records each
+    call's seconds (synchronised) and steps (the batch's last valid
+    anchor)."""
+    from minimap2_tpu_torch.ops.chain import last_valid
+    fn = mod._chain_scan
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        store.append((time.time() - t, last_valid(a[5])))
+        return out
+    return mod, "_chain_scan", timed
+
+
+def _scan_log(tag, scans, n_batches):
+    tot = sum(t for t, _ in scans)
+    steps = sum(n for _, n in scans)
+    log(f"[{tag}] the chain scan: {len(scans)} calls ({n_batches} batches, "
+        f"two passes each), {tot:.2f}s, {tot / max(n_batches, 1):.3f}s a "
+        f"batch, {steps} steps, {1e6 * tot / max(steps, 1):.1f} us a step")
+    return dict(calls=len(scans), seconds=tot, steps=steps,
+                s_per_batch=tot / max(n_batches, 1))
+
+
+def phase_lr_hqae(main, tmp):
+    """Phase 4c: ONT Q20-like reads through ``cli.main(["--batch", "-a",
+    "-x", "lr:hqae", ...])`` (k25 w51, the RMQ tier: the chain scan, not
+    the chain kernel), then the PAF route through
+    ``engine.run_batched_cli`` on the same host index.  Records the first
+    batch's sketch input, compaction and anchor keys and first align
+    launch (for phase 7)."""
+    from minimap2_tpu_torch import cli, config
+    from minimap2_tpu_torch.ops._build import launches
+    from minimap2_tpu_torch.parallel import align_batch, batch, engine
+    sam, paf = (os.path.join(tmp, f) for f in ("q20.sam", "q20.paf"))
+    first_job, sk, comp, anch, scans = {}, {}, {}, {}, []
+    run = _align_run(
+        "lr:hqae", ["--batch", "-a", "-x", "lr:hqae", "-o", sam, main["ref"],
+                    main["q_rd"]], ("sketch", "sort3", "sort3_merge",
+                                    "extd2", "traceback"),
+        [_capture_first(align_batch, "_align_step", first_job),
+         _capture_first(engine, "sketch_batch", sk),
+         _capture_first(batch, "sort3_chunked", comp),
+         _capture_first(batch, "sort3_rows", anch),
+         _scan_timer(engine, scans)])
+    p = run["step"].p
+    require(p.rmq_tier and (p.k, p.w) == (25, 51) and p.bw_long > p.bw,
+            f"the lr:hqae step is not the RMQ tier at k25 w51 ({p})")
+    require(run["launches"].get("chain", 0) == 0,
+            "the chain kernel launched on the lr:hqae -a path")
+    n_batches = -(-run["n_reads"] // 512)
+    scan = _scan_log("lr:hqae", scans, n_batches)
+    gates, mean_ident = _align_gates("lr:hqae", run, main["qnames"], 0.05)
+    host_share = run["host"]["seconds"] / run["align_s"]
+    # the PAF route on the same host index, its launches counted alone
+    _io, mo, _args = cli.parse_args(["-x", "lr:hqae"])
+    config.mapopt_update(mo, run["mi"])
+    seen, pscans = {}, []
+    launches.clear()
+    engine.host_path.clear()
+    with _hooked([_map_timer(seen), _scan_timer(engine, pscans)]), \
+            open(paf, "w") as out:
+        engine.run_batched_cli(run["mi"], mo, [main["q_rd"]], out)
+    pcounts = dict(launches)
+    for name in ("sketch", "sort3", "sort3_merge"):
+        require(pcounts.get(name, 0) > 0,
+                f"kernel {name} never launched on the lr:hqae PAF path")
+    require(pcounts.get("chain", 0) == 0,
+            "the chain kernel launched on the lr:hqae PAF path")
+    paf_rps = seen["n"] / seen["map_s"]
+    log(f"[lr:hqae] PAF route: {seen['n']} reads in {seen['map_s']:.2f}s "
+        f"({paf_rps:.1f} reads/s); launches {pcounts}; host path "
+        f"{engine.host_path['reads']} reads")
+    pscan = _scan_log("lr:hqae PAF", pscans, n_batches)
+    paf_accuracy("lr:hqae PAF", paf, main["qnames"])
+    log(f"[lr:hqae] -a: {run['reads_per_s']:.1f} aligned reads/s, the host "
+        f"path {100 * host_share:.1f}% of the run; the chain scan "
+        f"{100 * scan['seconds'] / run['align_s']:.1f}% of the -a run, "
+        f"{100 * pscan['seconds'] / seen['map_s']:.1f}% of the PAF run")
+    return dict(run, first_job=first_job, sketch_in=sk["args"],
+                compaction_keys=comp["args"], anchor_keys=anch["args"],
+                mean_identity=mean_ident, gates=gates, scan=scan,
+                paf_scan=pscan, paf_reads_per_s=paf_rps,
+                paf_launches=pcounts, host_share=host_share,
+                rd=main["q_rd"])
 
 
 def phase_sr_path(main, tmp):
@@ -782,24 +1000,31 @@ def _pe_run(tag, argv, kernels, hooks=()):
                 n_reads=n_reads, fallbacks=fallbacks, host=host)
 
 
-def _run_cli(argv, hooks):
-    """cli.main(argv) with module attributes swapped for the run: hooks =
-    [(module, name, replacement)].  Returns (rc, launches, seconds, host
-    path {reads, seconds})."""
-    from minimap2_tpu_torch import cli
-    from minimap2_tpu_torch.ops._build import launches
-    from minimap2_tpu_torch.parallel import engine
+@contextlib.contextmanager
+def _hooked(hooks):
+    """Module attributes swapped for a block: hooks = [(module, name,
+    replacement)]."""
     saved = [(m, n, getattr(m, n)) for m, n, _ in hooks]
     for m, n, f in hooks:
         setattr(m, n, f)
-    launches.clear()
-    engine.host_path.clear()
-    t1 = time.time()
     try:
-        rc = cli.main(argv)
+        yield
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
+
+
+def _run_cli(argv, hooks):
+    """cli.main(argv) with the hooks in place (see _hooked).  Returns (rc,
+    launches, seconds, host path {reads, seconds})."""
+    from minimap2_tpu_torch import cli
+    from minimap2_tpu_torch.ops._build import launches
+    from minimap2_tpu_torch.parallel import engine
+    launches.clear()
+    engine.host_path.clear()
+    t1 = time.time()
+    with _hooked(hooks):
+        rc = cli.main(argv)
     host = {"reads": engine.host_path["reads"],
             "seconds": engine.host_path["seconds"]}
     return rc, dict(launches), time.time() - t1, host
@@ -831,12 +1056,10 @@ def _capture_calls(mod, name, store, n):
     return mod, name, capturing
 
 
-def _paf_run(tag, argv, kernels, hooks=()):
-    """cli.main(argv) on a PAF path with its mapping loop timed; fails
-    unless every kernel named launched.  Returns the step, index, reads,
-    seconds, launches and reads/s."""
+def _map_timer(seen):
+    """A hook for engine.map_queries that times the mapping loop
+    (synchronised) and records its step, index, options and reads."""
     from minimap2_tpu_torch.parallel import engine
-    seen = {}
     map_queries = engine.map_queries
 
     def timed(step, mi, queries, out, batch_reads, opt=None):
@@ -846,8 +1069,15 @@ def _paf_run(tag, argv, kernels, hooks=()):
         torch.cuda.synchronize()
         seen.update(step=step, mi=mi, opt=opt, n=n, map_s=time.time() - t)
         return n
-    rc, counts, total_s, host = _run_cli(
-        argv, [(engine, "map_queries", timed), *hooks])
+    return engine, "map_queries", timed
+
+
+def _paf_run(tag, argv, kernels, hooks=()):
+    """cli.main(argv) on a PAF path with its mapping loop timed; fails
+    unless every kernel named launched.  Returns the step, index, reads,
+    seconds, launches and reads/s."""
+    seen = {}
+    rc, counts, total_s, host = _run_cli(argv, [_map_timer(seen), *hooks])
     require(rc == 0, f"{tag}: cli.main returned {rc}")
     reads_per_s = seen["n"] / seen["map_s"]
     log(f"[{tag}] index build + upload {total_s - seen['map_s']:.1f}s; "
@@ -1498,6 +1728,131 @@ def phase_sr_kernels(srp, rows):
                                       x["max_abs_err"])
 
 
+def phase_rmq_kernels(lrq, mb, rows):
+    """Phase 7 at phase 4c's shapes (lr:hqae, k25 w51) and phase 3e's
+    (map_batch): the sketch on 4c's first batch and on random codes at k19
+    w19 (asm5/asm10), sort3 on 4c's first compaction (chunked) and anchor
+    keys, extd2 and the traceback on 4c's first align launch, and extd2's
+    score-only mode on 3e's launch; each bit-equal to its plain version,
+    timed, beside its bound.  Adds "lr:hqae" / "asm" entries to the
+    kernel rows and the extd2 score-only row."""
+    from minimap2_tpu_torch.ops import _build, extend, sketch, sort
+    by = {r["name"]: r for r in rows}
+    rng = np.random.default_rng(12)
+    rnd = (torch.from_numpy(rng.integers(0, 4, (512, 16384))
+                            .astype(np.uint8)).cuda(),
+           torch.from_numpy(rng.integers(8192, 16385, 512)
+                            .astype(np.int32)).cuda(), 19, 19)
+    for tag, p_args in (("lr:hqae", tuple(lrq["sketch_in"])),
+                        ("asm k19 w19 random", rnd)):
+        PB, PL = p_args[0].shape
+        k_, w_ = p_args[2], p_args[3]
+        e = max_abs_err(sketch.sketch_batch(*p_args),
+                        sketch.device_sketch(*p_args))
+        require(e == 0, f"sketch differs from its plain version on {tag} "
+                f"({PB} x {PL}, k{k_} w{w_}; {e})")
+        s_ms, s_by = bound(PB * PL * 11 + PB * 4,
+                           PB * PL * (8 * k_ + 40 + 7 * w_))
+        x = dict(k=k_, w=w_, shape=[PB, PL], max_abs_err=e,
+                 ms=cuda_ms(lambda a=p_args: sketch.sketch_batch(*a)),
+                 plain_ms=cuda_ms(lambda a=p_args: sketch.device_sketch(*a),
+                                  reps=3),
+                 bound_ms=s_ms, bound_by=s_by,
+                 blocks_per_sm=_build.blocks_per_sm("sketch", PL, w_))
+        by["sketch"]["paths"][tag] = x
+        by["sketch"]["max_abs_err"] = max(by["sketch"]["max_abs_err"], e)
+        log(f"[kernels] sketch on {tag} ({PB} x {PL}, k{k_} w{w_}): "
+            f"bit-equal, {x['ms']:.4f} ms, plain {x['plain_ms']:.2f} ms, "
+            f"bound {s_ms:.4f} ms ({s_by}), {x['blocks_per_sm']} blocks per "
+            f"SM")
+
+    def chunked_plain(c_args):
+        B_, A_ = c_args[0].shape
+        s_ = sort.sort3_rows_plain(*(x.reshape(-1, 2048) for x in c_args))
+        return sort.sort3_rows_plain(*(x.view(B_, -1, 2048)[:, :, :1024]
+                                       .reshape(B_, -1) for x in s_))
+    c_keys, a_keys = lrq["compaction_keys"], lrq["anchor_keys"]
+    B_, A_ = c_keys[0].shape
+    require((B_, A_) == (512, 16384), f"lr:hqae compaction {B_} x {A_}")
+    err_c = max_abs_err(sort.sort3_chunked(*c_keys), chunked_plain(c_keys))
+    err_a = max_abs_err(sort.sort3_rows(*a_keys),
+                        sort.sort3_rows_plain(*a_keys))
+    require(err_c == 0 and err_a == 0, f"sort3 differs from its plain "
+            f"version on the lr:hqae keys ({err_c}, {err_a})")
+    merge_stages = sort_stages(8192) - sort_stages(1024)
+    cb, cby = bound(B_ * A_ * 12 + B_ * 8192 * 12,
+                    (B_ * 8 * 1024 * sort_stages(2048)
+                     + B_ * 4096 * merge_stages) * 8)
+    Ba, Aa = a_keys[0].shape
+    ab_, aby = bound(Ba * Aa * 24, Ba * (Aa // 2) * sort_stages(Aa) * 8)
+    x = dict(chunked=dict(
+        shape=[B_, A_], max_abs_err=err_c,
+        ms=cuda_ms(lambda: sort.sort3_chunked(*c_keys)),
+        plain_ms=cuda_ms(lambda: chunked_plain(c_keys), reps=3),
+        bound_ms=cb, bound_by=cby,
+        library_ms=cuda_ms(lambda: library_sort3(*c_keys), reps=5)),
+        anchors=dict(
+        shape=[Ba, Aa], max_abs_err=err_a,
+        ms=cuda_ms(lambda: sort.sort3_rows(*a_keys)),
+        plain_ms=cuda_ms(lambda: sort.sort3_rows_plain(*a_keys), reps=3),
+        bound_ms=ab_, bound_by=aby,
+        library_ms=cuda_ms(lambda: library_sort3(*a_keys), reps=5)))
+    by["sort3"]["lr:hqae"] = x
+    log(f"[kernels] sort3 on lr:hqae's first compaction ({B_} x {A_}, "
+        f"chunked) and anchor keys ({Ba} x {Aa}): bit-equal, "
+        f"{x['chunked']['ms']:.4f} / {x['anchors']['ms']:.4f} ms, plain "
+        f"{x['chunked']['plain_ms']:.2f} / {x['anchors']['plain_ms']:.2f} "
+        f"ms, bound {cb:.4f} ({cby}) / {ab_:.4f} ({aby}) ms, torch.sort x3 "
+        f"{x['chunked']['library_ms']:.4f} / "
+        f"{x['anchors']['library_ms']:.4f} ms")
+
+    ext, tb, ext_kw = _extd2_traceback(lrq["first_job"])
+    _log_extd2_traceback("lr:hqae", ext, tb, ext_kw)
+    for name, x in (("extd2", ext), ("traceback", tb)):
+        by[name]["lr:hqae"] = x
+        by[name]["max_abs_err"] = max(by[name]["max_abs_err"],
+                                      x["max_abs_err"])
+
+    # map_batch's launch: score only (no p), zdrop 400, G 16, RB 128
+    (qr, sf, lens), kw = mb["first_job"]["args"], mb["first_job"]["kw"]
+    require(kw["with_cigar"] is False and kw["zdrop"] >= 0,
+            f"map_batch's extd2 launch is not score-only with zdrop ({kw})")
+    N, QP = qr.shape
+    TP, W, RB, w, G = kw["TP"], kw["W"], kw["RB"], kw["w"], kw["G"]
+    RT = (kw["R"] + RB - 1) // RB * RB
+    p_, ez = extend.extd2_batch2(qr, sf, lens, **kw)
+    require(p_ is None, "score-only extd2 returned direction bytes")
+
+    def plain():
+        _, ezp = extend.extd2_batch2_plain(
+            qr, sf, lens, W=W, RB=RB, RT=RT, q=kw["q"], e=kw["e"],
+            q2=kw["q2"], e2=kw["e2"], w=w, sc_mch=kw["sc_mch"],
+            sc_mis=kw["sc_mis"], sc_N=kw["sc_N"], with_cigar=False)
+        return extend._ez_dead(ezp, lens, G, RB, RT)
+    ezp, plain_ms = timed_once(plain)
+    err = max_abs_err([ez], [ezp])
+    require(err == 0, f"score-only extd2 differs from its plain version on "
+            f"map_batch's launch ({err})")
+    cells = band_cells(lens.cpu().numpy(), w)
+    bms, bby = bound(N * (QP + TP) + N * 8 + N * extend.EZ_N * 4, 40 * cells)
+    ms = cuda_ms(lambda: extend.extd2_batch2(qr, sf, lens, **kw), reps=5)
+    row = dict(
+        name="extd2_score_only", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/extd2.cu",
+        replaces="minimap2_tpu/ops/extend_pallas2.py:658",
+        launches=mb["launches"].get("extd2", 0), max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
+        shape=[N, QP, TP, W], w=w, zdrop=kw["zdrop"], band_cells=cells,
+        dp_cells_per_s=cells / (ms / 1e3),
+        blocks_per_sm=_build.blocks_per_sm("extd2", W, QP, TP))
+    log(f"[kernels] extd2 score-only (map_batch's launch: {N} jobs, QP={QP},"
+        f" TP={TP}, W={W}, w={w}, zdrop {kw['zdrop']}, {cells} band cells, "
+        f"{row['blocks_per_sm']} blocks per SM): bit-equal ez, {ms:.3f} ms "
+        f"= {row['dp_cells_per_s']:.4g} cell-updates/s, plain "
+        f"{plain_ms:.0f} ms, bound {bms:.4f} ms ({bby})")
+    rows.append(row)
+
+
 def phase_new_kernels(hpc, spl):
     """sort1 on the HPC phase's first run-end keys (beside torch.sort);
     exts2 on the first 32 jobs of the splice phase's first launch (FOR
@@ -1799,7 +2154,7 @@ def phase_align_breakdown(aln, splice=False, pe=False):
         f"{base / 1e9:.3f} GB held before it")
 
 
-def phase_align_cross_check(aln, tmp, n, splice=False):
+def phase_align_cross_check(aln, tmp, n, splice=False, tag=None):
     """The first n reads through the -a path on the card and on the CPU
     (plain versions, CPU copies of the index): identical SAM text.  Both
     sides run the path's widths in small sub-batches (16 jobs; the splice
@@ -1812,8 +2167,9 @@ def phase_align_cross_check(aln, tmp, n, splice=False):
     from minimap2_tpu_torch.utils.simgenome import write_fasta
     from minimap2_tpu_torch.utils.intfloat import SEQ_NT4
     step, ab, mi, opt = aln["step"], aln["ab"], aln["mi"], aln["opt"]
+    tag = tag or ("splice" if splice else "-a")
     recs = _records(aln["rd"], n)
-    path = os.path.join(tmp, f"x{n}{'s' if splice else ''}.fa")
+    path = os.path.join(tmp, f"x{n}_{tag.replace(':', '_')}.fa")
     write_fasta(path, [r.name for r in recs],
                 [SEQ_NT4[np.frombuffer(r.seq, np.uint8)] for r in recs])
     di = step.di
@@ -1839,7 +2195,6 @@ def phase_align_cross_check(aln, tmp, n, splice=False):
         secs.append(time.time() - t)
         outs.append(out.getvalue())
     n_rec = len(outs[0].splitlines())
-    tag = "splice" if splice else "-a"
     require(n_rec >= n * 3 // 4, f"only {n_rec} {tag} SAM records for {n} "
             "reads")
     require(outs[0] == outs[1], f"card and CPU {tag} SAM differ")
@@ -1888,7 +2243,7 @@ def phase_sr_cross_check(srp, tmp, n_pairs=16):
         f"and CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
 
 
-def phase_long_cross_check(long_, tmp, n=4):
+def phase_long_cross_check(long_, tmp, n=2):
     """The first n long reads of phase 3d, each after one of its short
     reads, through the PAF driver on the card and on the CPU (plain
     versions, CPU copies of the index): identical PAF."""
@@ -1924,6 +2279,61 @@ def phase_long_cross_check(long_, tmp, n=4):
     log(f"[cross] {n} long + {n} short reads' PAF "
         f"({len(outs[0].splitlines())} records) identical on card and CPU "
         f"(card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
+
+
+def phase_host_route(main, tmp):
+    """Phase 9b: the CLI without --batch (the host mapping path, no device
+    work) on a 10 Mb cut of phase 3's first contig with 128 ONT-like
+    reads, ``-c -x map-ont`` with -t 8 (a spawn pool) and with -t 1:
+    byte-identical outputs, phase 3's accuracy gates, no kernel launched."""
+    from minimap2_tpu_torch import cli
+    from minimap2_tpu_torch.ops._build import launches
+    outs, secs = [], {}
+    for t in ("8", "1"):
+        path = os.path.join(tmp, f"host_t{t}.paf")
+        launches.clear()
+        t0 = time.time()
+        rc = cli.main(["-c", "-x", "map-ont", "-t", t, "-o", path,
+                       main["cut_ref"], main["cut_rd"]])
+        secs[t] = time.time() - t0
+        require(rc == 0, f"the host route with -t {t} returned {rc}")
+        require(not any(launches.values()),
+                f"the host route launched kernels: {dict(launches)}")
+        with open(path, "rb") as f:
+            outs.append(f.read())
+    require(outs[0] == outs[1], "the host route's -t 8 and -t 1 PAF differ")
+    n = len(main["cut_names"])
+    log(f"[host] {n} reads through the CLI without --batch (host, no device "
+        f"work; each run builds its {HOST_CUT / 1e6:.0f} Mb index): -t 8 "
+        f"{secs['8']:.2f}s ({n / secs['8']:.1f} reads/s), -t 1 "
+        f"{secs['1']:.2f}s ({n / secs['1']:.1f} reads/s); PAF "
+        f"byte-identical ({len(outs[0].splitlines())} records)")
+    paf_accuracy("host", os.path.join(tmp, "host_t1.paf"),
+                 main["cut_names"])
+    return dict(seconds=secs, reads_per_s={t: n / v for t, v in secs.items()})
+
+
+def phase_map_batch_cross_check(mb, n=32):
+    """The first n reads of phase 3e through map_batch on the card and on
+    the CPU (plain versions, a CPU copy of the index): identical dicts."""
+    from minimap2_tpu_torch.parallel.batch import DeviceIndex, map_batch
+    di = mb["di"]
+    di_cpu = DeviceIndex({nm: t.cpu() for nm, t in di.named_buffers()},
+                         di.aux_dict())
+    codes, lens = (torch.from_numpy(x[:n]) for x in (mb["codes"], mb["lens"]))
+    outs, secs = [], []
+    for d_, c_, l_ in ((di, codes.cuda(), lens.cuda()),
+                       (di_cpu, codes, lens)):
+        t = time.time()
+        with torch.no_grad():
+            o = map_batch(d_, c_, l_, mb["p"])
+        outs.append({k: v.cpu() for k, v in o.items()})
+        secs.append(time.time() - t)
+    for k in outs[0]:
+        require(torch.equal(outs[0][k], outs[1][k]),
+                f"card and CPU map_batch differ in {k}")
+    log(f"[cross] {n}-read map_batch dicts identical on card and CPU (card "
+        f"{secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
 
 
 def phase_breakdown(main, tag="PAF"):
@@ -2007,22 +2417,33 @@ def main():
         main_ = timed("paf", phase_main_path, tmp)
         long_ = timed("long", phase_long_reads, main_, tmp)
         dvb = timed("devbuild", phase_devbuild, main_, tmp)
+        mb = timed("map_batch", phase_map_batch, main_, dvb)
         g38 = timed("grch38", phase_grch38, tmp)
         aln = timed("align", phase_align_path, main_, tmp)
         aln["rd"] = main_["rd"]
         srp = timed("sr", phase_sr_path, main_, tmp)
+        lrq = timed("lr:hqae", phase_lr_hqae, main_, tmp)
         hpc = timed("hpc", phase_hpc_path, main_, tmp)
         spl = timed("splice", phase_splice_path, main_, tmp)
         rows = timed("kernels", phase_kernels, main_, hpc, spl, dvb, g38)
         rows += timed("align kernels", phase_align_kernels, aln)
         rows += timed("new kernels", phase_new_kernels, hpc, spl)
         timed("sr kernels", phase_sr_kernels, srp, rows)
+        timed("rmq kernels", phase_rmq_kernels, lrq, mb, rows)
         for r in rows:          # the PAF kernels also run on the other paths
+            if r["name"] == "extd2_score_only":     # map_batch's mode only
+                continue
             r["launches_align"] = kernel_launches(aln["launches"], r["name"])
             r["launches_hpc"] = kernel_launches(hpc["launches"], r["name"])
             r["launches_splice"] = kernel_launches(spl["launches"],
                                                    r["name"])
             r["launches_sr"] = kernel_launches(srp["launches"], r["name"])
+            r["launches_lr_hqae"] = kernel_launches(lrq["launches"],
+                                                    r["name"])
+            r["launches_lr_hqae_paf"] = kernel_launches(lrq["paf_launches"],
+                                                        r["name"])
+            r["launches_map_batch"] = kernel_launches(mb["launches"],
+                                                      r["name"])
         timed("breakdown", phase_breakdown, main_)
         timed("hpc breakdown", phase_breakdown, hpc, "HPC")
         timed("align breakdown", phase_align_breakdown, aln)
@@ -2034,7 +2455,11 @@ def main():
         timed("cross splice", phase_align_cross_check, spl, tmp, 4, True)
         timed("cross long", phase_long_cross_check, long_, tmp)
         timed("cross sr", phase_sr_cross_check, srp, tmp)
-    for ok, msg in aln["gates"] + spl["gates"] + srp["gates"]:
+        timed("cross lr:hqae", phase_align_cross_check, lrq, tmp, 8, False,
+              "lr:hqae")
+        timed("cross map_batch", phase_map_batch_cross_check, mb)
+        host = timed("host", phase_host_route, main_, tmp)
+    for ok, msg in aln["gates"] + spl["gates"] + srp["gates"] + lrq["gates"]:
         require(ok, msg)
     kinds = torch.cuda.get_device_name(0)
     log(f"[main] card {card}: {main_['reads_per_s']:.1f} reads/s (PAF), "
@@ -2046,6 +2471,14 @@ def main():
         f"reads/s (-ax sr paired, {100 * srp['correct']:.1f}% of ends "
         f"correct, {100 * srp['proper']:.1f}% of pairs proper; host path "
         f"{srp['host']['reads']} reads, {srp['host']['seconds']:.3f}s), "
+        f"{lrq['reads_per_s']:.1f} reads/s (-a -x lr:hqae, mean identity "
+        f"{lrq['mean_identity']:.4f}, the chain scan "
+        f"{lrq['scan']['s_per_batch']:.2f}s a batch; host path "
+        f"{lrq['host']['reads']} reads, {lrq['host']['seconds']:.3f}s), "
+        f"{lrq['paf_reads_per_s']:.1f} reads/s (-x lr:hqae PAF), "
+        f"{mb['reads_per_s']:.1f} reads/s (map_batch, one 512-read call, "
+        f"the scan {mb['scan_s']:.2f}s), "
+        f"{host['reads_per_s']['8']:.1f} reads/s (no --batch, host, -t 8), "
         f"{hpc['reads_per_s']:.1f} reads/s (map-pb), "
         f"{spl['reads_per_s']:.1f} reads/s (-a -x "
         f"splice, {100 * spl['intron_share']:.1f}% of introns exact; host "

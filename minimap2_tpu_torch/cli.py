@@ -1,21 +1,26 @@
-"""Command-line entry point of the port: ``--batch`` mapping, as PAF or,
-with -c/-a, as PAF with cg:Z or SAM.
+"""Command-line entry point of the port: mapping as PAF or, with -c/-a, as
+PAF with cg:Z or SAM.
 
     python -m minimap2_tpu_torch.cli --batch [-x map-ont] [-a|-c] ref.fa reads.fq
     python -m minimap2_tpu_torch.cli --batch -x sr [-a] ref.fa r1.fq [r2.fq]
+    python -m minimap2_tpu_torch.cli [-t N] [-x preset] [-a|-c] ref.fa reads.fq
 
-Presets on the --batch paths: map-ont / lr, lr:hq / map-hifi, map-pb (and
--H: HPC minimizers), splice / splice:hq / cdna (spliced -c/-a), sr (short
-reads, single-end or paired-end).  The option parsing is
+Presets on the --batch paths: map-ont / lr, lr:hq / map-hifi, lr:hqae,
+asm5 / asm10 / asm20 (lr:hqae, asm and --rmq=yes chain with the RMQ
+tier), map-pb (and -H: HPC minimizers), splice / splice:hq / cdna (spliced
+-c/-a), sr (short reads, single-end or paired-end).  The option parsing is
 minimap2_tpu.cli's (main.c:24-526: presets first, then flags that
 override them), so IndexOptions/MapOptions come out the same.  Then FASTA
--> MiniIndex -> mapopt_update -> on the device: run_batched_pe_cli for two
-or more query files in fragment mode (paired ends), else
-run_batched_align_cli with -c/-a, else run_batched_cli.  What the port
-does not carry yet raises NotImplementedError naming the later slice: the
-RMQ tier, splice:sr, --eqx, splice side data (--junc-bed, -j, --spsc,
---pass1), .mmi/.npz targets, -d, a multi-part -I split, and the host (non
---batch) path's CLI wiring.
+-> MiniIndex -> mapopt_update.  With --batch, on the device:
+run_batched_pe_cli for two or more query files in fragment mode (paired
+ends), else run_batched_align_cli with -c/-a, else run_batched_cli.
+Without --batch, the host mapping path as in the JAX package: each
+fragment through map_fragment + write_fragment, serially with -t 1 and in
+a spawn pool of -t workers otherwise; it touches no device.  What the port
+does not carry yet raises NotImplementedError naming the later slice:
+splice:sr, --eqx with --batch, splice side data (--junc-bed, -j, --spsc,
+--pass1), .mmi/.npz targets, -d and the other options of _OFF_SLICE_ARGS,
+and a multi-part -I split.
 """
 from __future__ import annotations
 
@@ -29,7 +34,13 @@ from .config import IndexOptions, MapOptions, check_opt, mapopt_update, set_opt
 from .index.index import MiniIndex
 from .io import format as fmt
 from .io.fastx import read_fasta
+from .map.driver import iter_fragments, map_fragment, write_fragment
+from .map.parallel_host import run_parallel
 from .parallel import engine
+
+
+USAGE = ("Usage: python -m minimap2_tpu_torch.cli [--batch] [options] "
+         "target.fa query.fq [...]")
 
 
 def parse_num(s: str) -> int:
@@ -56,7 +67,7 @@ LONG_FLAG_OPTS = {
     "--secondary-seq": C.MM_F_SECONDARY_SEQ,
 }
 
-# options whose features live outside the port's --batch paths
+# options whose features live outside the port's paths
 _OFF_SLICE_ARGS = {
     "-d": "writing an index (-d)", "-R": "SAM read groups (-R)",
     "--junc-bed": "junction BED side data", "--bed": "junction BED side data",
@@ -108,6 +119,7 @@ class Args:
         self.batch = False
         self.sam = False
         self.out_file = None
+        self.n_threads = 3
 
 
 def parse_args(argv):
@@ -158,7 +170,7 @@ def parse_args(argv):
         if abase in _OFF_SLICE_ARGS:
             raise NotImplementedError(
                 f"option {abase}: {_OFF_SLICE_ARGS[abase]} is not on the "
-                "port's --batch paths yet (a later slice)")
+                "port's paths yet (a later slice)")
         if a == "-x":
             i += 1  # already applied
         elif a == "-a":
@@ -175,7 +187,7 @@ def parse_args(argv):
         elif a == "-I":
             io.batch_size = parse_num(val())
         elif a == "-t":
-            val()
+            args.n_threads = int(val())
         elif a == "-v":
             args.verbose = int(val())
         elif a == "--version" or a == "-V":
@@ -375,8 +387,7 @@ def parse_args(argv):
         elif abase == "--lj-min-ratio":
             oval()
         elif a == "-h" or a == "--help":
-            print("Usage: python -m minimap2_tpu_torch.cli --batch [options] "
-                  "target.fa query.fq [...]")
+            print(USAGE)
             return 0
         elif a in LONG_FLAG_OPTS:
             mo.flag |= LONG_FLAG_OPTS[a]
@@ -402,14 +413,12 @@ def parse_args(argv):
 
 
 def check_slice(io: IndexOptions, mo: MapOptions, args: Args) -> None:
-    """Raise NotImplementedError for what the port's --batch paths do not
-    carry, naming the later slice that will."""
+    """Raise NotImplementedError for what the port's paths do not carry,
+    naming the later slice that will."""
     off = [
-        (not args.batch, "the host (non --batch) mapping path: its CLI "
-         "wiring (iter_fragments + map_fragment per fragment)"),
-        (mo.flag & C.MM_F_RMQ, "the RMQ chaining tier (asm, lr:hqae, --rmq)"),
-        ((mo.flag & C.MM_F_EQX) and (mo.flag & C.MM_F_CIGAR),
-         "--eqx (=/X CIGAR operators, mm_update_cigar_eqx)"),
+        (args.batch and (mo.flag & C.MM_F_EQX) and (mo.flag & C.MM_F_CIGAR),
+         "--eqx with --batch -c/-a (=/X CIGAR operators on the device "
+         "path's alignments; the host path applies mm_update_cigar_eqx)"),
         (mo.flag & C.MM_F_SR_RNA,
          "short-read RNA mode (splice:sr, --sr=rna: align_sr_rna and the "
          "junction side data)"),
@@ -420,8 +429,28 @@ def check_slice(io: IndexOptions, mo: MapOptions, args: Args) -> None:
                 f"{what} is a later slice of the PyTorch/CUDA port")
 
 
+def run_host(mi, mo, queries, out, n_threads: int) -> int:
+    """The route without --batch (JAX cli.py:634-657): every fragment (one
+    read, or with two or more query files or --frag=yes the reads of one
+    name) through map_fragment + write_fragment on the host; with
+    n_threads > 1 on Linux in a spawn pool that keeps input order.
+    Returns the number of reads mapped."""
+    frag_mode = len(queries) > 1 or bool(mo.flag & C.MM_F_FRAG_MODE)
+    if n_threads > 1 and sys.platform.startswith("linux"):
+        return run_parallel(mi, mo, queries, out, frag_mode, n_threads)
+    n_mapped = 0
+    for frag in iter_fragments(queries, frag_mode):
+        results = map_fragment(mi, mo, frag)
+        write_fragment(out, mi, mo, frag, [res.regs for res in results],
+                       [res.rep_len for res in results])
+        n_mapped += len(frag)
+    return n_mapped
+
+
 def main(argv=None, device=None) -> int:
-    """The ``--batch`` CLI.  ``device`` defaults to CUDA."""
+    """The CLI: --batch on the device, else the host mapping path.
+    ``device`` defaults to CUDA on both routes, so the CLI has one rule;
+    the host route touches no device."""
     orig_argv = list(sys.argv[1:] if argv is None else argv)
     parsed = parse_args(orig_argv)
     if isinstance(parsed, int):
@@ -432,8 +461,7 @@ def main(argv=None, device=None) -> int:
     if check_opt(io, mo) < 0:
         return 1
     if not args.pos:
-        print("Usage: python -m minimap2_tpu_torch.cli --batch [options] "
-              "target.fa query.fq [...]", file=sys.stderr)
+        print(USAGE, file=sys.stderr)
         return 1
     tgt, queries = args.pos[0], args.pos[1:]
     for f_ in [tgt] + queries:
@@ -467,7 +495,12 @@ def main(argv=None, device=None) -> int:
             out.write(fmt.write_sam_hdr(
                 mi, None, C.MM_VERSION,
                 "minimap2 " + " ".join(orig_argv)) + "\n")
-        if len(queries) > 1 and (mo.flag & C.MM_F_FRAG_MODE):
+        if not args.batch:
+            n_mapped = run_host(mi, mo, queries, out, args.n_threads)
+            if args.verbose >= 3:
+                print(f"[M::worker_pipeline::{time.time() - t0:.3f}] "
+                      f"mapped {n_mapped} sequences", file=sys.stderr)
+        elif len(queries) > 1 and (mo.flag & C.MM_F_FRAG_MODE):
             engine.run_batched_pe_cli(mi, mo, queries, out, device=device)
         elif mo.flag & (C.MM_F_CIGAR | C.MM_F_OUT_SAM):
             engine.run_batched_align_cli(mi, mo, queries, out,

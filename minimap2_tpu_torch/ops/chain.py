@@ -16,6 +16,8 @@ runs ``chain_batch_plain`` for CPU tensors.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -27,13 +29,19 @@ _C2 = np.float32(2.02466578)
 _C3 = np.float32(0.67487759)
 
 
+@functools.lru_cache(maxsize=None)
+def _f32(v: float, device: torch.device) -> torch.Tensor:
+    """A float32 scalar tensor on ``device``, made once: a fresh copy to the
+    card at every step of the chain scan would synchronise the stream."""
+    return torch.tensor(np.float32(v), device=device)
+
+
 def mg_log2(x: torch.Tensor) -> torch.Tensor:
     """mg_log2 (mmpriv.h:139-147) on a float32 tensor, bit-exact."""
     zi = x.to(torch.float32).view(torch.int32)
     log2i = (((zi >> 23) & 255) - 128).to(torch.float32)
     zf = ((zi & 0x007FFFFF) | (127 << 23)).view(torch.float32)
-    c = [torch.tensor(v, dtype=torch.float32, device=x.device)
-         for v in (_C1, _C2, _C3)]
+    c = [_f32(float(v), x.device) for v in (_C1, _C2, _C3)]
     return log2i + ((c[0] * zf + c[1]) * zf - c[2])
 
 
@@ -41,12 +49,11 @@ def chain_penalty(dd, dg, chn_pen_gap: float, chn_pen_skip: float):
     """trunc(gap*dd + skip*dg + 0.5*mg_log2(dd+1)) as int32 (0 log term
     where dd < 1), each float op rounded on its own."""
     dev = dd.device
-    gap = torch.tensor(np.float32(chn_pen_gap), device=dev)
-    skip = torch.tensor(np.float32(chn_pen_skip), device=dev)
-    half = torch.tensor(np.float32(0.5), device=dev)
+    gap, skip = _f32(chn_pen_gap, dev), _f32(chn_pen_skip, dev)
     lin = gap * dd.to(torch.float32) + skip * dg.to(torch.float32)
     logp = torch.where(dd >= 1, mg_log2((dd + 1).to(torch.float32)),
-                       torch.zeros((), dtype=torch.float32, device=dev))
+                       _f32(0.0, dev))
+    half = _f32(0.5, dev)
     return torch.trunc(lin + half * logp).to(torch.int32)
 
 

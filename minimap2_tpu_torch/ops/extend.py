@@ -34,8 +34,8 @@ Outputs: ``p`` (N, RC*RB, W) uint8 direction bytes (JAX's (NG, RC, RB, G,
 W) block after a reshape), ``ez`` (N, 16) int32.  ``extd2_batch2``
 launches the kernel (csrc/extd2.cu) for CUDA tensors, its blocks taking
 the jobs in ``job_order`` (longest first), and runs ``extd2_batch2_plain``
-for CPU tensors.  Exact-max (H row), zdrop, the approx-drop and right-align
-modes raise NotImplementedError.
+for CPU tensors.  Exact-max (H row), the approx-drop and right-align modes
+raise NotImplementedError; zdrop is inert in the ported mode (``_check``).
 """
 from __future__ import annotations
 
@@ -78,11 +78,17 @@ def _sext8(x):
 
 
 def _check(W, RB, w, right_mode, approx_max, approx_drop, zdrop):
-    if right_mode or not approx_max or approx_drop or zdrop >= 0:
+    """Refuse what is not ported.  Any zdrop is taken: in the approx-max
+    mode without approx-drop the reference kernel never reads it (its
+    z-drop test runs in the exact-max branch and, in the approx-max
+    branch, only under approx_drop; JAX extend_pallas2.py:436-443,
+    476-489), so the -c/-a path's zdrop=-1 and map_batch's zdrop=400 give
+    the same outputs and nothing of zdrop goes to the kernel."""
+    if right_mode or not approx_max or approx_drop:
         raise NotImplementedError(
-            "extd2: only the -c/-a path's mode is ported (approx_max=True, "
-            "approx_drop=False, zdrop=-1, right_mode=False); exact-max, "
-            "zdrop, approx-drop and right-align modes are a later slice")
+            "extd2: only the approx-max mode without approx-drop is ported "
+            "(approx_max=True, approx_drop=False, right_mode=False); the "
+            "exact-max, approx-drop and right-align modes are a later slice")
     drift = -(-(RB // 2) // 16) * 16
     if W % 128 or W < w + 48 + drift or RB > 128 or W > 1024:
         raise ValueError(f"extd2: need W % 128 == 0, W >= w + 48 + {drift}, "

@@ -1,11 +1,14 @@
-"""Device-batched seeding and chaining: the port of the ``--batch`` PAF
-half of minimap2_tpu.parallel.batch.
+"""Device-batched seeding, chaining and extension: the port of
+minimap2_tpu.parallel.batch.
 
 A read batch runs sketch -> minimizer compaction -> h2r index probe ->
 anchor expansion and sort -> windowed chain DP -> top-K chain selection
-as PyTorch ops on one device, with fixed shapes throughout.  The three
-Pallas kernels of that path are CUDA kernels here (ops/); everything
-between them is plain tensor code.
+as PyTorch ops on one device, with fixed shapes throughout (the ``--batch``
+drivers' step, parallel/engine.py).  ``map_batch`` is the one-call step
+of the JAX package: sketch -> compaction -> probe -> chain scan -> a
+score-only extd2 extension of each read's best chain.  The Pallas kernels
+of these paths are CUDA kernels here (ops/); everything between them is
+plain tensor code.
 
 u32 planes (hashes, sort keys, table words) are int32 tensors holding the
 bit pattern, with arithmetic on masked int64 copies (utils/u32.py).
@@ -21,7 +24,8 @@ from torch import nn
 
 from .. import resolve_device
 from ..ops.chain import NEG_INF, comput_sc, last_valid
-from ..ops.sketch import hash64_t
+from ..ops.extend import EZ_SCORE, extd2_batch2
+from ..ops.sketch import hash64_t, sketch_batch
 from ..ops.sort import sort1_rows, sort3_chunked, sort3_rows
 from ..utils.u32 import M32, i32, u32, umax_where
 
@@ -53,9 +57,9 @@ def _mulhi_u32(a: torch.Tensor, nb: int) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class BatchParams:
-    """Fixed shapes + chaining scores for one mapping step (the PAF
-    fields of minimap2_tpu.parallel.batch.BatchParams, same defaults;
-    the RMQ tier is a later slice)."""
+    """Fixed shapes + scores for one mapping step (the fields of
+    minimap2_tpu.parallel.batch.BatchParams that the port's steps read,
+    same defaults; the long-join trigger's constants live in engine.py)."""
     k: int = 15
     w: int = 10
     L: int = 2048          # max read length in batch
@@ -68,9 +72,27 @@ class BatchParams:
     bw: int = 500
     chn_pen_gap: float = 0.8 * 0.01 * 15
     chn_pen_skip: float = 0.0
+    # extension of map_batch (map-ont: -A2 -B4 -O4,24 -E2,1, zdrop 400)
+    QP: int = 2048         # query segment capacity
+    TP: int = 2048         # target segment capacity
+    W: int = 640           # extension band lanes; must be >= ext_w + 112
+    ext_w: int = 500       # extension band half-width (map-ont bw)
+    sc_mch: int = 2
+    sc_mis: int = -4
+    gapo: int = 4
+    gape: int = 2
+    gapo2: int = 24
+    gape2: int = 1
+    zdrop: int = 400
+    hpc: bool = False      # homopolymer-compressed minimizers (map-pb, -H)
     # long-join rescue (map.c:283-292) band; 0 = off
     bw_long: int = 0
-    hpc: bool = False      # homopolymer-compressed minimizers (map-pb, -H)
+    # RMQ tier (asm, lr:hqae, --rmq; lchain.c:219-368 re-expressed): a
+    # second look-back window in the chain scan that keeps every
+    # rmq_stride-th anchor for rmq_window slots, under the wide band
+    rmq_tier: bool = False
+    rmq_window: int = 64
+    rmq_stride: int = 32
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +219,15 @@ def _pack_s4(S: np.ndarray) -> np.ndarray:
     Sp = S if T % 2 == 0 else np.concatenate([S, np.zeros(1, np.uint8)])
     h = Sp.reshape(-1, 2)
     return (h[:, 0] | (h[:, 1] << np.uint8(4))).astype(np.uint8)
+
+
+def _gather_s(di, idx: torch.Tensor) -> torch.Tensor:
+    """Gather nt4 codes from di.S at int64 indices, either s_fmt (1: two
+    4-bit codes a byte, the even position in the low nibble)."""
+    if di.s_fmt == 0:
+        return di.S[torch.clamp(idx, 0, di.S.shape[0] - 1)]
+    b = di.S[torch.clamp(idx >> 1, 0, di.S.shape[0] - 1)]
+    return (b >> ((idx & 1).to(torch.uint8) << 2)) & 0xF
 
 
 def _as_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -574,34 +605,62 @@ def _expand_anchors(di: DeviceIndex, start, cnt, flt, mz, mpos, mspan, qlen,
 
 def _chain_scan(rev, rid, rpos, qpos, span, av, p: BatchParams):
     """Windowed chaining DP (lchain.c:148-217 with a fixed look-back
-    window), the port of the JAX package's lax.scan route without the RMQ
-    tier.  The window is a shift register (slot 0 the oldest) and ties go
-    to the oldest slot (argmax takes the first), unlike the kernel route,
-    which takes the largest j.  Returns (best, (f, pred, qs_a, rs_a)):
-    best = per-read (score, qs, qe, rs, re, rev, rid) of the best chain
-    end.  The scan stops after the last valid anchor of the batch; later
-    lanes take their closed form (f NEG_INF, pred -1, qs = rs = 0)."""
+    window), the port of the JAX package's lax.scan route.  The window is a
+    shift register (slot 0 the oldest) and ties go to the oldest slot
+    (argmax takes the first), unlike the kernel route, which takes the
+    largest j.  With ``p.rmq_tier`` a second window of p.rmq_window slots
+    takes every p.rmq_stride-th anchor (global index i % rmq_stride == 0)
+    and is searched under the wide band (bw_long where it exceeds bw); it
+    comes after the short window, so ties still go to the short window,
+    and a predecessor found there has pred -2.  Returns (best, (f, pred,
+    qs_a, rs_a)): best = per-read (score, qs, qe, rs, re, rev, rid) of the
+    best chain end.  The scan stops after the last valid anchor of the
+    batch; later lanes take their closed form (f NEG_INF, pred -1, qs = rs
+    = 0)."""
     B, A = rpos.shape
     WND = p.chain_window
     dev = rpos.device
     i32_ = torch.int32
+    bw2 = p.bw_long if p.bw_long > p.bw else p.bw
     f = torch.full((B, A), NEG_INF, dtype=i32_, device=dev)
     pred = torch.full((B, A), -1, dtype=i32_, device=dev)
     qs = torch.zeros((B, A), dtype=i32_, device=dev)
     rs = torch.zeros((B, A), dtype=i32_, device=dev)
-    z = torch.zeros((B, WND), dtype=i32_, device=dev)
-    fw = torch.full((B, WND), NEG_INF, dtype=i32_, device=dev)
-    revw, ridw, rposw, qposw, spanw, qsw, rsw = (z.clone() for _ in range(7))
+
+    def window(n):
+        """(f, rev, rid, rpos, qpos, span, qs, rs) planes of n slots."""
+        z = torch.zeros((B, n), dtype=i32_, device=dev)
+        return [torch.full((B, n), NEG_INF, dtype=i32_, device=dev)] + \
+            [z.clone() for _ in range(7)]
+
+    def push(wnd, vals):
+        return [torch.cat([w_[:, 1:], v[:, None]], dim=1)
+                for w_, v in zip(wnd, vals)]
+
+    w1 = window(WND)
+    w2 = window(p.rmq_window) if p.rmq_tier else None
     zb = torch.zeros(B, dtype=i32_, device=dev)
     best = [torch.full((B,), NEG_INF, dtype=i32_, device=dev)] + \
         [zb.clone() for _ in range(6)]
     neg1 = torch.full((B,), -1, dtype=i32_, device=dev)
+    neg2 = torch.full((B,), -2, dtype=i32_, device=dev)
+    def cands(anchor, wnd, band):
+        """Candidate scores of the anchor (qp, rp, rv, ri) against a
+        window's slots."""
+        fw, revw, ridw, rposw, qposw, spanw = wnd[:6]
+        return comput_sc(*anchor, qposw, rposw, revw, ridw, spanw, fw,
+                         p.max_dist_x, p.max_dist_y, band, p.chn_pen_gap,
+                         p.chn_pen_skip)
+
     for i in range(last_valid(av)):
         rv, ri, rp, qp, sp, ok = (x[:, i] for x in
                                   (rev, rid, rpos, qpos, span, av))
-        cand = comput_sc(qp, rp, rv, ri, qposw, rposw, revw, ridw, spanw, fw,
-                         p.max_dist_x, p.max_dist_y, p.bw, p.chn_pen_gap,
-                         p.chn_pen_skip)
+        anchor = (qp, rp, rv, ri)
+        cand, qsw, rsw = cands(anchor, w1, p.bw), w1[6], w1[7]
+        if w2 is not None:
+            cand = torch.cat([cand, cands(anchor, w2, bw2)], dim=1)
+            qsw = torch.cat([qsw, w2[6]], dim=1)
+            rsw = torch.cat([rsw, w2[7]], dim=1)
         bj = torch.argmax(cand, dim=1, keepdim=True)
         bsc = torch.gather(cand, 1, bj)[:, 0]
         use = bsc >= sp
@@ -609,15 +668,18 @@ def _chain_scan(rev, rid, rpos, qpos, span, av, p: BatchParams):
                           torch.full_like(sp, NEG_INF))
         qs_i = torch.where(use, torch.gather(qsw, 1, bj)[:, 0], qp - sp + 1)
         rs_i = torch.where(use, torch.gather(rsw, 1, bj)[:, 0], rp - sp + 1)
-        pred[:, i] = torch.where(use & ok, (i - WND + bj[:, 0]).to(i32_), neg1)
+        pj = (i - WND + bj[:, 0]).to(i32_)
+        if w2 is not None:
+            pj = torch.where(bj[:, 0] < WND, pj, neg2)
+        pred[:, i] = torch.where(use & ok, pj, neg1)
         qs_i = torch.where(ok, qs_i, 0)
         rs_i = torch.where(ok, rs_i, 0)
         f[:, i], qs[:, i], rs[:, i] = f_i, qs_i, rs_i
-        # roll the window, insert the current anchor at the end
-        fw, revw, ridw, rposw, qposw, spanw, qsw, rsw = (
-            torch.cat([w_[:, 1:], v[:, None]], dim=1) for w_, v in
-            ((fw, f_i), (revw, rv), (ridw, ri), (rposw, rp), (qposw, qp),
-             (spanw, sp), (qsw, qs_i), (rsw, rs_i)))
+        # roll the windows, insert the current anchor at the end
+        vals = (f_i, rv, ri, rp, qp, sp, qs_i, rs_i)
+        w1 = push(w1, vals)
+        if w2 is not None and i % p.rmq_stride == 0:
+            w2 = push(w2, vals)
         # track the best-ending chain per read
         better = f_i > best[0]
         best = [torch.where(better, v, b_) for v, b_ in
@@ -693,3 +755,76 @@ def chain_waypoints(qs_a, rs_a, rev, rid, rpos, qpos, av, rec0, WP: int):
         val = torch.where(member, plane, -1).to(torch.int32)
         out.append(w_.scatter_reduce(1, jm, val, reduce="amax"))
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# the one-call device step
+# ---------------------------------------------------------------------------
+
+
+def _extend_best(di: DeviceIndex, codes, lens, best, p: BatchParams):
+    """Banded extension of each read's best chain region through extd2 in
+    its score-only approx-max mode (the JAX package's _extend_best,
+    batch.py:1445-1497): query[qs:qe] (reverse-complemented on the reverse
+    strand) against target[rs:re] of contig rid.  Returns the (B,) int32
+    extension scores."""
+    _b_sc, qs, qe, rs, re_, rv, rid = best
+    B, L = codes.shape
+    i32_ = torch.int32
+    lens = lens.to(i32_)
+    qs = torch.minimum(torch.clamp(qs, min=0), lens)
+    qe = torch.minimum(torch.maximum(qe, qs), lens)
+    ridc = torch.clamp(rid, 0, di.seq_len.shape[0] - 1).long()
+    tlen_full = di.seq_len[ridc]
+    rs = torch.minimum(torch.clamp(rs, min=0), tlen_full)
+    re_ = torch.minimum(torch.maximum(re_, rs), tlen_full)
+    qlen = torch.clamp(qe - qs, max=p.QP)[:, None]
+    tlen = torch.clamp(re_ - rs, max=p.TP)[:, None]
+    rev1 = rv[:, None] == 1
+    # the query segment, reverse-complemented on the reverse strand (the
+    # read's codes from its other end), in segment order, then reversed:
+    # the kernel takes qr[i] = q[qlen - 1 - i]
+    ar = torch.arange(p.QP, device=codes.device, dtype=i32_)[None, :]
+    qidx = torch.where(rev1, (lens - qe)[:, None] + ar, qs[:, None] + ar)
+    qcode = torch.gather(codes, 1, torch.clamp(qidx, 0, L - 1).long())
+    qcode = torch.where(rev1 & (qcode < 4), 3 - qcode, qcode)
+    qcode = torch.where(ar < qlen, qcode, 4).to(torch.uint8)
+    flip = torch.where(rev1, qlen - 1 - ar, ar)
+    qcode = torch.gather(qcode, 1, torch.clamp(flip, 0, p.QP - 1).long())
+    qr = torch.gather(qcode, 1, torch.clamp(qlen - 1 - ar, 0, p.QP - 1).long())
+    art = torch.arange(p.TP, device=codes.device, dtype=torch.int64)[None, :]
+    soff = u32(di.seq_off[ridc])
+    # pos_fmt 2 offsets are u32: the JAX package's index wraps mod 2^32
+    tidx = (soff[:, None] + rs.to(torch.int64)[:, None] + art) & M32
+    tcode = torch.where(art < tlen, _gather_s(di, tidx), 4).to(torch.uint8)
+    lens2 = torch.cat([torch.clamp(qlen, min=1), torch.clamp(tlen, min=1)],
+                      dim=1).to(i32_)
+    _, ez = extd2_batch2(
+        qr.contiguous(), tcode.contiguous(), lens2.contiguous(), G=16,
+        W=p.W, RB=128, R=p.QP + p.TP - 1, QP=p.QP, TP=p.TP, q=p.gapo,
+        e=p.gape, q2=p.gapo2, e2=p.gape2,
+        w=min(p.ext_w, p.W - 48 - 64),     # band + 48 + RB/2 drift in W
+        zdrop=p.zdrop, right_mode=False, approx_max=True, approx_drop=False,
+        sc_mch=p.sc_mch, sc_mis=p.sc_mis, sc_N=-1, with_cigar=False)
+    return ez[:, EZ_SCORE]
+
+
+def map_batch(di: DeviceIndex, codes, lens, p: BatchParams) -> dict:
+    """One full device mapping step over a (B, L) uint8 nt4 read batch on
+    the index's device (the JAX package's map_batch, batch.py:1500-1524):
+    sketch -> compaction -> probe -> windowed chain scan -> score-only
+    extension of each read's best chain.  Returns a dict of (B,) tensors:
+    chain_score, ext_score, mapped, rid, rev, qs, qe, rs, re, n_anchors."""
+    hhi, hlo, z, is_mini = sketch_batch(codes, lens, p.k, p.w)
+    mh_hi, mh_lo, mz, mpos, mvalid = _compact_minimizers(hhi, hlo, z,
+                                                         is_mini, p.M)
+    rev, rid, rpos, qpos, span, av, _rep = _lookup_anchors(
+        di, mh_hi, mh_lo, mz, mpos, mvalid, lens, p)
+    best, _ = _chain_scan(rev, rid, rpos, qpos, span, av, p)
+    ext = _extend_best(di, codes, lens, best, p)
+    b_sc, qs, qe, rs, re_, rv, rid_b = best
+    return {
+        "chain_score": b_sc, "ext_score": ext, "mapped": b_sc > 0,
+        "rid": rid_b, "rev": rv, "qs": qs, "qe": qe, "rs": rs, "re": re_,
+        "n_anchors": av.sum(1, dtype=torch.int32),
+    }

@@ -94,9 +94,9 @@ class PafStep(nn.Module):
     (score, sub, qs, qe, rs, re, rev, rid, cnt, rep_len).
 
     Dispatch mirrors the JAX package's on-chip route (make_paf_step with
-    interpret=False): the chain kernel iff B % 128 == 0 and A % 256 == 0
-    (its ties go to the largest j), else the windowed scan (ties to the
-    oldest slot).  On CPU tensors every kernel wrapper runs its plain
+    interpret=False): the chain kernel iff B % 128 == 0, A % 256 == 0 and
+    the RMQ tier is off (its ties go to the largest j), else the windowed
+    scan (ties to the oldest slot).  On CPU tensors every kernel wrapper runs its plain
     version, so the CPU and the card compute the same records.
 
     with_sec interleaves each primary with its best overlapping runner-up
@@ -146,7 +146,8 @@ class PafStep(nn.Module):
     def run_chain(self, planes, bw: int, max_dist: int):
         p = self.p
         B = planes[0].shape[0]
-        if B % 128 == 0 and p.A % 256 == 0:
+        # the RMQ tier's second window exists only in the scan route
+        if B % 128 == 0 and p.A % 256 == 0 and not p.rmq_tier:
             f, _, qs_a, rs_a = chain_batch(
                 *planes, WND=p.chain_window, max_dist_x=max_dist,
                 max_dist_y=max_dist, bw=bw, chn_pen_gap=p.chn_pen_gap,
@@ -280,17 +281,19 @@ def _bw_long(opt) -> int:
 
 
 def batch_params(mi, opt, L: int) -> BatchParams:
-    """The CLI's step shapes and scores (engine.py:253-263 of the JAX
-    package): M = max(256, L // 4), A = 4096, chain window 64; HPC
-    minimizers when the index has them."""
-    if opt.flag & MM_F_RMQ:
-        raise NotImplementedError(
-            "MM_F_RMQ (asm, lr:hqae, --rmq) needs the RMQ tier: a later slice")
+    """The CLI's step shapes and scores (engine.py:253-260 and 721-727 of
+    the JAX package): M = max(256, L // 4), A = 4096, chain window 64; HPC
+    minimizers when the index has them; under MM_F_RMQ (asm, lr:hqae,
+    --rmq) the RMQ tier, with the wide band bw_long even where the
+    long-join rule is off.  The chain gap penalty stays BatchParams'
+    map-ont default for every preset, as in the JAX package."""
+    rmq = bool(opt.flag & MM_F_RMQ)
     return BatchParams(L=L, M=max(256, L // 4), A=4096,
                        occ_cap=_occ_cap(opt), chain_window=64,
                        k=mi.k, w=mi.w, max_dist_x=opt.max_gap,
                        max_dist_y=opt.max_gap, bw=opt.bw,
-                       bw_long=_bw_long(opt), hpc=bool(mi.flag & MM_I_HPC))
+                       bw_long=_bw_long(opt) or (opt.bw_long if rmq else 0),
+                       rmq_tier=rmq, hpc=bool(mi.flag & MM_I_HPC))
 
 
 def dispatch_batch(step: PafStep, seqs, p: BatchParams,

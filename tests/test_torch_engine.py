@@ -205,7 +205,7 @@ def test_cli_options_match_jax(conc_world, monkeypatch, opts):
 @pytest.mark.parametrize("opts", [
     ["--batch", "-x", "splice:sr"], ["--batch", "-c", "--eqx"],
     ["--batch", "-x", "splice", "--junc-bed", "junc.bed"],
-    ["--batch", "-x", "asm5"], ["-x", "map-ont"],
+    ["-c", "-x", "map-ont", "--alt", "alt.txt"], ["--batch", "-a", "--eqx"],
 ])
 def test_cli_off_slice_options_raise(conc_world, opts):
     _, ref, reads = conc_world

@@ -103,7 +103,7 @@ def test_extd2_other_modes_raise():
     kw = dict(G=1, W=128, RB=32, R=256, QP=128, TP=128, q=Q, e=E, q2=Q2,
               e2=E2, w=40, zdrop=-1, right_mode=False, approx_max=True,
               approx_drop=False, sc_mch=2, sc_mis=-4, sc_N=0)
-    for bad in (dict(approx_max=False), dict(zdrop=400),
+    for bad in (dict(approx_max=False), dict(zdrop=400, approx_drop=True),
                 dict(approx_drop=True), dict(right_mode=True)):
         with pytest.raises(NotImplementedError):
             extend.extd2_batch2(z, z, lens, **{**kw, **bad})
