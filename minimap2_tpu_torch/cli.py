@@ -34,8 +34,8 @@ from .config import IndexOptions, MapOptions, check_opt, mapopt_update, set_opt
 from .index.index import MiniIndex
 from .io import format as fmt
 from .io.fastx import read_fasta
-from .map.driver import iter_fragments, map_fragment, write_fragment
-from .map.parallel_host import run_parallel
+from .map.driver import iter_fragments
+from .map.parallel_host import map_fragments, run_parallel
 from .parallel import engine
 
 
@@ -438,13 +438,7 @@ def run_host(mi, mo, queries, out, n_threads: int) -> int:
     frag_mode = len(queries) > 1 or bool(mo.flag & C.MM_F_FRAG_MODE)
     if n_threads > 1 and sys.platform.startswith("linux"):
         return run_parallel(mi, mo, queries, out, frag_mode, n_threads)
-    n_mapped = 0
-    for frag in iter_fragments(queries, frag_mode):
-        results = map_fragment(mi, mo, frag)
-        write_fragment(out, mi, mo, frag, [res.regs for res in results],
-                       [res.rep_len for res in results])
-        n_mapped += len(frag)
-    return n_mapped
+    return map_fragments(mi, mo, iter_fragments(queries, frag_mode), out)
 
 
 def main(argv=None, device=None) -> int:

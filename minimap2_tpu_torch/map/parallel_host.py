@@ -34,15 +34,22 @@ def _init_worker(state_path: str):
         _G = pickle.load(f)
 
 
-def _work_chunk(frags):
-    mi, mo = _G
-    buf = io.StringIO()
+def map_fragments(mi, mo, frags, out) -> int:
+    """Map each fragment and write its records to out, in order; returns
+    the number of reads mapped.  The serial loop, and a worker's."""
     n = 0
     for frag in frags:
         results = map_fragment(mi, mo, frag)
-        write_fragment(buf, mi, mo, frag, [res.regs for res in results],
+        write_fragment(out, mi, mo, frag, [res.regs for res in results],
                        [res.rep_len for res in results])
         n += len(frag)
+    return n
+
+
+def _work_chunk(frags):
+    mi, mo = _G
+    buf = io.StringIO()
+    n = map_fragments(mi, mo, frags, buf)
     return n, buf.getvalue()
 
 

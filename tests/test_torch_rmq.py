@@ -14,6 +14,7 @@
     reference finding the port reproduces).
 """
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -216,36 +217,55 @@ def lr_world(tmp_path_factory):
     return str(refpath), str(reads)
 
 
-def _cli_both(monkeypatch, tmp_path, argv, ref, reads):
-    """cli.main(["--batch", *argv]) of both packages at small widths, to
-    the same -o path (the @PG line carries it)."""
-    kw_align = {"QP": 768, "TP": 1280, "W": 256, "sub": 8}
-    outs = []
-    for mod, cli, kw in ((jax_engine, jax_cli, {}),
-                         (engine, port_cli, {"device": "cpu"})):
-        monkeypatch.setattr(mod, "run_batched_cli", functools.partial(
-            mod.run_batched_cli, batch_reads=16, L=512))
-        monkeypatch.setattr(mod, "run_batched_align_cli", functools.partial(
-            mod.run_batched_align_cli, batch_reads=16, L=512,
-            align_kw=kw_align))
-        out = tmp_path / "out"
-        assert cli.main(["--batch", *argv, "-o", str(out), ref, reads],
-                        **kw) == 0
-        outs.append(out.read_text())
-    return outs
+_CLI_CASES = {"lr-hqae-paf": ["-x", "lr:hqae"],
+              "lr-hqae-sam": ["-ax", "lr:hqae"],
+              "asm20-paf": ["-x", "asm20"],
+              "map-ont-rmq-paf": ["-x", "map-ont", "--rmq=yes"]}
 
 
-@pytest.mark.parametrize("argv", [
-    ["-x", "lr:hqae"], ["-ax", "lr:hqae"], ["-x", "asm20"],
-    ["-x", "map-ont", "--rmq=yes"]],
-    ids=["lr-hqae-paf", "lr-hqae-sam", "asm20-paf", "map-ont-rmq-paf"])
-def test_cli_rmq_matches_jax(monkeypatch, tmp_path, lr_world, argv):
+def _small_widths(mod, mp):
+    """mod's --batch drivers at the tests' small widths."""
+    mp.setattr(mod, "run_batched_cli", functools.partial(
+        mod.run_batched_cli, batch_reads=16, L=512))
+    mp.setattr(mod, "run_batched_align_cli", functools.partial(
+        mod.run_batched_align_cli, batch_reads=16, L=512,
+        align_kw={"QP": 768, "TP": 1280, "W": 256, "sub": 8}))
+
+
+@pytest.fixture(scope="module")
+def jax_cli_outs(lr_world, tmp_path_factory):
+    """The JAX CLI's output of each case, made once for the module: case
+    -> (its -o path, which the port then writes too, as the @PG line
+    carries it; the text).  The JAX step compiles its k25 w51 sketch for
+    about two minutes on the CPU, once in the PAF step and once in the -a
+    step, so the cases run in threads and the compiles overlap."""
     ref, reads = lr_world
+    tmp = tmp_path_factory.mktemp("rmq_cli")
+
+    def run(case):
+        out = tmp / f"{case}.out"
+        assert jax_cli.main(["--batch", *_CLI_CASES[case], "-o", str(out),
+                             ref, reads]) == 0
+        return case, (out, out.read_text())
+    with pytest.MonkeyPatch.context() as mp:
+        _small_widths(jax_engine, mp)
+        with ThreadPoolExecutor(len(_CLI_CASES)) as pool:
+            return dict(pool.map(run, _CLI_CASES))
+
+
+@pytest.mark.parametrize("case", list(_CLI_CASES))
+def test_cli_rmq_matches_jax(monkeypatch, lr_world, jax_cli_outs, case):
+    ref, reads = lr_world
+    argv = _CLI_CASES[case]
+    out, want = jax_cli_outs[case]
     tiers = []
     real = engine.batch_params
     monkeypatch.setattr(engine, "batch_params", lambda *a: (
         tiers.append(real(*a)), tiers[-1])[1])
-    want, got = _cli_both(monkeypatch, tmp_path, argv, ref, reads)
+    _small_widths(engine, monkeypatch)
+    assert port_cli.main(["--batch", *argv, "-o", str(out), ref, reads],
+                         device="cpu") == 0
+    got = out.read_text()
     assert got == want
     assert tiers and all(p.rmq_tier and p.bw_long > p.bw for p in tiers)
     recs = [ln.split("\t") for ln in got.splitlines()
