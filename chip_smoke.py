@@ -9,9 +9,12 @@ seconds):
   2. build the CUDA kernels from minimap2_tpu_torch/ops/csrc;
   3. the PAF path: a 100 Mb, 8-contig repeat-bearing genome and 1024
      ONT-like 8-11 kb reads through ``minimap2_tpu_torch.cli.main(
-     ["--batch", "-x", "map-ont", ...])``; every kernel of the path must
-     have launched, >= 90% of reads must land on their source interval and
-     no mapq-60 primary may be wrong;
+     ["--batch", "-x", "map-ont", "-d", "main.mmi", ...])``; every kernel
+     of the path must have launched, >= 90% of reads must land on their
+     source interval and no mapq-60 primary may be wrong; the .mmi the
+     run wrote, loaded again, must equal the run's host MiniIndex array
+     for array (keys, run starts, positions, reference codes, names and
+     lengths); the dump's and the load's seconds;
   3b. the device index build (pos_fmt 1, h2r built in one piece) of phase
      3's genome on the card: the sketch kernel launched in the build, its
      tables decoded to host coordinates equal phase 3's host MiniIndex
@@ -35,15 +38,16 @@ seconds):
      and strand right and [rs, re) on their source interval, ext_score > 0
      on every mapped read; reads/s and the chain scan's seconds from a
      second call on the same inputs (equal dicts);
-  3d. reads longer than L: on phase 3's genome, 1024 ONT-like reads (5%
+  3d. reads longer than L: on phase 3's main.mmi, 1024 ONT-like reads (5%
      sub, 2.5% del, 2.5% ins; seeds 5, 6 and 7), 896 of 8-11 kb and 128 of
      16.6-50 kb (past L = 16384) in a shuffled order, through
      ``cli.main(["--batch", "-x", "map-ont", ...])``; all 128 long reads
      must go through the host path and every record come out in input
      order, >= 90% of reads correct, no wrong mapq-60 primary; reads/s and
      the host path's share of the run's seconds;
-  4. the -a path: the same genome and reads through ``cli.main(["--batch",
-     "-a", "-x", "map-ont", ...])``; all five kernels launched, >= 90% of
+  4. the -a path: the same reads on main.mmi through ``cli.main([
+     "--batch", "-a", "-x", "map-ont", ...])``; all five kernels launched,
+     >= 90% of
      primaries on their source interval (a fallback read is scored on the
      record the host path writes for it), no wrong mapq-60 primary, <= 3%
      fallback reads (the JAX package's decisions, which the port takes,
@@ -78,12 +82,25 @@ seconds):
      no wrong mapq-60 primary;
   6. the splice path: the genome with 1024 planted multi-exon genes (half
      on each strand, canonical splice signals) and one cDNA read per gene
-     through ``cli.main(["--batch", "-a", "-x", "splice", ...])``; sketch,
-     sort3, chain, exts2 and the splice traceback launched, >= 90% of
-     primaries on their gene (fallback reads scored on their host-path
-     records), no wrong mapq-60 primary, every primary CIGAR spans its
-     read and reference interval, >= 80% of the true introns matched
-     exactly by an N op;
+     through ``cli.main(["--batch", "-a", "-x", "splice", "-d",
+     "splice.mmi", ...])``; sketch, sort3, chain, exts2 and the splice
+     traceback launched, >= 90% of primaries on their gene (fallback reads
+     scored on their host-path records), no wrong mapq-60 primary, every
+     primary CIGAR spans its read and reference interval, >= 80% of the
+     true introns matched exactly by an N op;
+  6b. splice:sr on splice.mmi (k15 w5): 2048 FR pairs of 2 x 150 bp from
+     the planted genes' spliced transcripts (fragments ~N(250, 50) clipped
+     to [160, 500], every other one reverse-complemented, 0.5%
+     substitutions; seed 12) in two FASTQ files and a BED12 of the genes;
+     (a) ``cli.main(["--batch", "-ax", "splice:sr", "-j", anno,
+     "splice.mmi", r1, r2])``: sketch, sort3, chain, extd2 and the
+     traceback launched; (b) the r1 file alone, single-end: sketch, sort3,
+     chain, exts2 and the splice traceback launched; no wrong mapq-60
+     primary, every primary CIGAR spans its read, run (a)'s records in
+     input order, and the shares of ends with a primary on their gene, of
+     pairs proper and of fragments on the host path and run (b)'s share
+     of true introns matched exactly against SSR_FLOORS (run (a)'s is
+     printed: its extd2 does not splice); reads/s of both runs;
   7. each kernel against its plain PyTorch version on the card at its
      path's shapes (bit-equal; the sketch on random codes, on the first
      batch of phases 3 (k15 w10), 5 (k19 w10, HPC-compacted codes) and 6
@@ -102,7 +119,11 @@ seconds):
      batch and at k19 w19 on random codes, sort3 on its first compaction
      (chunked) and anchor keys, extd2 and the traceback on its first align
      launch; extd2's score-only mode on phase 3e's launch, its own row of
-     the kernels line, with its cell-updates/s), timed with CUDA events;
+     the kernels line, with its cell-updates/s; at phase 6b's shapes: the
+     sketch (k15 w5, 512 x 1024), sort3, the chain, extd2 and the
+     traceback on run (a)'s first batch and align launch, exts2 and the
+     splice traceback on the first 32 jobs of run (b)'s first launch),
+     timed with CUDA events;
      extd2's DP cell-updates/s as bench.py defines them;
      blocks per SM of every kernel, and the sketch's, sort3's and sort1's
      registers and spills (ptxas); the chain's longest read (valid
@@ -114,12 +135,13 @@ seconds):
      step, DP kernel launches, traceback, ops download, host regs, and
      the SAM emit, for sr with mm_pair);
   9. card vs CPU (plain versions): the first 128 reads of phases 3 and 5
-     through PafStep give identical records, the first 8 reads of phase
-     4 and the first 4 of phase 6 through their -a paths identical SAM,
-     the first 2 long reads of phase 3d with 2 of its short reads through
+     through PafStep give identical records, the first 4 reads of phase
+     4 and the first 2 of phase 6 through their -a paths identical SAM,
+     the first long read of phase 3d with one of its short reads through
      the PAF driver identical PAF, the first 16 pairs of phase 4b through
-     ``engine.align_pairs`` identical SAM, the first 8 reads of phase 4c
-     through its -a path identical SAM, the first 32 reads of phase 3e
+     ``engine.align_pairs`` identical SAM, likewise the first 16 pairs of
+     phase 6b's run (a), the first 4 reads of phase 4c
+     through its -a path identical SAM, the first 16 reads of phase 3e
      through ``map_batch`` identical dicts;
   9b. the CLI without --batch (the host mapping path, no kernel may
      launch): a 10 Mb cut of phase 3's first contig and 128 ONT-like reads
@@ -145,6 +167,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 NONTENSOR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 GENOME_LEN, N_CONTIGS, N_READS = 100_000_000, 8, 1024
 SR_PAIRS, SR_LEN = 2048, 150
+SSR_PAIRS = 2048
 MB_READS, HOST_CUT, HOST_READS = 512, 10_000_000, 128
 
 
@@ -300,6 +323,15 @@ def phase_main_path(tmp):
                        ("splice_ref.fa", "splice_reads.fa"))
     write_fasta(spl_ref, names, gseqs)
     write_fasta(spl_rd, gnames, greads)
+    # phase 6b's splice:sr pairs from the same genes, and their BED12
+    ssr_names, ssr1, ssr2, ssr_truth, ssr_bed = simulate_splice_sr_pairs(
+        names, gseqs, gnames, introns, SSR_PAIRS, np.random.default_rng(12))
+    ssr_rd = [os.path.join(tmp, f"ssr_r{e}.fq") for e in (1, 2)]
+    for path, e, ends in zip(ssr_rd, (1, 2), (ssr1, ssr2)):
+        write_fastq(path, [f"{nm}/{e}" for nm in ssr_names], ends)
+    ssr_anno = os.path.join(tmp, "ssr_anno.bed")
+    with open(ssr_anno, "w") as f:
+        f.write("\n".join(ssr_bed) + "\n")
     # phase 4b's short-read pairs
     sr_names, sr1, sr2 = simulate_sr_pairs(names, seqs, SR_PAIRS,
                                            np.random.default_rng(8))
@@ -328,20 +360,36 @@ def phase_main_path(tmp):
     write_fasta(cut_rd, cut_names, cut_reads)
     log(f"[main] simulated {GENOME_LEN / 1e6:.0f} Mb genome + {N_READS} "
         f"ONT-like, {N_READS} PacBio-like, {N_READS} cDNA and {N_READS} "
-        f"ONT Q20-like reads, {SR_PAIRS} short-read pairs, {MB_READS} "
+        f"ONT Q20-like reads, {SR_PAIRS} short-read pairs, {SSR_PAIRS} "
+        f"splice:sr pairs, {MB_READS} "
         f"short ONT-like reads and a {HOST_CUT / 1e6:.0f} Mb cut with "
         f"{HOST_READS} reads in {time.time() - t0:.1f}s")
-    del reads, hreads, gseqs, greads, sr1, sr2, qreads
+    del reads, hreads, gseqs, greads, sr1, sr2, qreads, ssr1, ssr2
 
+    from minimap2_tpu_torch import cli
+    from minimap2_tpu_torch.index.mmi import load_mmi
     from minimap2_tpu_torch.parallel import batch, engine
-    comp, anch, sk = {}, {}, {}
-    run = _paf_run("main", ["--batch", "-x", "map-ont", "-o", paf, ref, rd],
+    comp, anch, sk, dump = {}, {}, {}, {}
+    mmi = os.path.join(tmp, "main.mmi")
+    run = _paf_run("main", ["--batch", "-x", "map-ont", "-d", mmi, "-o", paf,
+                            ref, rd],
                    ("sketch", "sort3", "sort3_merge", "chain"),
                    [_capture_first(batch, "sort3_chunked", comp),
                     _capture_first(batch, "sort3_rows", anch),
-                    _capture_first(engine, "sketch_batch", sk)])
+                    _capture_first(engine, "sketch_batch", sk),
+                    _timer(cli, "dump_mmi", dump)])
     paf_accuracy("main", paf, rnames)
+    t = time.time()
+    loaded = load_mmi(mmi)
+    load_s = time.time() - t
+    same_index("main", loaded, run["mi"])
+    log(f"[main] -d {os.path.getsize(mmi) / 1e6:.1f} MB .mmi: dump "
+        f"{dump['seconds']:.2f}s, load {load_s:.2f}s; equal to the host "
+        "MiniIndex array for array")
     return dict(run, rd=rd, ref=ref, rnames=rnames, hpc_rd=hpc_rd, paf=paf,
+                mmi=mmi, mmi_s=dict(dump=dump["seconds"], load=load_s),
+                ssr_names=ssr_names, ssr_rd=ssr_rd, ssr_truth=ssr_truth,
+                ssr_bed=ssr_anno,
                 genome=(names, seqs),
                 compaction_keys=comp["args"], anchor_keys=anch["args"],
                 sketch_in=sk["args"],
@@ -350,6 +398,31 @@ def phase_main_path(tmp):
                 sr_lens=sr_lens, q_rd=q_rd, qnames=qnames,
                 mb_names=mb_names, mb_reads=mb_reads, cut_ref=cut_ref,
                 cut_rd=cut_rd, cut_names=cut_names)
+
+
+def _timer(mod, name, store):
+    """A hook for mod.name that records its seconds in store."""
+    fn = getattr(mod, name)
+
+    def timing(*args, **kw):
+        t = time.time()
+        out = fn(*args, **kw)
+        store["seconds"] = time.time() - t
+        return out
+    return mod, name, timing
+
+
+def same_index(tag, a, b):
+    """Fail unless two MiniIndexes hold the same arrays (keys, run starts,
+    positions, reference codes; values and dtypes) and sequence names and
+    lengths."""
+    require([(s.name, s.length) for s in a.seq] ==
+            [(s.name, s.length) for s in b.seq],
+            f"{tag}: the .mmi's names or lengths differ")
+    for x in ("keys", "starts", "pos", "S"):
+        ax, bx = getattr(a, x), getattr(b, x)
+        require(ax.dtype == bx.dtype and np.array_equal(ax, bx),
+                f"{tag}: the .mmi's {x} differ from the host index's")
 
 
 def _build_on_card(tag, names, parts, w, k, **kw):
@@ -595,7 +668,7 @@ def phase_long_reads(main, tmp, n_short=896, n_long=128):
     write_fasta(rd, rnames, reads)
     del reads
     run = _paf_run("long", ["--batch", "-x", "map-ont", "-o", paf,
-                            main["ref"], rd],
+                            main["mmi"], rd],
                    ("sketch", "sort3", "sort3_merge", "chain"))
     host = run["host"]
     require(host["reads"] == n_long,
@@ -811,7 +884,7 @@ def phase_align_path(main, tmp):
     sam = os.path.join(tmp, "out.sam")
     first_job = {}
     run = _align_run(
-        "align", ["--batch", "-a", "-x", "map-ont", "-o", sam, main["ref"],
+        "align", ["--batch", "-a", "-x", "map-ont", "-o", sam, main["mmi"],
                   main["rd"]], ("sketch", "sort3", "sort3_merge", "chain",
                                 "extd2", "traceback"),
         [_capture_first(align_batch, "_align_step", first_job)])
@@ -1211,9 +1284,10 @@ def phase_splice_path(main, tmp):
     input (for phase 7)."""
     from minimap2_tpu_torch.parallel import align_batch, engine
     sam = os.path.join(tmp, "splice.sam")
+    mmi = os.path.join(tmp, "splice.mmi")
     first, sk = {}, {}
     run = _align_run(
-        "splice", ["--batch", "-a", "-x", "splice", "-o", sam,
+        "splice", ["--batch", "-a", "-x", "splice", "-d", mmi, "-o", sam,
                    main["spl_ref"], main["spl_rd"]],
         ("sketch", "sort3", "sort3_merge", "chain", "exts2",
          "traceback_splice"),
@@ -1275,7 +1349,301 @@ def phase_splice_path(main, tmp):
              (in_frac >= 0.80, f"only {100 * in_frac:.1f}% of the true "
               "introns matched")]
     return dict(run, first=first, gates=gates, intron_share=in_frac,
-                rd=main["spl_rd"], sketch_in=sk["args"])
+                rd=main["spl_rd"], sketch_in=sk["args"], mmi=mmi)
+
+
+def simulate_splice_sr_pairs(names, gseqs, gnames, introns, n_pairs, rng):
+    """Short-read RNA-seq pairs from phase 6's planted genes: pair i from
+    gene i mod n_genes, a fragment of ~N(250, 50) bases clipped to [160,
+    500] (and to the transcript) of its spliced transcript, every other
+    one reverse-complemented; r1 its first SR_LEN bases, r2 the reverse
+    complement of its last SR_LEN; 0.5% substitutions.  Returns (qnames,
+    r1 codes, r2 codes, {(qname, end): (contig, gene start, gene end,
+    strand, [introns the end crosses])}, BED12 lines of the genes)."""
+    cid = {nm: i for i, nm in enumerate(names)}
+    qnames, r1s, r2s, truth = [], [], [], {}
+    for i in range(n_pairs):
+        gn = gnames[i % len(gnames)]
+        _, chrom, gst, gen, _ = gn.split("!")
+        gst, gen = int(gst), int(gen)
+        ivs = introns[gn]
+        exons = list(zip([gst] + [b for _, b in ivs],
+                         [a for a, _ in ivs] + [gen]))
+        g = gseqs[cid[chrom]]
+        tx = np.concatenate([g[a:b] for a, b in exons]).astype(np.uint8)
+        gpos = np.concatenate([np.arange(a, b) for a, b in exons])
+        flen = min(int(np.clip(round(rng.normal(250, 50)), 160, 500)),
+                   len(tx))
+        fs = int(rng.integers(0, len(tx) - flen + 1))
+        minus = i % 2 == 1
+        a_iv, b_iv = (fs, fs + SR_LEN), (fs + flen - SR_LEN, fs + flen)
+        frag = tx[fs:fs + flen]
+        if minus:
+            frag = (3 - frag)[::-1]
+        qn = f"S{i}!{chrom}!{gst}!{gen}"
+        ends = []
+        for e, (x, iv, strand) in enumerate(
+                ((frag[:SR_LEN], b_iv if minus else a_iv, "-+"[not minus]),
+                 ((3 - frag[-SR_LEN:])[::-1], a_iv if minus else b_iv,
+                  "+-"[not minus])), 1):
+            x = x.astype(np.uint8)
+            msub = rng.random(len(x)) < 0.005
+            x[msub] = (x[msub] + rng.integers(1, 4, int(msub.sum()),
+                                              dtype=np.uint8)) % 4
+            ends.append(x)
+            gp = gpos[iv[0]:iv[1]]
+            jumps = np.flatnonzero(np.diff(gp) != 1)
+            truth[(qn, e)] = (chrom, int(gp[0]), int(gp[-1]) + 1, strand,
+                              [(int(gp[j]) + 1, int(gp[j + 1]))
+                               for j in jumps])
+        qnames.append(qn)
+        r1s.append(ends[0])
+        r2s.append(ends[1])
+    bed = []
+    for gn in gnames:
+        _, chrom, gst, gen, strand = gn.split("!")
+        gst, gen = int(gst), int(gen)
+        ivs = introns[gn]
+        ex = list(zip([gst] + [b for _, b in ivs], [a for a, _ in ivs] + [gen]))
+        bed.append(f"{chrom}\t{gst}\t{gen}\t{gn.split('!')[0]}\t0\t{strand}\t"
+                   f"{gst}\t{gen}\t0\t{len(ex)}\t"
+                   + ",".join(str(b - a) for a, b in ex) + ",\t"
+                   + ",".join(str(a - gst) for a, _ in ex) + ",")
+    return qnames, r1s, r2s, truth, bed
+
+
+def _splice_sr_scores(sam, truth, ends):
+    """Primary records of a splice:sr SAM against the simulated truth:
+    (ends with a primary on their gene, ends with a primary, mapq-60
+    primaries, wrong ones, pairs proper, true introns crossed, matched
+    exactly by an N op, primaries whose CIGAR does not span the read,
+    records out of input order)."""
+    prim, proper, order = {}, Counter(), []
+    with open(sam) as f:
+        for ln in f:
+            if ln.startswith("@"):
+                continue
+            t = ln.rstrip("\n").split("\t")
+            nm = t[0].split("/")[0]
+            order.append(int(nm.split("!")[0][1:]))
+            flag = int(t[1])
+            if flag & 0x904 == 0:
+                end = 2 if flag & 0x80 else 1
+                prim.setdefault((nm, end), t)
+                proper[nm] += bool(flag & 0x2)
+    n_ok = n_q60 = n_q60_wrong = n_in = n_in_ok = 0
+    bad_cigar = []
+    for key in ends:
+        chrom, gst, gen, strand, ivs = truth[key]
+        n_in += len(ivs)
+        t = prim.get(key)
+        if t is None:
+            continue
+        q_len, r_len, ops = _cigar_spans(t[5])
+        if q_len != SR_LEN or len(t[9]) != q_len:
+            bad_cigar.append(key)
+        pos = int(t[3]) - 1
+        ok = t[2] == chrom and pos < gen and pos + r_len > gst
+        n_ok += ok
+        if int(t[4]) == 60:
+            n_q60 += 1
+            n_q60_wrong += not ok
+        got_in, x = set(), pos
+        for n_, o in ops:
+            if o == "N":
+                got_in.add((x, x + int(n_)))
+            if o in "MDN=X":
+                x += int(n_)
+        n_in_ok += sum(iv in got_in for iv in ivs)
+    n_out = sum(a > b for a, b in zip(order, order[1:]))
+    return dict(on_gene=n_ok, with_primary=len(prim), q60=n_q60,
+                q60_wrong=n_q60_wrong, proper=sum(v == 2 for v in
+                                                  proper.values()),
+                introns=n_in, introns_exact=n_in_ok, bad_cigar=bad_cigar,
+                out_of_order=n_out)
+
+
+# phase 6b's floors and the host-path ceiling, from a CPU rehearsal of the
+# same simulation on a 10 Mb genome (256 genes, 384 pairs): 0.694 of ends
+# on their gene, 0.576 of pairs proper, no fragment on the host path,
+# single-end 0.802 on their gene and 0.276 of introns matched; the floors
+# leave room for sampling.  The paired path's share of true introns matched
+# has no floor: it aligns with extd2, which does not splice, so it is 0 by
+# design (the JAX package's paired device path likewise); it is printed
+SSR_FLOORS = dict(pe_on_gene=0.60, pe_proper=0.48, pe_host=0.05,
+                  se_on_gene=0.70, se_introns=0.18)
+
+
+def phase_splice_sr(main, spl, tmp):
+    """Phase 6b: splice:sr on phase 6's genome through its .mmi (k15 w5).
+    Run (a), the command users run: ``cli.main(["--batch", "-ax",
+    "splice:sr", "-j", anno.bed, "splice.mmi", r1, r2])``, the paired
+    path (extd2 + the traceback, which do not splice; a fragment goes to
+    the host path whole only where an end fails its audit, and -j has no
+    effect there: jump_split runs in map_frag_core's single-segment branch
+    and the device path reads no side data, as in the JAX package); run
+    (b): the same reads' r1 alone, single-end, through the spliced -a
+    path (exts2 + the splice traceback).  Gates: no wrong
+    mapq-60 primary, every primary CIGAR spans its read, records in input
+    order (run (a)); shares of ends with a primary on their gene, of pairs
+    proper, of fragments on the host path and run (b)'s of true introns
+    matched exactly against SSR_FLOORS (run (a)'s is printed).  Records,
+    for phase 7, run (a)'s first batch's sketch input, compaction and
+    anchor keys, chain input and first align launch, and run (b)'s first
+    exts2 launch."""
+    from minimap2_tpu_torch.parallel import align_batch, batch, engine
+    n_pairs = len(main["ssr_names"])
+    sam_a, sam_b = (os.path.join(tmp, f) for f in ("ssr_pe.sam",
+                                                   "ssr_se.sam"))
+    first_job, sk, ch, sorts, first_s = {}, {}, {}, [], {}
+    pe = _pe_run(
+        "splice:sr pe", ["--batch", "-ax", "splice:sr", "-j",
+                         main["ssr_bed"], "-o", sam_a, spl["mmi"],
+                         *main["ssr_rd"]],
+        ("sketch", "sort3", "chain", "extd2", "traceback"),
+        [_capture_first(align_batch, "_align_step", first_job),
+         _capture_first(engine, "sketch_batch", sk),
+         _capture_first(engine, "chain_batch", ch),
+         _capture_calls(batch, "sort3_rows", sorts, 2)])
+    se = _align_run(
+        "splice:sr se", ["--batch", "-ax", "splice:sr", "-o", sam_b,
+                         spl["mmi"], main["ssr_rd"][0]],
+        ("sketch", "sort3", "chain", "exts2", "traceback_splice"),
+        [_capture_first(align_batch, "exts2_batch", first_s)])
+    truth = main["ssr_truth"]
+    a = _splice_sr_scores(sam_a, truth, [(nm, e) for nm in main["ssr_names"]
+                                         for e in (1, 2)])
+    b = _splice_sr_scores(sam_b, truth, [(nm, 1)
+                                         for nm in main["ssr_names"]])
+    n_fb = len(pe["fallbacks"])
+    shares = dict(pe_on_gene=a["on_gene"] / (2 * n_pairs),
+                  pe_proper=a["proper"] / n_pairs,
+                  pe_introns=a["introns_exact"] / max(a["introns"], 1),
+                  pe_host=n_fb / n_pairs,
+                  se_on_gene=b["on_gene"] / n_pairs,
+                  se_introns=b["introns_exact"] / max(b["introns"], 1))
+    for tag, x in (("pe", a), ("se", b)):
+        log(f"[splice:sr {tag}] {x['on_gene']} ends on their gene, "
+            f"{x['with_primary']} with a primary, {x['q60']} at mapq 60 of "
+            f"which {x['q60_wrong']} wrong; {x['proper']} pairs proper; "
+            f"{x['introns_exact']}/{x['introns']} true introns matched "
+            f"exactly; {len(x['bad_cigar'])} primary CIGARs not spanning "
+            f"their read; {x['out_of_order']} records out of input order")
+    log(f"[splice:sr] shares {json.dumps({k: round(v, 4) for k, v in shares.items()})}"
+        f"; paired {pe['reads_per_s']:.1f} reads/s, single-end "
+        f"{se['reads_per_s']:.1f} reads/s; fragments on the host path "
+        f"{n_fb} ({100 * shares['pe_host']:.1f}%), single-end fallback "
+        f"reads {len(se['fallbacks'])}")
+    # the paired path writes fragment by fragment in input order; the
+    # single-end -a path writes a batch's unmapped reads after its mapped
+    # ones, as the JAX package does
+    gates = [(a["out_of_order"] == 0, f"splice:sr pe: {a['out_of_order']} "
+              "records out of input order")]
+    for tag, x in (("pe", a), ("se", b)):
+        gates += [(x["q60_wrong"] == 0, f"splice:sr {tag}: {x['q60_wrong']} "
+                   "wrong mapq-60 primaries"),
+                  (not x["bad_cigar"], f"splice:sr {tag}: CIGARs not "
+                   f"spanning their read {x['bad_cigar'][:5]}")]
+    log(f"[splice:sr pe] {a['introns_exact']}/{a['introns']} true introns "
+        f"matched on the paired path, which aligns with extd2 (no splicing)"
+        f"; no floor")
+    for k_, floor in SSR_FLOORS.items():
+        ok = shares[k_] <= floor if k_ == "pe_host" else shares[k_] >= floor
+        gates.append((ok, f"splice:sr {k_} {shares[k_]:.4f} against "
+                      f"{'ceiling' if k_ == 'pe_host' else 'floor'} {floor}"))
+    return dict(pe=dict(pe, first_job=first_job, sketch_in=sk["args"],
+                        chain_in=ch, compaction_keys=sorts[0]["args"],
+                        anchor_keys=sorts[1]["args"], rd=main["ssr_rd"]),
+                se=dict(se, first=first_s), shares=shares, gates=gates)
+
+
+def phase_splice_sr_kernels(ssr, rows):
+    """Phase 7 at phase 6b's shapes: the sketch (k15 w5, 512 x 1024),
+    sort3, the chain, extd2 and the traceback on run (a)'s first batch and
+    align launch (phase_sr_kernels), and exts2 and the splice traceback on
+    the first 32 jobs of run (b)'s first launch (_exts2_traceback_splice);
+    each bit-equal to its plain version, timed, beside its bound, as a
+    "splice_sr" entry of its row."""
+    phase_sr_kernels(ssr["pe"], rows, "splice_sr")
+    by = {r["name"]: r for r in rows}
+    ext, tb, _ = _exts2_traceback_splice(
+        "splice:sr's first launch", ssr["se"]["first"])
+    for name, e in (("exts2", ext), ("traceback_splice", tb)):
+        by[name]["splice_sr"] = e
+        by[name]["max_abs_err"] = max(by[name]["max_abs_err"],
+                                      e["max_abs_err"])
+
+
+def _exts2_plain(args, kw, RT):
+    """exts2's plain version on args at the launch's kw, with the
+    kernel's EZ_DEAD group rule applied."""
+    from minimap2_tpu_torch.ops import exts
+    pp, ezp = exts.exts2_batch_plain(
+        *args, W=kw["W"], RT=RT, QP=args[0].shape[1], q=kw["q"], e=kw["e"],
+        q2=kw["q2"], sc_mch=kw["sc_mch"], sc_mis=kw["sc_mis"],
+        sc_N=kw["sc_N"])
+    return pp, exts._ez_dead(ezp, args[4], kw["G"], kw["RB"], RT)
+
+
+def _exts2_bound(lens_t):
+    """(DP cells, bound ms, bound_by) of an exts2 launch on these jobs:
+    what this run's data needs, one p byte a DP cell (not the padded
+    (N, RT, W) plane the wrapper zero-fills, timed apart as memset_ms),
+    each job's live query bytes and target, donor and acceptor bytes,
+    lens and ez; 45 ops a cell."""
+    lh = lens_t.cpu().numpy().astype(np.int64)
+    n, cells = len(lh), int((lh[:, 0] * lh[:, 1]).sum())
+    live = int(lh[:, 0].sum()) + 3 * int(lh[:, 1].sum())
+    return (cells,) + bound(cells + live + n * 8 + n * 16 * 4, 45 * cells)
+
+
+def _exts2_traceback_splice(tag, first, n=32):
+    """exts2 and the splice traceback against their plain versions on the
+    first n jobs of one captured exts2 launch (first: its args and kw):
+    bit-equal, timed with CUDA events, each beside its bound, and the
+    wrapper's zero-fill of p (memset_ms) timed apart.  Returns (exts2
+    dict, traceback dict, p of the n jobs)."""
+    from minimap2_tpu_torch.ops import exts, traceback
+    kw = first["kw"]
+    args = [x[:n] for x in first["args"]]      # qr, sf, dn, ac, lens
+    N, QP = args[0].shape
+    TP, W, RB = kw["TP"], kw["W"], kw["RB"]
+    p, ez = exts.exts2_batch(*args, **kw)
+    RT = p.shape[1]
+    (pp, ezp), plain_ms = timed_once(lambda: _exts2_plain(args, kw, RT))
+    err = max(max_abs_err_u8([p], [pp]), max_abs_err([ez], [ezp]))
+    require(err == 0, f"exts2 differs from its plain version on the first "
+            f"{N} jobs of {tag} ({err})")
+    del pp
+    cells, bms, bby = _exts2_bound(args[4])
+    ms = cuda_ms(lambda: exts.exts2_batch(*args, **kw), reps=5)
+    memset_ms = cuda_ms(lambda: torch.zeros((N, RT, W), dtype=torch.uint8,
+                                            device="cuda"), reps=5)
+    ext = dict(shape=[N, QP, TP, W, RT], dp_cells=cells, max_abs_err=err,
+               ms=ms, memset_ms=memset_ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=bby)
+    log(f"[kernels] exts2 on the first {N} jobs of {tag} (QP={QP}, "
+        f"TP={TP}, W={W}, R={RT}, {cells} DP cells): bit-equal, {ms:.3f} "
+        f"ms (of it {memset_ms:.3f} ms zeroing p), plain {plain_ms:.0f} "
+        f"ms, bound {bms:.4f} ms ({bby})")
+    tkw = dict(RB=RB, w=0, splice=True, QP=QP)
+    ops, fin = traceback.traceback_batch(p, args[4], **tkw)
+    (ops2, fin2), tb_plain_ms = timed_once(
+        lambda: traceback.traceback_batch_plain(p, args[4], **tkw))
+    err_t = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
+    require(err_t == 0, f"splice traceback differs from its plain version "
+            f"on the first {N} jobs of {tag} ({err_t})")
+    visited = int((ops != 0).sum())
+    n_intron_ops = int((ops == 4).sum())
+    tbms, tby = bound(visited + N * RT + N * 8 + N * 8, 0)
+    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, args[4], **tkw),
+                    reps=5)
+    tb = dict(shape=[N, RT, W], visited=visited, max_abs_err=err_t,
+              ms=tb_ms, plain_ms=tb_plain_ms, bound_ms=tbms, bound_by=tby)
+    log(f"[kernels] splice traceback on the same p: bit-equal, {tb_ms:.3f} "
+        f"ms, plain {tb_plain_ms:.0f} ms, {visited} diagonals visited, "
+        f"{n_intron_ops} of them N, bound {tbms:.6f} ms ({tby})")
+    return ext, tb, p
 
 
 def _first_batch(step, rd, n):
@@ -1560,9 +1928,12 @@ def _extd2_traceback(job, n_first=64, n_plain=None):
     del pp
 
     def extd2_bound(lens_t):
-        lh = lens_t.cpu().numpy()
+        # what this run's data needs: one p byte a band cell (not the
+        # padded (N, RT, W) plane), the live query and target bytes, lens
+        # and ez; 40 ops a cell
+        lh = lens_t.cpu().numpy().astype(np.int64)
         n, cells = len(lh), band_cells(lh, w)
-        return (cells,) + bound(n * RT * W + n * (QP + TP) + n * 8
+        return (cells,) + bound(cells + int(lh.sum()) + n * 8
                                 + n * extend.EZ_N * 4, 40 * cells)
     cells, bms, by = extd2_bound(lens)
     ext_ms = cuda_ms(lambda: extend.extd2_batch2(qr, sf, lens, **ext_kw),
@@ -1674,13 +2045,14 @@ def _log_extd2_traceback(tag, x, y, k):
         f"{y['first64']['bound_ms']:.6f} ms ({y['first64']['bound_by']})")
 
 
-def phase_sr_kernels(srp, rows):
+def phase_sr_kernels(srp, rows, path="sr"):
     """Phase 7 at the sr path's shapes, on phase 4b's first batch: the
     sketch at k21 w11 (512 x 1024), sort3 on its compaction and anchor
     keys, the chain on its anchor planes (512 x 2048, band 100), extd2 (W
     256, sr scores) and the traceback on its first align launch; each
-    bit-equal to its plain version, timed, beside its bound.  Adds an "sr"
-    entry to each kernel's row."""
+    bit-equal to its plain version, timed, beside its bound.  Adds a
+    ``path`` entry to each kernel's row (phase 6b's splice:sr pairs, k15
+    w5, run the same shapes as "splice_sr")."""
     from minimap2_tpu_torch.ops import _build, chain, sketch, sort
     by = {r["name"]: r for r in rows}
     p_args = tuple(srp["sketch_in"])
@@ -1688,7 +2060,7 @@ def phase_sr_kernels(srp, rows):
     k_, w_ = p_args[2], p_args[3]
     e = max_abs_err(sketch.sketch_batch(*p_args),
                     sketch.device_sketch(*p_args))
-    require(e == 0, f"sketch differs from its plain version on the sr "
+    require(e == 0, f"sketch differs from its plain version on the {path} "
             f"path's first batch ({e})")
     s_ms, s_by = bound(PB * PL * 11 + PB * 4,
                        PB * PL * sketch_ops(w_))
@@ -1697,19 +2069,19 @@ def phase_sr_kernels(srp, rows):
               plain_ms=cuda_ms(lambda: sketch.device_sketch(*p_args), reps=3),
               bound_ms=s_ms, bound_by=s_by,
               blocks_per_sm=_build.blocks_per_sm("sketch", PL, w_))
-    by["sketch"]["paths"]["sr"] = sk
+    by["sketch"]["paths"][path] = sk
     by["sketch"]["max_abs_err"] = max(by["sketch"]["max_abs_err"], e)
-    log(f"[kernels] sketch on the sr path's first batch ({PB} x {PL}, k{k_} "
+    log(f"[kernels] sketch on the {path} path's first batch ({PB} x {PL}, k{k_} "
         f"w{w_}): bit-equal, {sk['ms']:.4f} ms, plain {sk['plain_ms']:.2f} "
         f"ms, bound {s_ms:.4f} ms ({s_by}), {sk['blocks_per_sm']} blocks "
         f"per SM")
-    # the sr path's first compaction (512 x 1024) and anchor keys, both
+    # the path's first compaction (512 x 1024) and anchor keys, both
     # through sort3_rows
     sr3 = {}
     for tag, keys in (("compaction", srp["compaction_keys"]),
                       ("anchors", srp["anchor_keys"])):
         e = max_abs_err(sort.sort3_rows(*keys), sort.sort3_rows_plain(*keys))
-        require(e == 0, f"sort3_rows differs from its plain version on the sr"
+        require(e == 0, f"sort3_rows differs from its plain version on the {path}"
                 f" path's first {tag} keys ({e})")
         B_, A_ = keys[0].shape
         b_ms, b_by = bound(B_ * A_ * 24, B_ * (A_ // 2) * sort_stages(A_) * 8)
@@ -1721,43 +2093,43 @@ def phase_sr_kernels(srp, rows):
             bound_ms=b_ms, bound_by=b_by,
             library_ms=cuda_ms(lambda k=keys: library_sort3(*k), reps=5),
             blocks_per_sm=_build.blocks_per_sm("sort3", A_))
-        log(f"[kernels] sort3 on the sr path's first {tag} keys ({B_} x "
+        log(f"[kernels] sort3 on the {path} path's first {tag} keys ({B_} x "
             f"{A_}): bit-equal, {sr3[tag]['ms']:.4f} ms, plain "
             f"{sr3[tag]['plain_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"torch.sort x3 {sr3[tag]['library_ms']:.4f} ms, "
             f"{sr3[tag]['blocks_per_sm']} blocks per SM")
-    by["sort3"]["sr"] = sr3
+    by["sort3"][path] = sr3
     by["sort3"]["max_abs_err"] = max(
         by["sort3"]["max_abs_err"], *(x["max_abs_err"] for x in sr3.values()))
 
-    # the sr path's first batch (512 x 2048, band 100)
+    # the path's first batch (512 x 2048, band 100)
     sr_planes, sr_kw = srp["chain_in"]["args"], srp["chain_in"]["kw"]
     e = max_abs_err(chain.chain_batch(*sr_planes, **sr_kw),
                     chain.chain_batch_plain(*sr_planes, **sr_kw))
-    require(e == 0, f"chain differs from its plain version on the sr path's "
+    require(e == 0, f"chain differs from its plain version on the {path} path's "
             f"first batch ({e})")
     B_, A_ = sr_planes[0].shape
     n_sr = int(sr_planes[5].sum())
     n_max_sr = chain.last_valid(sr_planes[5])
     b_ms, b_by = bound(B_ * A_ * (21 + 16), n_sr * sr_kw["WND"] * 30)
     sr_ms = cuda_ms(lambda: chain.chain_batch(*sr_planes, **sr_kw))
-    by["chain"]["sr"] = dict(
+    by["chain"][path] = dict(
         shape=[B_, A_], bw=sr_kw["bw"], max_abs_err=e, ms=sr_ms,
         plain_ms=cuda_ms(lambda: chain.chain_batch_plain(*sr_planes, **sr_kw),
                          reps=2, warmup=1),
         bound_ms=b_ms, bound_by=b_by, valid_anchors=n_sr, longest_n=n_max_sr,
         ns_per_step=1e6 * sr_ms / max(n_max_sr, 1))
     by["chain"]["max_abs_err"] = max(by["chain"]["max_abs_err"], e)
-    log(f"[kernels] chain on the sr path's first batch ({B_} x {A_}, band "
+    log(f"[kernels] chain on the {path} path's first batch ({B_} x {A_}, band "
         f"{sr_kw['bw']}, {n_sr} valid anchors, the longest read's n "
         f"{n_max_sr}): bit-equal, {sr_ms:.3f} ms, plain "
-        f"{by['chain']['sr']['plain_ms']:.1f} ms, bound {b_ms:.4f} ms "
+        f"{by['chain'][path]['plain_ms']:.1f} ms, bound {b_ms:.4f} ms "
         f"({b_by})")
 
     ext, tb, ext_kw = _extd2_traceback(srp["first_job"])
-    _log_extd2_traceback("sr", ext, tb, ext_kw)
+    _log_extd2_traceback(path, ext, tb, ext_kw)
     for name, x in (("extd2", ext), ("traceback", tb)):
-        by[name]["sr"] = x
+        by[name][path] = x
         by[name]["max_abs_err"] = max(by[name]["max_abs_err"],
                                       x["max_abs_err"])
 
@@ -1939,46 +2311,27 @@ def phase_new_kernels(hpc, spl):
 
     launch = spl["first"]["args"]        # qr, sf, dn, ac, lens
     kw = spl["first"]["kw"]
-    NL, QP = launch[0].shape
-    TP, W, RB, G = kw["TP"], kw["W"], kw["RB"], kw["G"]
-    first = [x[:32] for x in launch]
-    N = first[0].shape[0]
-    p, ez = exts.exts2_batch(*first, **kw)
-    RT = p.shape[1]
-
-    def exts2_plain(args):
-        pp, ezp = exts.exts2_batch_plain(
-            *args, W=W, RT=RT, QP=QP, q=kw["q"], e=kw["e"], q2=kw["q2"],
-            sc_mch=kw["sc_mch"], sc_mis=kw["sc_mis"], sc_N=kw["sc_N"])
-        return pp, exts._ez_dead(ezp, args[4], G, RB, RT)
-
-    def exts2_bound(lens_t):
-        lh = lens_t.cpu().numpy().astype(np.int64)
-        n, cells = len(lh), int((lh[:, 0] * lh[:, 1]).sum())
-        return (cells,) + bound(n * RT * W + n * (QP + 3 * TP) + n * 8
-                                + n * 16 * 4, 45 * cells)
-    (pp, ezp), ext_plain_ms = timed_once(lambda: exts2_plain(first))
-    err = max(max_abs_err_u8([p], [pp]), max_abs_err([ez], [ezp]))
-    require(err == 0, f"exts2 differs from its plain version ({err})")
-    del pp
-    cells, bms, by = exts2_bound(first[4])
-    ext_ms = cuda_ms(lambda: exts.exts2_batch(*first, **kw), reps=5)
+    NL = launch[0].shape[0]
+    W, RB = kw["W"], kw["RB"]
+    ext, tb, p = _exts2_traceback_splice("the splice phase's first launch",
+                                         spl["first"])
+    _, QP, _, _, RT = ext["shape"]
+    del p
     # the whole first launch, compared 16 jobs at a time
     pl, ezl = exts.exts2_batch(*launch, **kw)
-    (ppl, ezpl), launch_plain_ms = timed_once(lambda: exts2_plain(launch))
+    (ppl, ezpl), launch_plain_ms = timed_once(
+        lambda: _exts2_plain(launch, kw, RT))
     err_l = max([max_abs_err_u8([pl[i:i + 16]], [ppl[i:i + 16]])
                  for i in range(0, NL, 16)] + [max_abs_err([ezl], [ezpl])])
     require(err_l == 0, f"exts2 differs from its plain version on the "
             f"whole first launch ({err_l})")
     del ppl
-    l_cells, l_bms, l_by = exts2_bound(launch[4])
+    l_cells, l_bms, l_by = _exts2_bound(launch[4])
     launch_ms = cuda_ms(lambda: exts.exts2_batch(*launch, **kw), reps=3)
     memset_ms = cuda_ms(lambda: torch.zeros((NL, RT, W), dtype=torch.uint8,
                                             device="cuda"), reps=3)
-    per_sm = _build.blocks_per_sm("exts2", W, QP, TP)
-    log(f"[kernels] exts2 on {N} jobs (QP={QP}, TP={TP}, W={W}, R={RT}, "
-        f"{cells} DP cells): {ext_ms:.3f} ms, plain {ext_plain_ms:.0f} ms, "
-        f"bound {bms:.4f} ms ({by}); on the first launch, {NL} jobs "
+    per_sm = _build.blocks_per_sm("exts2", W, QP, kw["TP"])
+    log(f"[kernels] exts2 on the splice phase's first launch, {NL} jobs "
         f"(both strand rounds), {l_cells} DP cells: {launch_ms:.3f} ms "
         f"(of it {memset_ms:.3f} ms zeroing p), plain "
         f"{launch_plain_ms:.0f} ms, bound {l_bms:.4f} ms ({l_by}); "
@@ -1987,27 +2340,15 @@ def phase_new_kernels(hpc, spl):
         name="exts2", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/exts2.cu",
         replaces="minimap2_tpu/ops/exts_pallas.py:525",
-        launches=spl["launches"].get("exts2", 0), max_abs_err=max(err, err_l),
-        ms=ext_ms, plain_ms=ext_plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[N, QP, TP, W, RT], dp_cells=cells,
+        launches=spl["launches"].get("exts2", 0),
+        max_abs_err=max(ext["max_abs_err"], err_l), library_ms=None,
+        **{k: v for k, v in ext.items() if k != "max_abs_err"},
         launch=dict(jobs=NL, blocks_per_sm=per_sm, dp_cells=l_cells,
                     max_abs_err=err_l, ms=launch_ms, memset_ms=memset_ms,
                     plain_ms=launch_plain_ms, bound_ms=l_bms,
                     bound_by=l_by)))
 
     tkw = dict(RB=RB, w=0, splice=True, QP=QP)
-    lens = first[4]
-    ops, fin = traceback.traceback_batch(p, lens, **tkw)
-    (ops2, fin2), tb_plain_ms = timed_once(
-        lambda: traceback.traceback_batch_plain(p, lens, **tkw))
-    err = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
-    require(err == 0, f"splice traceback differs from its plain version "
-            f"({err})")
-    visited = int((ops != 0).sum())
-    n_intron_ops = int((ops == 4).sum())
-    bms, by = bound(visited + N * RT + N * 8 + N * 8, 0)
-    tb_ms = cuda_ms(lambda: traceback.traceback_batch(p, lens, **tkw),
-                    reps=5)
     # the whole first launch (both strand rounds of a sub-batch)
     lens_l = launch[4]
     opsl, finl = traceback.traceback_batch(pl, lens_l, **tkw)
@@ -2025,9 +2366,7 @@ def phase_new_kernels(hpc, spl):
                      reps=5)
     tb_sm = _build.blocks_per_sm("traceback", 1)
     del pl
-    log(f"[kernels] splice traceback on the same p: {tb_ms:.3f} ms, plain "
-        f"{tb_plain_ms:.0f} ms, {visited} diagonals visited, "
-        f"{n_intron_ops} of them N; on the whole launch's p ({NL} jobs, "
+    log(f"[kernels] splice traceback on the whole launch's p ({NL} jobs, "
         f"{visited_l} diagonals visited, the longest walk {walk} diagonals, "
         f"{tb_sm} blocks per SM): {tbl_ms:.3f} ms = "
         f"{1e6 * tbl_ms / max(walk, 1):.1f} ns a diagonal of the longest "
@@ -2037,9 +2376,8 @@ def phase_new_kernels(hpc, spl):
         source="minimap2_tpu_torch/ops/csrc/traceback.cu",
         replaces="minimap2_tpu/ops/traceback_pallas.py:155",
         launches=spl["launches"].get("traceback_splice", 0),
-        max_abs_err=max(err, err_tl), ms=tb_ms, plain_ms=tb_plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None, shape=[N, RT, W],
-        visited=visited,
+        max_abs_err=max(tb["max_abs_err"], err_tl), library_ms=None,
+        **{k: v for k, v in tb.items() if k != "max_abs_err"},
         launch=dict(jobs=NL, max_abs_err=err_tl, ms=tbl_ms,
                     plain_ms=tbl_plain_ms, bound_ms=tl_bms, bound_by=tl_by,
                     visited=visited_l, longest_walk=walk,
@@ -2170,12 +2508,13 @@ def phase_align_breakdown(aln, splice=False, pe=False):
     host_s = (t1 - t0) - (dp_ms + tb_ms) / 1e3 - dl[0]
     tag = "sr" if pe else "splice" if splice else "-a"
     dp_bound = ""
-    if not splice:      # the batch's extd2 work: its p bytes vs band cells
+    if not splice:      # the batch's extd2 work: a p byte a band cell
         nbytes = cells = 0
         for a, k in dp_calls:
-            n, RT = a[0].shape[0], -(-k["R"] // k["RB"]) * k["RB"]
-            nbytes += n * (RT * k["W"] + k["QP"] + k["TP"] + 8 + 64)
-            cells += band_cells(a[2].cpu().numpy(), k["w"])
+            lh = a[2].cpu().numpy().astype(np.int64)
+            c = band_cells(lh, k["w"])
+            nbytes += c + int(lh.sum()) + len(lh) * (8 + 64)
+            cells += c
         bms, by = bound(nbytes, 40 * cells)
         dp_bound = f" (bound {bms:.3f} ms, {by}: {cells} band cells)"
     log(f"[breakdown] 512-read {tag} batch: mapping step {step_ms:.2f} ms; "
@@ -2238,8 +2577,9 @@ def phase_align_cross_check(aln, tmp, n, splice=False, tag=None):
         f"and CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
 
 
-def phase_sr_cross_check(srp, tmp, n_pairs=16):
-    """The first n_pairs pairs of phase 4b through ``engine.align_pairs``
+def phase_sr_cross_check(srp, tmp, n_pairs=16, tag="sr"):
+    """The first n_pairs pairs of phase 4b (or 6b's, tag "splice:sr")
+    through ``engine.align_pairs``
     on the card and on the CPU (plain versions, CPU copies of the index):
     identical SAM.  Both sides take them as one batch (2 x n_pairs rows:
     the windowed chain scan, as the JAX dispatch rule says) at the path's
@@ -2252,7 +2592,7 @@ def phase_sr_cross_check(srp, tmp, n_pairs=16):
     paths = []
     for e, path in enumerate(srp["rd"], 1):
         recs = _records(path, n_pairs)
-        paths.append(os.path.join(tmp, f"x_sr{e}.fq"))
+        paths.append(os.path.join(tmp, f"x_{tag.replace(':', '_')}{e}.fq"))
         write_fastq(paths[-1], [r.name for r in recs],
                     [SEQ_NT4[np.frombuffer(r.seq, np.uint8)] for r in recs])
     di = step.di
@@ -2272,14 +2612,14 @@ def phase_sr_cross_check(srp, tmp, n_pairs=16):
         secs.append(time.time() - t)
         outs.append(out.getvalue())
     n_rec = len(outs[0].splitlines())
-    require(n_rec >= 2 * n_pairs, f"only {n_rec} sr SAM records for "
+    require(n_rec >= 2 * n_pairs, f"only {n_rec} {tag} SAM records for "
             f"{n_pairs} pairs")
-    require(outs[0] == outs[1], "card and CPU sr SAM differ")
-    log(f"[cross] {n_pairs}-pair sr SAM ({n_rec} records) identical on card "
+    require(outs[0] == outs[1], f"card and CPU {tag} SAM differ")
+    log(f"[cross] {n_pairs}-pair {tag} SAM ({n_rec} records) identical on card "
         f"and CPU (card {secs[0]:.2f}s, CPU plain versions {secs[1]:.1f}s)")
 
 
-def phase_long_cross_check(long_, tmp, n=2):
+def phase_long_cross_check(long_, tmp, n=1):
     """The first n long reads of phase 3d, each after one of its short
     reads, through the PAF driver on the card and on the CPU (plain
     versions, CPU copies of the index): identical PAF."""
@@ -2349,7 +2689,7 @@ def phase_host_route(main, tmp):
     return dict(seconds=secs, reads_per_s={t: n / v for t, v in secs.items()})
 
 
-def phase_map_batch_cross_check(mb, n=32):
+def phase_map_batch_cross_check(mb, n=16):
     """The first n reads of phase 3e through map_batch on the card and on
     the CPU (plain versions, a CPU copy of the index): identical dicts."""
     from minimap2_tpu_torch.parallel.batch import DeviceIndex, map_batch
@@ -2461,11 +2801,13 @@ def main():
         lrq = timed("lr:hqae", phase_lr_hqae, main_, tmp)
         hpc = timed("hpc", phase_hpc_path, main_, tmp)
         spl = timed("splice", phase_splice_path, main_, tmp)
+        ssr = timed("splice:sr", phase_splice_sr, main_, spl, tmp)
         rows = timed("kernels", phase_kernels, main_, hpc, spl, dvb, g38)
         rows += timed("align kernels", phase_align_kernels, aln)
         rows += timed("new kernels", phase_new_kernels, hpc, spl)
         timed("sr kernels", phase_sr_kernels, srp, rows)
         timed("rmq kernels", phase_rmq_kernels, lrq, mb, rows)
+        timed("splice:sr kernels", phase_splice_sr_kernels, ssr, rows)
         for r in rows:          # the PAF kernels also run on the other paths
             if r["name"] == "extd2_score_only":     # map_batch's mode only
                 continue
@@ -2480,6 +2822,10 @@ def main():
                                                         r["name"])
             r["launches_map_batch"] = kernel_launches(mb["launches"],
                                                       r["name"])
+            r["launches_splice_sr"] = kernel_launches(
+                ssr["pe"]["launches"], r["name"])
+            r["launches_splice_sr_se"] = kernel_launches(
+                ssr["se"]["launches"], r["name"])
         timed("breakdown", phase_breakdown, main_)
         timed("hpc breakdown", phase_breakdown, hpc, "HPC")
         timed("align breakdown", phase_align_breakdown, aln)
@@ -2487,15 +2833,18 @@ def main():
         timed("sr breakdown", phase_align_breakdown, srp, False, True)
         timed("cross PAF", phase_cross_check, main_)
         timed("cross HPC", phase_cross_check, hpc, "HPC")
-        timed("cross -a", phase_align_cross_check, aln, tmp, 8)
-        timed("cross splice", phase_align_cross_check, spl, tmp, 4, True)
+        timed("cross -a", phase_align_cross_check, aln, tmp, 4)
+        timed("cross splice", phase_align_cross_check, spl, tmp, 2, True)
         timed("cross long", phase_long_cross_check, long_, tmp)
         timed("cross sr", phase_sr_cross_check, srp, tmp)
-        timed("cross lr:hqae", phase_align_cross_check, lrq, tmp, 8, False,
+        timed("cross splice:sr", phase_sr_cross_check, ssr["pe"], tmp, 16,
+              "splice:sr")
+        timed("cross lr:hqae", phase_align_cross_check, lrq, tmp, 4, False,
               "lr:hqae")
         timed("cross map_batch", phase_map_batch_cross_check, mb)
         host = timed("host", phase_host_route, main_, tmp)
-    for ok, msg in aln["gates"] + spl["gates"] + srp["gates"] + lrq["gates"]:
+    for ok, msg in (aln["gates"] + spl["gates"] + srp["gates"]
+                    + lrq["gates"] + ssr["gates"]):
         require(ok, msg)
     kinds = torch.cuda.get_device_name(0)
     log(f"[main] card {card}: {main_['reads_per_s']:.1f} reads/s (PAF), "
@@ -2519,8 +2868,13 @@ def main():
         f"{hpc['reads_per_s']:.1f} reads/s (map-pb), "
         f"{spl['reads_per_s']:.1f} reads/s (-a -x "
         f"splice, {100 * spl['intron_share']:.1f}% of introns exact; host "
-        f"path {spl['host']['reads']} reads, {spl['host']['seconds']:.3f}s) "
-        f"on the 100 Mb genome; {g38['map']['reads_per_s']:.1f} reads/s "
+        f"path {spl['host']['reads']} reads, {spl['host']['seconds']:.3f}s), "
+        f"{ssr['pe']['reads_per_s']:.1f} reads/s (-ax splice:sr -j paired, "
+        f"{100 * ssr['shares']['pe_host']:.1f}% of fragments on the host "
+        f"path), {ssr['se']['reads_per_s']:.1f} reads/s (-ax splice:sr "
+        f"single-end) on the 100 Mb genome (its .mmi dumped in "
+        f"{main_['mmi_s']['dump']:.2f}s, loaded in "
+        f"{main_['mmi_s']['load']:.2f}s); {g38['map']['reads_per_s']:.1f} reads/s "
         f"(PAF) on the "
         f"GRCh38 envelope, its index built in {g38['stages']['total']:.1f}s "
         f"(100 Mb: {dvb['stages']['total']:.1f}s); "

@@ -1,26 +1,31 @@
 """Command-line entry point of the port: mapping as PAF or, with -c/-a, as
-PAF with cg:Z or SAM.
+PAF with cg:Z or SAM (or with --write-junc as junction BED lines).
 
     python -m minimap2_tpu_torch.cli --batch [-x map-ont] [-a|-c] ref.fa reads.fq
     python -m minimap2_tpu_torch.cli --batch -x sr [-a] ref.fa r1.fq [r2.fq]
+    python -m minimap2_tpu_torch.cli --batch -ax splice:sr [-j anno.bed] ref.mmi r1.fq [r2.fq]
+    python -m minimap2_tpu_torch.cli -d ref.mmi ref.fa
     python -m minimap2_tpu_torch.cli [-t N] [-x preset] [-a|-c] ref.fa reads.fq
 
 Presets on the --batch paths: map-ont / lr, lr:hq / map-hifi, lr:hqae,
 asm5 / asm10 / asm20 (lr:hqae, asm and --rmq=yes chain with the RMQ
 tier), map-pb (and -H: HPC minimizers), splice / splice:hq / cdna (spliced
--c/-a), sr (short reads, single-end or paired-end).  The option parsing is
-minimap2_tpu.cli's (main.c:24-526: presets first, then flags that
-override them), so IndexOptions/MapOptions come out the same.  Then FASTA
--> MiniIndex -> mapopt_update.  With --batch, on the device:
-run_batched_pe_cli for two or more query files in fragment mode (paired
-ends), else run_batched_align_cli with -c/-a, else run_batched_cli.
-Without --batch, the host mapping path as in the JAX package: each
-fragment through map_fragment + write_fragment, serially with -t 1 and in
-a spawn pool of -t workers otherwise; it touches no device.  What the port
-does not carry yet raises NotImplementedError naming the later slice:
-splice:sr, --eqx with --batch, splice side data (--junc-bed, -j, --spsc,
---pass1), .mmi/.npz targets, -d and the other options of _OFF_SLICE_ARGS,
-and a multi-part -I split.
+-c/-a), sr (short reads, single-end or paired-end), splice:sr (single-end
+through the spliced -c/-a path, paired-end through the paired path).  The
+option parsing is minimap2_tpu.cli's (main.c:24-526: presets first, then
+flags that override them), so IndexOptions/MapOptions come out the same.
+The target is a .mmi or .npz index, or a FASTA indexed here (-d writes the
+index as .mmi, or .npz by its suffix; with no query files the run ends
+there); a FASTA larger than -I with query files goes through the host
+multi-part split/merge path on both routes, as in the JAX package.  Then
+mapopt_update and the side data (--junc-bed, -j, --pass1, --spsc, --alt).
+With --batch, on the device: run_batched_pe_cli for two or more query
+files in fragment mode (paired ends), else run_batched_align_cli with
+-c/-a, else run_batched_cli.  Without --batch, the host mapping path as in
+the JAX package: each fragment through map_fragment + write_fragment,
+serially with -t 1 and in a spawn pool of -t workers otherwise; it touches
+no device.  The debug-output flags of _OFF_SLICE_ARGS raise
+NotImplementedError (a later slice).
 """
 from __future__ import annotations
 
@@ -30,11 +35,14 @@ import time
 
 from . import config as C
 from . import resolve_device
-from .config import IndexOptions, MapOptions, check_opt, mapopt_update, set_opt
+from .config import (IndexOptions, MapOptions, check_opt, mapopt_update,
+                     max_spsc_bonus, set_opt)
 from .index.index import MiniIndex
+from .index.mmi import MM_IDX_MAGIC, dump_mmi, load_mmi
+from .index.sidedata import jjump_read, read_alt, read_bed_junc, read_spsc
 from .io import format as fmt
 from .io.fastx import read_fasta
-from .map.driver import iter_fragments
+from .map.driver import iter_fragments, run_multipart
 from .map.parallel_host import map_fragments, run_parallel
 from .parallel import engine
 
@@ -67,13 +75,8 @@ LONG_FLAG_OPTS = {
     "--secondary-seq": C.MM_F_SECONDARY_SEQ,
 }
 
-# options whose features live outside the port's paths
+# the JAX CLI's debug-output flags, which the port does not carry yet
 _OFF_SLICE_ARGS = {
-    "-d": "writing an index (-d)", "-R": "SAM read groups (-R)",
-    "--junc-bed": "junction BED side data", "--bed": "junction BED side data",
-    "-j": "jump side data", "--jump": "jump side data",
-    "--pass1": "pass-1 junctions", "--spsc": "splice scores",
-    "--alt": "ALT contigs", "--split-prefix": "--split-prefix",
     "--print-seeds": "the host path's debug output",
     "--print-chains": "the host path's debug output",
     "--print-aln-seq": "the host path's debug output",
@@ -120,6 +123,15 @@ class Args:
         self.sam = False
         self.out_file = None
         self.n_threads = 3
+        self.idx_out = None         # -d
+        self.rg = None              # -R
+        self.junc_bed = None        # --junc-bed / --bed
+        self.jump_bed = None        # -j / --jump
+        self.pass1 = None           # --pass1
+        self.spsc = None            # --spsc
+        self.spsc_scale = 0.7       # --spsc-scale
+        self.alt_list = None        # --alt
+        self.split_prefix = None    # --split-prefix (held, as the JAX CLI)
 
 
 def parse_args(argv):
@@ -186,6 +198,8 @@ def parse_args(argv):
             io.flag |= C.MM_I_HPC
         elif a == "-I":
             io.batch_size = parse_num(val())
+        elif a == "-d":
+            args.idx_out = val()
         elif a == "-t":
             args.n_threads = int(val())
         elif a == "-v":
@@ -276,6 +290,8 @@ def parse_args(argv):
             mo.flag |= C.MM_F_NO_QUAL
         elif a == "-y":
             mo.flag |= C.MM_F_COPY_COMMENT
+        elif a == "-R":
+            args.rg = val()
         elif a == "-T":
             mo.sdust_thres = int(val())
         elif a == "-q" or abase == "--q-occ-frac":
@@ -289,8 +305,20 @@ def parse_args(argv):
             mo.flag |= C.MM_F_OUT_JUNC | C.MM_F_CIGAR
         elif abase == "--jump-min-match":
             mo.jump_min_match = int(oval())
-        elif abase == "--spsc-scale":
-            oval()
+        elif a == "--junc-bed" or a == "--bed":
+            args.junc_bed = val()
+        elif a == "-j" or a == "--jump":
+            args.jump_bed = val()
+        elif a == "--pass1":
+            args.pass1 = val()
+        elif a == "--spsc":
+            args.spsc = val()
+        elif a == "--spsc-scale":
+            args.spsc_scale = float(val())
+        elif a == "--alt":
+            args.alt_list = val()
+        elif a == "--split-prefix":
+            args.split_prefix = val()
         elif a == "--spsc0" or a == "--junc-pen":
             mo.junc_pen = int(val())
         elif a == "--junc-bonus":
@@ -412,23 +440,6 @@ def parse_args(argv):
     return io, mo, args
 
 
-def check_slice(io: IndexOptions, mo: MapOptions, args: Args) -> None:
-    """Raise NotImplementedError for what the port's paths do not carry,
-    naming the later slice that will."""
-    off = [
-        (args.batch and (mo.flag & C.MM_F_EQX) and (mo.flag & C.MM_F_CIGAR),
-         "--eqx with --batch -c/-a (=/X CIGAR operators on the device "
-         "path's alignments; the host path applies mm_update_cigar_eqx)"),
-        (mo.flag & C.MM_F_SR_RNA,
-         "short-read RNA mode (splice:sr, --sr=rna: align_sr_rna and the "
-         "junction side data)"),
-    ]
-    for cond, what in off:
-        if cond:
-            raise NotImplementedError(
-                f"{what} is a later slice of the PyTorch/CUDA port")
-
-
 def run_host(mi, mo, queries, out, n_threads: int) -> int:
     """The route without --batch (JAX cli.py:634-657): every fragment (one
     read, or with two or more query files or --frag=yes the reads of one
@@ -441,6 +452,58 @@ def run_host(mi, mo, queries, out, n_threads: int) -> int:
     return map_fragments(mi, mo, iter_fragments(queries, frag_mode), out)
 
 
+def load_target(tgt: str, io: IndexOptions, args, has_queries: bool):
+    """The index of the target (JAX cli.py:520-546): a .npz or .mmi file
+    (by suffix or magic) as it is, else the FASTA indexed here, and with
+    -d written to .npz or .mmi.  A FASTA larger than -I with query files
+    is not indexed whole: returns (None, (names, seqs)) for the
+    multi-part path, else (index, None)."""
+    with open(tgt, "rb") as fh:
+        magic = fh.read(4)
+    if tgt.endswith(".npz"):
+        mi = MiniIndex.load(tgt)
+    elif magic == MM_IDX_MAGIC:
+        mi = load_mmi(tgt)
+    else:
+        names, seqs = read_fasta(tgt)
+        if sum(len(s) for s in seqs) > io.batch_size and has_queries:
+            if args.batch:
+                print(f"[WARNING] genome exceeds -I ({io.batch_size} bp): "
+                      "--batch is ignored and the host multi-part "
+                      "split/merge path runs instead; raise -I to keep the "
+                      "device path", file=sys.stderr)
+            return None, (names, seqs)
+        mi = MiniIndex.build(names, seqs, w=io.w, k=io.k,
+                             b=io.bucket_bits, flag=io.flag)
+    if args.idx_out:
+        if args.idx_out.endswith(".npz"):
+            mi.save(args.idx_out)
+        else:
+            dump_mmi(mi, args.idx_out)
+    return mi, None
+
+
+def attach_side_data(mi, mo: MapOptions, args, verbose: int) -> None:
+    """--junc-bed, -j, --pass1, --spsc and --alt onto the index (JAX
+    cli.py:580-601; index/sidedata.py)."""
+    if args.junc_bed:
+        mi.intervals = read_bed_junc(args.junc_bed, mi)
+    if args.jump_bed:
+        jjump_read(args.jump_bed, mi, 0x1, -1)     # MM_JUNC_ANNO
+    if args.pass1:
+        jjump_read(args.pass1, mi, 0x2, 5)         # MM_JUNC_MISC
+    if args.spsc:
+        n = read_spsc(args.spsc, mi, max_spsc_bonus(mo), args.spsc_scale)
+        if verbose >= 3:
+            print(f"[M::mm_idx_spsc_read2] read {n} splice scores",
+                  file=sys.stderr)
+    if args.alt_list:
+        n = read_alt(args.alt_list, mi)
+        if verbose >= 3:
+            print(f"[M::mm_idx_alt_read] found {n} ALT contigs",
+                  file=sys.stderr)
+
+
 def main(argv=None, device=None) -> int:
     """The CLI: --batch on the device, else the host mapping path.
     ``device`` defaults to CUDA on both routes, so the CLI has one rule;
@@ -450,7 +513,6 @@ def main(argv=None, device=None) -> int:
     if isinstance(parsed, int):
         return parsed
     io, mo, args = parsed
-    check_slice(io, mo, args)
     device = resolve_device(device)      # fail before the index build
     if check_opt(io, mo) < 0:
         return 1
@@ -462,45 +524,30 @@ def main(argv=None, device=None) -> int:
         if not os.path.exists(f_):
             print(f"ERROR: failed to open file '{f_}'", file=sys.stderr)
             return 1
-    with open(tgt, "rb") as fh:
-        magic = fh.read(4)
-    if tgt.endswith(".npz") or magic == b"MMI\x02":
-        raise NotImplementedError("prebuilt .mmi/.npz targets are a later "
-                                  "slice of the PyTorch/CUDA port")
     t0 = time.time()
-    names, seqs = read_fasta(tgt)
-    if sum(len(s) for s in seqs) > io.batch_size:
-        raise NotImplementedError(
-            f"genome exceeds -I ({io.batch_size} bp): the multi-part index "
-            "split is a later slice of the PyTorch/CUDA port")
-    mi = MiniIndex.build(names, seqs, w=io.w, k=io.k, b=io.bucket_bits,
-                         flag=io.flag)
-    mapopt_update(mo, mi)
-    if args.verbose >= 3:
-        print(f"[M::main::{time.time() - t0:.3f}] built the index for "
-              f"{mi.n_seq} target sequence(s); mid_occ = {mo.mid_occ}",
-              file=sys.stderr)
-        print(mi.stat(), file=sys.stderr)
+    mi, multipart = load_target(tgt, io, args, bool(queries))
+    if mi is not None and args.verbose >= 3:
+        print(f"[M::main::{time.time() - t0:.3f}] loaded/built the index "
+              f"for {mi.n_seq} target sequence(s)", file=sys.stderr)
+    if not queries:         # -d alone: the index is written
+        return 0
+    cmdline = "minimap2 " + " ".join(orig_argv)
     out = sys.stdout
     if args.out_file and args.out_file != "-":
         out = open(args.out_file, "w")
     try:
-        if args.sam:
-            out.write(fmt.write_sam_hdr(
-                mi, None, C.MM_VERSION,
-                "minimap2 " + " ".join(orig_argv)) + "\n")
-        if not args.batch:
-            n_mapped = run_host(mi, mo, queries, out, args.n_threads)
-            if args.verbose >= 3:
-                print(f"[M::worker_pipeline::{time.time() - t0:.3f}] "
-                      f"mapped {n_mapped} sequences", file=sys.stderr)
-        elif len(queries) > 1 and (mo.flag & C.MM_F_FRAG_MODE):
-            engine.run_batched_pe_cli(mi, mo, queries, out, device=device)
-        elif mo.flag & (C.MM_F_CIGAR | C.MM_F_OUT_SAM):
-            engine.run_batched_align_cli(mi, mo, queries, out,
-                                         device=device)
+        if multipart is not None:
+            n_mapped = run_multipart(
+                *multipart, io, mo, queries, out, args.verbose,
+                (lambda meta: out.write(fmt.write_sam_hdr(
+                    meta, args.rg, C.MM_VERSION, cmdline) + "\n"))
+                if args.sam else None)
         else:
-            engine.run_batched_cli(mi, mo, queries, out, device=device)
+            n_mapped = map_target(mi, mo, args, queries, out, cmdline,
+                                  device, t0)
+        if n_mapped is not None and args.verbose >= 3:
+            print(f"[M::worker_pipeline::{time.time() - t0:.3f}] "
+                  f"mapped {n_mapped} sequences", file=sys.stderr)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -509,6 +556,37 @@ def main(argv=None, device=None) -> int:
         print(f"[M::main] CMD: python -m minimap2_tpu_torch.cli "
               f"{' '.join(orig_argv)}", file=sys.stderr)
     return 0
+
+
+def map_target(mi, mo, args, queries, out, cmdline, device, t0):
+    """Map the query files against one index: mapopt_update, the side
+    data, the SAM header (with the -R read group, whose ID the records
+    carry as RG:Z), then the --batch drivers or the host route.  Returns
+    the reads the host route mapped, or None on --batch (its drivers log
+    their own counts)."""
+    mapopt_update(mo, mi)
+    if args.verbose >= 3:
+        print(f"[M::main::{time.time() - t0:.3f}] mid_occ = {mo.mid_occ}",
+              file=sys.stderr)
+        print(mi.stat(), file=sys.stderr)
+    attach_side_data(mi, mo, args, args.verbose)
+    if args.sam:
+        mo.rg_id = None
+        if args.rg:
+            for f_ in args.rg.replace("\\t", "\t").split("\t"):
+                if f_.startswith("ID:"):
+                    mo.rg_id = f_[3:]
+        out.write(fmt.write_sam_hdr(mi, args.rg, C.MM_VERSION, cmdline)
+                  + "\n")
+    if not args.batch:
+        return run_host(mi, mo, queries, out, args.n_threads)
+    if len(queries) > 1 and (mo.flag & C.MM_F_FRAG_MODE):
+        engine.run_batched_pe_cli(mi, mo, queries, out, device=device)
+    elif mo.flag & (C.MM_F_CIGAR | C.MM_F_OUT_SAM):
+        engine.run_batched_align_cli(mi, mo, queries, out, device=device)
+    else:
+        engine.run_batched_cli(mi, mo, queries, out, device=device)
+    return None
 
 
 if __name__ == "__main__":

@@ -5,7 +5,10 @@ index.c:226-278, mm_idx_cal_max_occ index.c:198-220).
 Three flat arrays: ``keys`` (sorted distinct minimizer hashes, u64),
 ``starts`` (offset of each key's run in ``pos``, len = n_keys + 1) and
 ``pos`` (y = rid<<32 | last_pos<<1 | strand, sorted by (key, y)).
-DeviceIndex.from_host turns them into the device tables.
+DeviceIndex.from_host turns them into the device tables.  The index
+also carries the side data the CLI attaches (--junc-bed intervals, --spsc
+splice scores, -j/--pass1 jumps, --alt contigs), and reads and writes the
+.npz form (save/load; the .mmi form is index/mmi.py).
 """
 from __future__ import annotations
 
@@ -48,6 +51,11 @@ class MiniIndex:
         self.keys = np.empty(0, dtype=np.uint64)
         self.starts = np.zeros(1, dtype=np.int64)
         self.pos = np.empty(0, dtype=np.uint64)
+        # side data (index/sidedata.py), attached by the CLI after the build
+        self.intervals = None
+        self.spsc = None
+        self.jumps = None
+        self._name2id: dict[str, int] | None = None
 
     @classmethod
     def build(cls, names, seqs, w: int, k: int, b: int = 14,
@@ -105,7 +113,7 @@ class MiniIndex:
 
     @property
     def n_alt(self) -> int:
-        """ALT contigs (always 0 here: the port's CLI refuses --alt)."""
+        """The number of ALT contigs (--alt, index/sidedata.read_alt)."""
         return sum(s.is_alt for s in self.seq)
 
     def get(self, minier):
@@ -136,6 +144,12 @@ class MiniIndex:
             sub = np.where(sub < 4, 3 - sub, sub).astype(np.uint8)
         return sub
 
+    def name2id(self, name: str) -> int:
+        """The rid of a sequence name, or -1."""
+        if self._name2id is None:
+            self._name2id = {s.name: i for i, s in enumerate(self.seq)}
+        return self._name2id.get(name, -1)
+
     def cal_max_occ(self, f: float) -> int:
         """index.c:198-220: occurrence threshold such that <= f of distinct
         minimizers occur more often."""
@@ -162,3 +176,31 @@ class MiniIndex:
                 f"occurrences: {sum_occ / n:.3f}; average spacing: "
                 f"{total_len / sum_occ:.3f}; total length: {total_len}")
         return "\n".join(lines)
+
+    def save(self, path: str) -> None:
+        """The .npz form (minimap2_tpu's MiniIndex.save, compressed)."""
+        np.savez_compressed(
+            path,
+            meta=np.array([self.w, self.k, self.b, self.flag, self.n_seq],
+                          dtype=np.int64),
+            names=np.array([s.name for s in self.seq]),
+            lens=np.array([s.length for s in self.seq], dtype=np.uint32),
+            offsets=np.array([s.offset for s in self.seq], dtype=np.uint64),
+            is_alt=np.array([s.is_alt for s in self.seq], dtype=np.uint8),
+            S=self.S if self.S is not None else np.empty(0, np.uint8),
+            keys=self.keys, starts=self.starts, pos=self.pos)
+
+    @classmethod
+    def load(cls, path: str) -> "MiniIndex":
+        """An index written by save."""
+        z = np.load(path, allow_pickle=False)
+        w, k, b, flag, n_seq = (int(v) for v in z["meta"])
+        mi = cls(w, k, b, flag)
+        names, lens, offs, alts = (z["names"], z["lens"], z["offsets"],
+                                   z["is_alt"])
+        for i in range(n_seq):
+            mi.seq.append(SeqMeta(str(names[i]), int(offs[i]), int(lens[i]),
+                                  bool(alts[i])))
+        mi.S = z["S"]
+        mi.keys, mi.starts, mi.pos = z["keys"], z["starts"], z["pos"]
+        return mi

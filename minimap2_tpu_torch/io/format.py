@@ -1,10 +1,13 @@
-"""PAF / SAM writers with cs/ds/MD tags (copy of minimap2_tpu.io.format,
-without the junction BED writer).
+"""PAF / SAM writers with cs/ds/MD tags, and the --write-junc BED writer
+(copy of minimap2_tpu.io.format).
 
 Reference: format.c (mm_write_paf4 :425-458, write_tags :397-423,
-mm_write_sam3 :522-679, write_cs_ds_or_MD :171-362, sam header :118-140).
+mm_write_sam3 :522-679, write_cs_ds_or_MD :171-362, sam header :118-140,
+mm_write_junc :263-300).
 """
 from __future__ import annotations
+
+import numpy as np
 
 from ..config import (MM_CIGAR_STR, MM_F_COPY_COMMENT, MM_F_FRAG_MODE,
                       MM_F_LONG_CIGAR, MM_F_OUT_CG, MM_F_OUT_CS,
@@ -320,3 +323,33 @@ def write_sam(mi, rec, seg_idx: int, reg_idx: int, n_seg: int,
         out.append(f"\t{rec.comment}")
     return "".join(out)
 
+
+def write_junc(mi, qname: str, r) -> str:
+    """mm_write_junc (format.c:263-300): BED lines for each intron."""
+    if not r.is_spliced or r.p is None:
+        return ""
+    if r.p.trans_strand not in (1, 2):
+        return ""
+    out = []
+    t_off = r.rs
+    for c in r.p.cigar:
+        op, ln = c & 0xF, c >> 4
+        if op in (0, 7, 8, 2):        # M, =, X, D
+            t_off += ln
+        elif op == 3:                 # N
+            rev = (r.p.trans_strand == 2) ^ bool(r.rev)
+            d = mi.getseq(r.rid, t_off, t_off + 2)
+            a = mi.getseq(r.rid, t_off + ln - 2, t_off + ln)
+            if rev:
+                d, a = a, d
+                d = np.where(d < 4, 3 - d, d)[::-1]
+                a = np.where(a < 4, 3 - a, a)[::-1]
+            s1 = 3 if (d[0], d[1]) == (2, 3) else \
+                2 if (d[0], d[1]) == (2, 1) else \
+                1 if (d[0], d[1]) == (0, 3) else 0
+            s2 = 3 if (a[0], a[1]) == (0, 2) else \
+                1 if (a[0], a[1]) == (0, 1) else 0
+            out.append(f"{mi.seq[r.rid].name}\t{t_off}\t{t_off + ln}\t"
+                       f"{qname}\t{s1 + s2}\t{'-' if rev else '+'}")
+            t_off += ln
+    return "\n".join(out)

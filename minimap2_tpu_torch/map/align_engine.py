@@ -2,12 +2,10 @@
 minimap2_tpu.map.align_engine): the reference align.c around the ksw2
 extensions.
 
-The port's copy differs in three ways: the DPs (extd2, extz2, exts2, ll)
+The port's copy differs in two ways: the DPs (extd2, extz2, exts2, ll)
 and the z-drop and mm_update_extra scans run only through the C++ routines
-of native/ (their NumPy versions are the tests' business), the
---print-aln-seq dump is gone (the port's CLI has no debug output), and the
-splice side data (--junc-bed, --spsc) and splice:sr's align_sr_rna are
-absent (the port's CLI refuses them).
+of native/ (their NumPy versions are the tests' business), and the
+--print-aln-seq dump is gone (the port's CLI has no debug output yet).
 
 Reference anchors (file:line cited per function): mm_align_skeleton
 (align.c:1048-1120), mm_align1 (:645-914), mm_align1_inv (:916-971),
@@ -34,6 +32,7 @@ from .. import native
 from ..ops import ksw2_np as K
 from ..utils.intfloat import SEQ_NT4, mg_log2
 from . import hit as hitmod
+from .align_srrna import align_sr_rna
 from .hit import Extra, Reg
 
 I32 = lambda v: int(np.int32(v & 0xFFFFFFFF))
@@ -508,7 +507,12 @@ def fix_bad_ends_splice(opt, mi, r: Reg, mat, qlen, qseq0, ax, ay):
 
 
 def get_junc(mi, ctg, st, en, rev):
-    """mm_get_junc (align.c:638-643) with no junction side data."""
+    """mm_get_junc (align.c:638-643): the --spsc scores, else the
+    --junc-bed donor/acceptor flags, else none."""
+    if mi.spsc is not None:
+        return mi.spsc.get(ctg, st, en, rev)
+    if mi.intervals is not None:
+        return mi.intervals.junc(ctg, st, en)
     return np.zeros(en - st, dtype=np.uint8)
 
 
@@ -558,6 +562,8 @@ def align1(opt, mi, qlen, qseq0, r: Reg, n_a, ax, ay, splice_flag):
             ksw_flag |= K.KSW_EZ_SPLICE_FOR if rev else K.KSW_EZ_SPLICE_REV
         if opt.flag & MM_F_SPLICE_FLANK:
             ksw_flag |= K.KSW_EZ_SPLICE_FLANK
+        if mi.spsc is not None:
+            ksw_flag |= K.KSW_EZ_SPLICE_SCORE
 
     tlen_rid = mi.seq[rid].length
     if is_sr:
@@ -709,7 +715,9 @@ def align1(opt, mi, qlen, qseq0, r: Reg, n_a, ax, ay, splice_flag):
                 else:
                     align_pair(opt, qseq, tseq, junc, mat, bw1, -1, opt.zdrop,
                                ksw_flag | K.KSW_EZ_APPROX_MAX, ez)
-            else:
+            elif not (is_sr_rna and align_sr_rna(
+                    opt, qseq, tseq, junc, mat, bw1, -1, opt.zdrop,
+                    ksw_flag | K.KSW_EZ_APPROX_MAX, ez)):
                 align_pair(opt, qseq, tseq, junc, mat, bw1, -1, opt.zdrop,
                            ksw_flag | K.KSW_EZ_APPROX_MAX, ez)
             zdrop_code = test_zdrop(opt, qseq, tseq, ez.cigar, mat)

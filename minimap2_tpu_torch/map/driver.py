@@ -1,16 +1,25 @@
-"""Per-fragment host mapping and its output (copy of
-minimap2_tpu.map.driver's iter_fragments, map_fragment and write_fragment:
-mm_bseq_read_frag2 + the qname grouping map.c:566-572, worker_for
-map.c:425-474 and the step-2 output map.c:604-627).  A fragment is one
-read, or the two ends of a pair; the --batch drivers map their fallback
-reads and fragments through these."""
+"""Per-fragment host mapping and its output, and the multi-part index
+(copy of minimap2_tpu.map.driver: mm_bseq_read_frag2 + the qname grouping
+map.c:566-572, worker_for map.c:425-474, the step-2 output map.c:578-641,
+and for a genome larger than -I the part split index.c:315-340 with
+merge_hits map.c:476-539 + mm_split_merge map.c:693-736).  A fragment is
+one read, or the two ends of a pair; the --batch drivers map their
+fallback reads and fragments through these."""
 from __future__ import annotations
 
 import sys
 
+import numpy as np
+
 from .. import config as C
+from ..config import MapOptions, mapopt_update
+from ..index.index import MiniIndex, SeqMeta
 from ..io import format as fmt
 from ..io.fastx import FastxReader, qname_same, revcomp_record
+from ..utils.intfloat import SEQ_NT4
+from . import hit as hitmod
+from .align_engine import update_dp_max
+from .pe import pair as mm_pair
 from .pipeline import map_frag_core
 
 
@@ -86,13 +95,22 @@ def map_fragment(mi, mo, frag):
 
 
 def write_fragment(out, mi, mo, frag, regss, rep_lens):
-    """step-2 output (map.c:604-627) of a fragment (the CLI refuses -R, so
-    there is no read group)."""
+    """step-2 output (map.c:604-627) of a fragment: SAM (with the -R read
+    group the CLI puts in mo.rg_id) or PAF, or with --write-junc the BED
+    lines of the introns of its primary records of mapq 10 or more
+    (map.c:601-608)."""
     if mo.flag & C.MM_F_OUT_JUNC:
-        raise NotImplementedError("--write-junc (mm_write_junc) is a later "
-                                  "slice of the PyTorch/CUDA port")
+        for j, rec in enumerate(frag):
+            for r in regss[j]:
+                if r.id != r.parent or r.mapq < 10:
+                    continue
+                line = fmt.write_junc(mi, rec.name, r)
+                if line:
+                    out.write(line + "\n")
+        return
     n_seg = len(frag)
     n_regss = [len(rs) for rs in regss]
+    rg_id = getattr(mo, "rg_id", None)
     for j, rec in enumerate(frag):
         regs = regss[j]
         rep_len = rep_lens[j]
@@ -102,7 +120,8 @@ def write_fragment(out, mi, mo, frag, regss, rep_lens):
                     continue
                 if mo.flag & C.MM_F_OUT_SAM:
                     out.write(fmt.write_sam(mi, rec, j, k, n_seg, n_regss,
-                                            regss, mo.flag, rep_len))
+                                            regss, mo.flag, rep_len,
+                                            rg_id=rg_id))
                 else:
                     out.write(fmt.write_paf(mi, rec.name, len(rec.seq), r,
                                             mo.flag, rep_len, n_seg, j,
@@ -114,8 +133,119 @@ def write_fragment(out, mi, mo, frag, regss, rep_lens):
                  and not (mo.flag & C.MM_F_SAM_HIT_ONLY)):
             if mo.flag & C.MM_F_OUT_SAM:
                 out.write(fmt.write_sam(mi, rec, j, -1, n_seg, n_regss,
-                                        regss, mo.flag, rep_len))
+                                        regss, mo.flag, rep_len,
+                                        rg_id=rg_id))
             else:
                 out.write(fmt.write_paf(mi, rec.name, len(rec.seq), None,
                                         mo.flag, rep_len, n_seg, j))
             out.write("\n")
+
+
+def split_parts(names, seqs, batch_size: int):
+    """mm_idx_reader part splitting (index.c:315-340): consecutive
+    sequences accumulate into a part until batch_size bp is reached."""
+    parts = []
+    cur_n, cur_s, total = [], [], 0
+    for nm, sq in zip(names, seqs):
+        cur_n.append(nm)
+        cur_s.append(sq)
+        total += len(sq)
+        if total >= batch_size:
+            parts.append((cur_n, cur_s))
+            cur_n, cur_s, total = [], [], 0
+    if cur_n:
+        parts.append((cur_n, cur_s))
+    return parts
+
+
+def run_multipart(names, seqs, io_opt, mo, queries, out, verbose=3,
+                  write_hdr=None):
+    """Multi-part index mapping with hit merge (the --split-prefix flow,
+    map.c:476-539 + mm_split_merge map.c:693-736, held in memory).
+
+    Maps every fragment against each index part, then re-sorts, re-picks
+    primaries, re-scores mapq and re-pairs over the union of hits.
+    """
+    parts = split_parts(names, seqs, io_opt.batch_size)
+    n_parts = len(parts)
+    if verbose >= 3:
+        print(f"[M::main] built index in {n_parts} parts", file=sys.stderr)
+    # merged meta index (names/offsets/S) for output + tag generation
+    meta = MiniIndex(io_opt.w, io_opt.k, io_opt.bucket_bits, io_opt.flag)
+    off = 0
+    chunks = []
+    for nm, sq in zip(names, seqs):
+        b = sq.encode() if isinstance(sq, str) else sq
+        meta.seq.append(SeqMeta(name=nm, offset=off, length=len(b)))
+        chunks.append(b)
+        off += len(b)
+    meta.S = SEQ_NT4[np.frombuffer(b"".join(chunks), np.uint8)].copy()
+    if write_hdr is not None:
+        write_hdr(meta)
+
+    rid_shift = []
+    acc = 0
+    part_idx = []
+    for pn, ps in parts:
+        rid_shift.append(acc)
+        acc += len(pn)
+        part_idx.append(MiniIndex.build(pn, ps, w=io_opt.w, k=io_opt.k,
+                                        b=io_opt.bucket_bits,
+                                        flag=io_opt.flag))
+    frag_mode = len(queries) > 1 or bool(mo.flag & C.MM_F_FRAG_MODE)
+    frags = list(iter_fragments(queries, frag_mode))
+
+    # phase 1: map everything against each part (tmp-file analogue)
+    per_part = []
+    for pi, mi_p in enumerate(part_idx):
+        mo_p = MapOptions(**vars(mo))
+        mapopt_update(mo_p, mi_p)
+        res_p = [map_fragment(mi_p, mo_p, frag) for frag in frags]
+        per_part.append(res_p)
+
+    # phase 2: merge_hits per fragment segment (map.c:490-538)
+    n_mapped = 0
+    for fi, frag in enumerate(frags):
+        n_seg = len(frag)
+        regss, rep_lens = [], []
+        frag_gap0 = None
+        for j in range(n_seg):
+            merged = []
+            rep_len = 0
+            for pi in range(n_parts):
+                res = per_part[pi][fi][j]
+                rep_len = max(rep_len, res.rep_len)
+                if frag_gap0 is None:
+                    frag_gap0 = res.frag_gap
+                for r in res.regs:
+                    r.rid += rid_shift[pi]
+                    merged.append(r)
+            qlen = len(frag[j].seq)
+            if not (mo.flag & C.MM_F_SR) and qlen >= mo.rank_min_len:
+                update_dp_max(qlen, merged, mo.rank_frac, mo.a, mo.b)
+            for r in merged:
+                if r.p is not None:
+                    r.p.dp_max2 = 0
+                r.subsc = 0
+                r.n_sub = 0
+            merged = hitmod.hit_sort(merged, mo.alt_drop)
+            hitmod.set_parent(merged, mo.mask_level, mo.mask_len,
+                              mo.a * 2 + mo.b,
+                              bool(mo.flag & C.MM_F_HARD_MLEVEL),
+                              mo.alt_drop)
+            if not (mo.flag & C.MM_F_ALL_CHAINS):
+                merged = hitmod.select_sub(merged, mo.pri_ratio,
+                                           io_opt.k * 2, mo.best_n, False,
+                                           int(mo.max_gap * 0.8))
+                hitmod.set_sam_pri(merged)
+            hitmod.set_mapq(merged, mo.min_chain_score, mo.a, rep_len,
+                            bool(mo.flag & (C.MM_F_SR | C.MM_F_SR_RNA)),
+                            bool(mo.flag & C.MM_F_SPLICE))
+            regss.append(merged)
+            rep_lens.append(rep_len)
+        if n_seg == 2 and mo.pe_ori >= 0 and (mo.flag & C.MM_F_CIGAR):
+            mm_pair(frag_gap0, mo.pe_bonus, mo.a * 2 + mo.b, mo.a,
+                    [len(r.seq) for r in frag], regss)
+        write_fragment(out, meta, mo, frag, regss, rep_lens)
+        n_mapped += n_seg
+    return n_mapped

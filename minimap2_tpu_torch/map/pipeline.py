@@ -8,9 +8,10 @@ failed its audit, and paired-end fragments with an end the device path
 could not align.  A fragment of two segments (paired ends) is chained
 jointly, split per segment (map/pe.seg_gen), aligned per segment and
 paired by mm_pair (map/pe.pair).  Sketch, anchors, chaining and the DPs run
-through the C++ routines of native/host_map.cpp.  The copy drops the
---print-seeds / --print-chains dumps (the port's CLI has no debug output)
-and the jump (--pass1 / --junc-bed) split, which the port's CLI refuses.
+through the C++ routines of native/host_map.cpp.  With jump side data (-j,
+--pass1) a spliced single segment's clipped ends go through jump_split
+(map/jump.py).  The copy drops the --print-seeds / --print-chains dumps
+(the port's CLI has no debug output yet).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from ..utils.intfloat import SEQ_NT4, qname_hash
 from . import hit as hitmod
 from .align import align_regs
 from .chain import chain_dp, chain_rmq
+from .jump import jump_split
 from .pe import pair as mm_pair
 from .pe import seg_gen, select_sub_multi
 from .sdust import dust_minier
@@ -183,6 +185,9 @@ def map_frag_core(mi: MiniIndex, seqs: list[bytes], opt: MapOptions,
         regs0 = align_regs(opt, mi, qlens[0], seqs[0], regs0, ax, ay)
         hitmod.set_mapq(regs0, opt.min_chain_score, opt.a, rep_len,
                         is_sr or is_sr_rna, is_splice)
+        if mi.jumps is not None and is_splice:   # map.c:363-365
+            for r in regs0:
+                jump_split(mi, opt, qlens[0], seqs[0], r, 0)
         results[0].regs = regs0
     else:
         segs = seg_gen(hash_, qlens, regs0, ax, ay)

@@ -39,7 +39,7 @@ from torch import nn
 
 from .. import resolve_device
 from .. import native
-from ..config import (MM_F_EQX, MM_F_NO_LJOIN, MM_F_OUT_SAM, MM_F_RMQ,
+from ..config import (MM_F_NO_LJOIN, MM_F_OUT_SAM, MM_F_RMQ,
                       MM_F_SAM_HIT_ONLY, MM_F_SPLICE, MM_F_SR, MM_I_HPC)
 from ..io import format as fmt
 from ..io.fastx import FastxReader, revcomp_record
@@ -731,9 +731,6 @@ def run_batched_align_cli(mi, opt, queries, out, batch_reads: int = 512,
     align_kw's QP, TP, G, RB and sub apply).  Returns (reads, [(name,
     cause)] of the fallback reads)."""
     from .align_batch import AlignBatcher, SpliceAlignBatcher
-    if opt.flag & MM_F_EQX:
-        raise NotImplementedError("--eqx (mm_update_cigar_eqx) is a later "
-                                  "slice of the PyTorch/CUDA port")
     dev = resolve_device(device)
     # with secondaries, each selection round yields [primary, overlapping
     # secondary] slot pairs (mm_select_sub, hit.c:255-281)
@@ -766,9 +763,14 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
     longer than L is cut to its first L bases for the mapping step in both
     packages (encode_batch) and usually falls back as "oversize".  The
     fallback reads are counted by cause on the [M::batch] line and returned
-    as (reads, [(name, cause)])."""
+    as (reads, [(name, cause)]).  As in the JAX package, the device records
+    take no =/X operators under --eqx (its device path does not read
+    MM_F_EQX) and stay SAM/PAF under --write-junc, while the fallback
+    reads get both through write_fragment; SAM records carry the -R read
+    group (opt.rg_id)."""
     mat = gen_ts_mat(5, opt.a, opt.b, opt.transition, opt.sc_ambi)
     sam = bool(opt.flag & MM_F_OUT_SAM)
+    rg_id = getattr(opt, "rg_id", None)
     t0 = time.time()
     n_reads = 0
     fallbacks = []
@@ -788,7 +790,8 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
             if sam:
                 for i in range(len(regs)):
                     out.write(fmt.write_sam(mi, rec, 0, i, 1, [len(regs)],
-                                            [regs], opt.flag, 0))
+                                            [regs], opt.flag, 0,
+                                            rg_id=rg_id))
                     out.write("\n")
             else:
                 for r in regs:
@@ -802,7 +805,7 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
         for rec in unmapped:
             if sam and not (opt.flag & MM_F_SAM_HIT_ONLY):
                 out.write(fmt.write_sam(mi, rec, 0, -1, 1, [0], [[]],
-                                        opt.flag, 0))
+                                        opt.flag, 0, rg_id=rg_id))
                 out.write("\n")
 
     pending = []    # [(recs, map output)]

@@ -8,6 +8,9 @@ spawn pool that keeps input order (-t N > 1, the default -t 3).
     line carries them); the MT alignment cases are slow, as there;
 (b) byte-identical to the JAX CLI on the same cases with -t 1, and on two
     more of the options this route adds (--eqx, an RMQ preset);
+    the cases include the splice side data (--junc-bed, --spsc, -j),
+    --write-junc, splice:sr (align_sr_rna), --alt and a genome larger than
+    -I (the multi-part split/merge path);
 (c) -t 2 writes what -t 1 writes (but for the @PG line, which carries
     the arguments).
 The default route touches no device; the CLI still resolves one first,
@@ -48,6 +51,20 @@ CASES = {
                     "--mask-len", "500", "--heap-sort=yes", "--rmq=no", *MT],
                    "mt-optmisc.out"),
     "inv-endbonus": (["--end-bonus", "50", "-a", *INV], "inv-endbonus.out"),
+    "x3s-juncbed": (["-ax", "splice", "--junc-bed", f"{DATA}/x3s-junc.bed",
+                     *X3S], "x3s-juncbed.out"),
+    "x3s-spsc": (["-ax", "splice", "--spsc", f"{DATA}/x3s.spsc", *X3S],
+                 "x3s-spsc.out"),
+    "x3s-jump": (["-ax", "splice:sr", "-j", f"{DATA}/x3s-anno.bed",
+                  f"{DATA}/x3s-ref.fa", f"{DATA}/jumpreads.fa"],
+                 "x3s-jump.out"),
+    "x3s-wj": (["-cx", "splice", "--write-junc", *X3S], "x3s-wj.out"),
+    "x3s-srrna": (["-ax", "splice:sr", f"{DATA}/x3s-ref.fa",
+                   f"{DATA}/jumpreads.fa"], "x3s-srrna.out"),
+    "mt-alt": (["-c", "--alt", f"{DATA}/alt.txt", f"{DATA}/MT-both.fa",
+                f"{DATA}/MT-orang.fa"], "mt-alt.out"),
+    "mt-split": (["-c", "-I", "10k", f"{DATA}/MT-both.fa",
+                  f"{DATA}/MT-orang.fa"], "mt-split.out"),
 }
 SLOW = {
     "mt-paf": (["-c", "--cs", *MT], "mt-paf.out"),

@@ -5,8 +5,9 @@
     (chain kernel route: B % 128 == 0, A % 256 == 0, long-join pass on),
     also with secondaries and waypoints (the -c/-a path's step);
 (b) run_batched_cli's PAF is byte-identical to the JAX engine's;
-(c) cli.main parses options as the JAX CLI does, and off-slice options
-    raise NotImplementedError;
+(c) cli.main parses options and reads side data (--junc-bed, --alt) as
+    the JAX CLI does, and the debug-output flags raise
+    NotImplementedError;
 (d) a read longer than L takes the host path and gives the JAX package's
     PAF;
 (e) the device occurrence cap reads MM2TPU_OCC_CAP as the JAX package does.
@@ -177,13 +178,19 @@ def test_run_batched_cli_paf_matches_jax(conc_world, batch_reads):
     assert len(got.getvalue().splitlines()) >= 48
 
 
-def _captured(monkeypatch, mod, argv, **kw):
+def _captured(monkeypatch, mod):
+    """Patch the three --batch drivers of mod to record the index, its side
+    data and the options they are handed."""
     seen = {}
 
     def fake(mi, opt, queries, out, **_):
-        seen.update(k=mi.k, w=mi.w, flag=mi.flag, b=mi.b, opt=vars(opt))
+        seen.update(k=mi.k, w=mi.w, flag=mi.flag, b=mi.b, opt=vars(opt),
+                    intervals=mi.intervals and mi.intervals.per_ctg,
+                    alt=[s.is_alt for s in mi.seq])
         return 0
-    monkeypatch.setattr(mod, "run_batched_cli", fake)
+    for name in ("run_batched_cli", "run_batched_align_cli",
+                 "run_batched_pe_cli"):
+        monkeypatch.setattr(mod, name, fake)
     return seen
 
 
@@ -191,34 +198,30 @@ def _captured(monkeypatch, mod, argv, **kw):
     ["-x", "map-ont"], ["-x", "lr:hq"],
     ["-k", "17", "-w", "11", "-r", "1000", "-g", "8000"],
     ["-x", "map-ont", "-f", "0.001", "-N", "3", "--secondary=no", "-r2k,30k"],
+    ["-x", "splice:sr"], ["-c", "--eqx"],
+    ["-x", "splice", "--junc-bed", "JUNC"],
+    ["-c", "-x", "map-ont", "--alt", "ALT"], ["-a", "--eqx"],
 ])
-def test_cli_options_match_jax(conc_world, monkeypatch, opts):
+def test_cli_options_match_jax(conc_world, monkeypatch, tmp_path, opts):
     _, ref, reads = conc_world
-    argv = ["--batch", *opts, ref, reads]
-    want = _captured(monkeypatch, jax_engine, argv)
+    (tmp_path / "junc.bed").write_text("c1\t100\t900\tj\t3\t+\n"
+                                       "c1\t2000\t2500\tk\t0\t-\n")
+    (tmp_path / "alt.txt").write_text("c1\n")
+    files = {"JUNC": str(tmp_path / "junc.bed"),
+             "ALT": str(tmp_path / "alt.txt")}
+    argv = ["--batch", *[files.get(o, o) for o in opts], ref, reads]
+    want = _captured(monkeypatch, jax_engine)
     assert jax_cli.main(argv) == 0
-    got = _captured(monkeypatch, engine, argv)
+    got = _captured(monkeypatch, engine)
     assert port_cli.main(argv, device="cpu") == 0
     assert got and got == want
 
 
-@pytest.mark.parametrize("opts", [
-    ["--batch", "-x", "splice:sr"], ["--batch", "-c", "--eqx"],
-    ["--batch", "-x", "splice", "--junc-bed", "junc.bed"],
-    ["-c", "-x", "map-ont", "--alt", "alt.txt"], ["--batch", "-a", "--eqx"],
-])
-def test_cli_off_slice_options_raise(conc_world, opts):
+def test_cli_debug_output_raises(conc_world):
+    """The JAX CLI's debug-output flags are a later slice of the port."""
     _, ref, reads = conc_world
     with pytest.raises(NotImplementedError, match="later slice"):
-        port_cli.main([*opts, ref, reads], device="cpu")
-
-
-def test_cli_paired_splice_sr_raises(conc_world):
-    """splice:sr stays off the port's paths with two query files too."""
-    _, ref, reads = conc_world
-    with pytest.raises(NotImplementedError, match="splice:sr.*later slice"):
-        port_cli.main(["--batch", "-x", "splice:sr", ref, reads, reads],
-                      device="cpu")
+        port_cli.main(["--batch", "--print-seeds", ref, reads], device="cpu")
 
 
 @pytest.mark.parametrize("preset", ["map-ont", "map-pb"])
