@@ -14,7 +14,8 @@ seconds):
      source interval and no mapq-60 primary may be wrong; the .mmi the
      run wrote, loaded again, must equal the run's host MiniIndex array
      for array (keys, run starts, positions, reference codes, names and
-     lengths); the dump's and the load's seconds;
+     lengths); the dump's and the load's seconds; the port's ``paftools
+     mapeval`` rows of the PAF;
   3b. the device index build (pos_fmt 1, h2r built in one piece) of phase
      3's genome on the card: the sketch kernel launched in the build, its
      tables decoded to host coordinates equal phase 3's host MiniIndex
@@ -27,8 +28,14 @@ seconds):
      card with consume=True (pos_fmt 2, s_fmt 1, the chunked h2r build),
      the reads mapped through ``engine.map_queries`` in two 512-read
      batches at bench.py's widths (L 12288, M 2048, A 4096, long-join
-     pass on); the accuracy gates of phase 3, reads/s, the build's stages,
-     peak memory and counts;
+     pass on); the accuracy gates of phase 3, the port's mapeval rows,
+     reads/s, the build's stages, peak memory and counts; then bench.py's
+     off-distribution gate: 256 pbsim-CLR-shaped reads (12-30 kb, 5%
+     errors 10:60:30, 10% with a 1-10 kb deletion; made from the 24
+     chromosomes before the build consumes them) through a second PafStep
+     at L 32768, M 4096, A 8192, bw_long 0, one 256-read batch (sketch,
+     sort1 for the compaction past 16384 lanes, sort3, the chain kernel);
+     the port's mapeval rows, no error in the Q60 row;
   3e. the one-call device step: ``batch.map_batch`` on phase 3b's
      device-built index with 512 simulated ONT-like reads of 1.2-2 kb (seed
      10) in one call at the port's BatchParams defaults (L 2048, M 512, A
@@ -122,7 +129,10 @@ seconds):
      the kernels line, with its cell-updates/s; at phase 6b's shapes: the
      sketch (k15 w5, 512 x 1024), sort3, the chain, extd2 and the
      traceback on run (a)'s first batch and align launch, exts2 and the
-     splice traceback on the first 32 jobs of run (b)'s first launch),
+     splice traceback on the first 32 jobs of run (b)'s first launch;
+     at phase 3c's off-distribution shapes: the sketch at 256 x 32768,
+     sort1 on the compaction keys (256 x 32768), sort3 on the anchor keys
+     and the chain on the anchor planes (256 x 8192)),
      timed with CUDA events;
      extd2's DP cell-updates/s as bench.py defines them;
      blocks per SM of every kernel, and the sketch's, sort3's and sort1's
@@ -147,9 +157,14 @@ seconds):
      launch): a 10 Mb cut of phase 3's first contig and 128 ONT-like reads
      (seed 11) through ``cli.main(["-c", "-x", "map-ont", "-t", "8", ...])``
      and with -t 1: byte-identical PAF, phase 3's accuracy gates; reads/s;
+  9c. ``mappy.Aligner`` (map-ont) on 9b's cut with 16 of its reads: each
+     read's primary hits equal its tp:A:P records in 9b's PAF (contig,
+     reference and query interval, strand, mapq, CIGAR); no kernel may
+     launch;
  10. a ``kernels`` JSON line, then the ``ok`` line.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -169,6 +184,7 @@ GENOME_LEN, N_CONTIGS, N_READS = 100_000_000, 8, 1024
 SR_PAIRS, SR_LEN = 2048, 150
 SSR_PAIRS = 2048
 MB_READS, HOST_CUT, HOST_READS = 512, 10_000_000, 128
+OFFDIST_READS, MAPPY_READS = 256, 16
 
 
 def log(msg):
@@ -379,6 +395,7 @@ def phase_main_path(tmp):
                     _capture_first(engine, "sketch_batch", sk),
                     _timer(cli, "dump_mmi", dump)])
     paf_accuracy("main", paf, rnames)
+    mapeval_rows("main", paf)
     t = time.time()
     loaded = load_mmi(mmi)
     load_s = time.time() - t
@@ -456,20 +473,21 @@ def _build_on_card(tag, names, parts, w, k, **kw):
                           n_distinct=meta.n_distinct, mid_occ=meta.mid_occ)
 
 
-def _map_on_card(tag, step, mi, rd, out_path):
-    """engine.map_queries in 512-read batches with the launches counted
-    around it; fails unless the PAF path's kernels launched."""
+def _map_on_card(tag, step, mi, rd, out_path, batch_reads=512,
+                 kernels=("sketch", "sort3", "sort3_merge", "chain")):
+    """engine.map_queries in batch_reads-read batches with the launches
+    counted around it; fails unless the path's kernels launched."""
     from minimap2_tpu_torch.ops._build import launches
     from minimap2_tpu_torch.parallel import engine
     torch.cuda.synchronize()
     launches.clear()
     t = time.time()
     with open(out_path, "w") as out, torch.no_grad():
-        n = engine.map_queries(step, mi, [rd], out, 512)
+        n = engine.map_queries(step, mi, [rd], out, batch_reads)
     torch.cuda.synchronize()
     map_s = time.time() - t
     counts = dict(launches)
-    for name in ("sketch", "sort3", "sort3_merge", "chain"):
+    for name in kernels:
         require(counts.get(name, 0) > 0,
                 f"kernel {name} never launched on the {tag} mapping")
     log(f"[{tag}] mapped {n} reads in {map_s:.2f}s ({n / map_s:.1f} reads/s"
@@ -623,10 +641,19 @@ def phase_grch38(tmp):
                                                names=names[:nbig])
     rd = os.path.join(tmp, "grch38_reads.fa")
     write_fasta(rd, rnames, rcodes)
+    # bench.py's off-distribution gate (bench.py:389-395): pbsim-CLR-shaped
+    # reads from the 24 chromosomes, made before the build consumes them
+    cnames, ccodes = sgd.simulate_reads_device_clr(parts[:nbig], OFFDIST_READS,
+                                                   names=names[:nbig])
+    clr_rd = os.path.join(tmp, "grch38_clr.fa")
+    write_fasta(clr_rd, cnames, ccodes)
+    clr_lens = [len(c) for c in ccodes]
+    del rcodes, ccodes
     reads_s = time.time() - t
     log(f"[grch38] {n_bp} bp in {len(parts)} contigs generated on the card "
         f"in {gen_s:.1f}s; alt0 and alt170 equal the CPU's ({cmp_s:.1f}s); "
-        f"{N_READS} reads sliced in {reads_s:.1f}s")
+        f"{N_READS} reads sliced and {OFFDIST_READS} CLR-like reads "
+        f"({min(clr_lens)}-{max(clr_lens)} bp) made in {reads_s:.1f}s")
     di, meta, info = _build_on_card("grch38", names, parts, 10, 15,
                                     cap_frac=0.21, consume=True)
     require(all(p is None for p in parts), "consume=True kept contigs")
@@ -641,9 +668,43 @@ def phase_grch38(tmp):
     paf = os.path.join(tmp, "grch38.paf")
     run = _map_on_card("grch38", step, meta.seq_table(), rd, paf)
     paf_accuracy("grch38", paf, rnames)
+    mapeval_rows("grch38", paf)
+    offdist = phase_offdist(di, p, meta, clr_rd, tmp)
     del step, di, info["sketch_in"]
     torch.cuda.empty_cache()
-    return dict(info, map=run, genome_bp=n_bp, gen_s=gen_s, reads_s=reads_s)
+    return dict(info, map=run, genome_bp=n_bp, gen_s=gen_s, reads_s=reads_s,
+                offdist=offdist)
+
+
+def phase_offdist(di, p, meta, clr_rd, tmp):
+    """Phase 3c's off-distribution step (bench.py:251-258, :481-487): the
+    CLR-like reads through a second PafStep at L 32768, M 4096, A 8192,
+    bw_long 0, 256 reads a batch (the chain kernel's route); sketch, sort1
+    (the compaction past 16384 lanes), sort3 and the chain launched; the
+    port's mapeval rows, no error in the Q60 row (bench.py:514).  Keeps
+    each kernel's first inputs for phase 7."""
+    from minimap2_tpu_torch.parallel import batch, engine
+    p32 = dataclasses.replace(p, L=32768, M=4096, A=8192, bw_long=0)
+    step = engine.PafStep(di, p32, K=5, min_sc=40)
+    paf = os.path.join(tmp, "grch38_clr.paf")
+    sk, s1, s3, ch = {}, {}, {}, {}
+    with _hooked([_capture_first(engine, "sketch_batch", sk),
+                  _capture_first(batch, "sort1_rows", s1),
+                  _capture_first(batch, "sort3_rows", s3),
+                  _capture_first(engine, "chain_batch", ch)]):
+        run = _map_on_card("offdist", step, meta.seq_table(), clr_rd, paf,
+                           batch_reads=OFFDIST_READS,
+                           kernels=("sketch", "sort1", "sort3", "chain"))
+    rows = mapeval_rows("offdist", paf)
+    q60 = q60_row(rows)
+    require(q60 is None or int(q60[3]) == 0,
+            f"offdist: errors in the mapeval Q60 row {q60}")
+    log(f"[offdist] {OFFDIST_READS} CLR-like reads at L 32768 in "
+        f"{run['map_s']:.2f}s (one step, its warm-up included); mapeval Q60 "
+        f"row {q60}")
+    return dict(run, mapeval=rows, sketch_in=sk["args"],
+                sort1_keys=s1["args"][0], anchor_keys=s3["args"],
+                chain_in=ch)
 
 
 def phase_long_reads(main, tmp, n_short=896, n_long=128):
@@ -686,6 +747,22 @@ def phase_long_reads(main, tmp, n_short=896, n_long=128):
         f"{n_long_out}/{n_long} of them have a record")
     paf_accuracy("long", paf, rnames)
     return dict(run, rd=rd, rnames=rnames, host_share=share)
+
+
+def mapeval_rows(tag, paf):
+    """The port's ``paftools mapeval`` on a PAF of simulated reads (bench.py
+    :187-197): its rows, each logged."""
+    from minimap2_tpu_torch.tools import paftools
+    out = io.StringIO()
+    require(paftools.mapeval([paf], out=out) == 0, f"{tag}: mapeval failed")
+    rows = [ln.split("\t") for ln in out.getvalue().splitlines()]
+    for r in rows:
+        log(f"[{tag}] mapeval " + " ".join(r))
+    return rows
+
+
+def q60_row(rows):
+    return next((r for r in rows if r and r[1] == "60"), None)
 
 
 def paf_accuracy(tag, paf, rnames):
@@ -2134,6 +2211,107 @@ def phase_sr_kernels(srp, rows, path="sr"):
                                       x["max_abs_err"])
 
 
+def phase_offdist_kernels(od, rows):
+    """Phase 7 at phase 3c's off-distribution shapes, on its step's first
+    batch: the sketch (256 x 32768, k15 w10), sort1 on the compaction's
+    keys (256 x 32768, beside torch.sort), sort3 on the anchor keys (256 x
+    8192) and the chain on the anchor planes (256 x 8192, band 500); each
+    bit-equal to its plain version, timed, beside its bound, as an
+    "offdist" entry of its kernel's row.  The plain chain runs once (its
+    ~8192 serial steps cost seconds), which gives its time."""
+    from minimap2_tpu_torch.ops import _build, chain, sketch, sort
+    by = {r["name"]: r for r in rows}
+    p_args = tuple(od["sketch_in"])
+    PB, PL = p_args[0].shape
+    k_, w_ = p_args[2], p_args[3]
+    e = max_abs_err(sketch.sketch_batch(*p_args),
+                    sketch.device_sketch(*p_args))
+    require(e == 0, f"sketch differs from its plain version at {PB} x {PL} "
+            f"({e})")
+    b_ms, b_by = bound(PB * PL * 11 + PB * 4, PB * PL * sketch_ops(w_))
+    x = by["sketch"]["paths"]["offdist"] = dict(
+        k=k_, w=w_, shape=[PB, PL], max_abs_err=e,
+        ms=cuda_ms(lambda: sketch.sketch_batch(*p_args)),
+        plain_ms=cuda_ms(lambda: sketch.device_sketch(*p_args), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        blocks_per_sm=_build.blocks_per_sm("sketch", PL, w_))
+    by["sketch"]["max_abs_err"] = max(by["sketch"]["max_abs_err"], e)
+    log(f"[kernels] sketch on the offdist step's first batch ({PB} x {PL}, "
+        f"k{k_} w{w_}): bit-equal, {x['ms']:.4f} ms, plain "
+        f"{x['plain_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{x['blocks_per_sm']} blocks per SM")
+
+    keys = od["sort1_keys"]
+    B, A = keys.shape
+    got = sort.sort1_rows(keys)
+    e = max_abs_err([got], [sort.sort1_rows_plain(keys)])
+    require(e == 0, f"sort1 differs from its plain version on the offdist "
+            f"compaction keys ({e})")
+    require(torch.equal(got.to(torch.int64) & 0xFFFFFFFF, torch.sort(
+        keys.to(torch.int64) & 0xFFFFFFFF, dim=1).values),
+        "sort1 differs from torch.sort on the offdist compaction keys")
+    del got
+    b_ms, b_by = bound(8 * B * A, B * (A // 2) * sort_stages(A) * 2)
+    x = by["sort1"]["offdist"] = dict(
+        shape=[B, A], max_abs_err=e, ms=cuda_ms(lambda: sort.sort1_rows(keys)),
+        plain_ms=cuda_ms(lambda: sort.sort1_rows_plain(keys), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.sort(keys, dim=1), reps=5),
+        blocks_per_sm=_build.blocks_per_sm("sort1", A))
+    by["sort1"]["max_abs_err"] = max(by["sort1"]["max_abs_err"], e)
+    for ln in ptxas_usage("sort1.cu"):
+        if ln.startswith(f"sort1_kernel<{A}>"):
+            log(f"[kernels] sort1.cu: {ln}")
+    log(f"[kernels] sort1 on the offdist compaction keys ({B} x {A}): "
+        f"bit-equal, {x['ms']:.4f} ms, plain {x['plain_ms']:.2f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), torch.sort {x['library_ms']:.4f} ms, "
+        f"{x['blocks_per_sm']} blocks per SM")
+
+    keys = od["anchor_keys"]
+    B, A = keys[0].shape
+    e = max_abs_err(sort.sort3_rows(*keys), sort.sort3_rows_plain(*keys))
+    require(e == 0, f"sort3_rows differs from its plain version on the "
+            f"offdist anchor keys ({e})")
+    b_ms, b_by = bound(B * A * 24, B * (A // 2) * sort_stages(A) * 8)
+    x = by["sort3"]["offdist"] = dict(
+        shape=[B, A], max_abs_err=e,
+        ms=cuda_ms(lambda: sort.sort3_rows(*keys)),
+        plain_ms=cuda_ms(lambda: sort.sort3_rows_plain(*keys), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: library_sort3(*keys), reps=5),
+        blocks_per_sm=_build.blocks_per_sm("sort3", A))
+    by["sort3"]["max_abs_err"] = max(by["sort3"]["max_abs_err"], e)
+    log(f"[kernels] sort3 on the offdist anchor keys ({B} x {A}): "
+        f"bit-equal, {x['ms']:.4f} ms, plain {x['plain_ms']:.2f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), torch.sort x3 {x['library_ms']:.4f} ms, "
+        f"{x['blocks_per_sm']} blocks per SM")
+
+    planes, kw = od["chain_in"]["args"], od["chain_in"]["kw"]
+    got = chain.chain_batch(*planes, **kw)
+    want, plain_ms = timed_once(lambda: chain.chain_batch_plain(*planes,
+                                                                **kw))
+    e = max_abs_err(got, want)
+    require(e == 0, f"chain differs from its plain version on the offdist "
+            f"anchor planes ({e})")
+    del got, want
+    B, A = planes[0].shape
+    n_anchor = int(planes[5].sum())
+    n_max = chain.last_valid(planes[5])
+    b_ms, b_by = bound(B * A * (21 + 16), n_anchor * kw["WND"] * 30)
+    ch_ms = cuda_ms(lambda: chain.chain_batch(*planes, **kw))
+    by["chain"]["offdist"] = dict(
+        shape=[B, A], bw=kw["bw"], max_abs_err=e, ms=ch_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        valid_anchors=n_anchor, longest_n=n_max,
+        ns_per_step=1e6 * ch_ms / max(n_max, 1))
+    by["chain"]["max_abs_err"] = max(by["chain"]["max_abs_err"], e)
+    log(f"[kernels] chain on the offdist anchor planes ({B} x {A}, band "
+        f"{kw['bw']}, {n_anchor} valid anchors, the longest read's n "
+        f"{n_max}): bit-equal, {ch_ms:.3f} ms, "
+        f"{1e6 * ch_ms / max(n_max, 1):.1f} ns a step of the longest read, "
+        f"plain {plain_ms:.1f} ms (one call), bound {b_ms:.4f} ms ({b_by})")
+
+
 def phase_rmq_kernels(lrq, mb, rows):
     """Phase 7 at phase 4c's shapes (lr:hqae, k25 w51) and phase 3e's
     (map_batch): the sketch on 4c's first batch and on random codes at k19
@@ -2689,6 +2867,51 @@ def phase_host_route(main, tmp):
     return dict(seconds=secs, reads_per_s={t: n / v for t, v in secs.items()})
 
 
+def phase_mappy(main, tmp):
+    """Phase 9c: ``mappy.Aligner`` (map-ont) on phase 9b's 10 Mb cut with
+    MAPPY_READS of its reads: each read's primary hits equal its tp:A:P
+    records in 9b's -t 1 PAF (contig, r_st, r_en, strand, q_st, q_en,
+    mapq, and cigar_str against cg:Z), in order; no kernel launched."""
+    from minimap2_tpu_torch import mappy
+    from minimap2_tpu_torch.ops._build import launches
+    want = {}
+    with open(os.path.join(tmp, "host_t1.paf")) as f:
+        for ln in f:
+            t = ln.rstrip("\n").split("\t")
+            if "tp:A:P" in t:
+                cg = next(x[5:] for x in t if x.startswith("cg:Z:"))
+                want.setdefault(t[0], []).append(
+                    (t[5], int(t[7]), int(t[8]), t[4], int(t[2]), int(t[3]),
+                     int(t[11]), cg))
+    launches.clear()
+    t0 = time.time()
+    a = mappy.Aligner(main["cut_ref"], preset="map-ont")
+    idx_s = time.time() - t0
+    n = n_hits = 0
+    t0 = time.time()
+    for name, seq, _ in mappy.fastx_read(main["cut_rd"]):
+        if n == MAPPY_READS:
+            break
+        got = [(h.ctg, h.r_st, h.r_en, "+" if h.strand > 0 else "-", h.q_st,
+                h.q_en, h.mapq, h.cigar_str)
+               for h in a.map(seq, name=name) if h.is_primary]
+        require(got == want.get(name, []),
+                f"mappy's primary hits of {name} differ from the CLI's: "
+                f"{got} vs {want.get(name)}")
+        n += 1
+        n_hits += len(got)
+    map_s = time.time() - t0
+    require(not any(launches.values()),
+            f"mappy launched kernels: {dict(launches)}")
+    require(n == MAPPY_READS and n_hits >= MAPPY_READS * 0.9,
+            f"mappy: {n} reads, {n_hits} primary hits")
+    log(f"[mappy] {n} reads through mappy.Aligner (map-ont, host, no "
+        f"kernel launched): {n_hits} primary hits equal the CLI's -c "
+        f"records; index built in {idx_s:.1f}s, mapped in {map_s:.2f}s "
+        f"({n / map_s:.1f} reads/s)")
+    return dict(reads=n, hits=n_hits, index_s=idx_s, map_s=map_s)
+
+
 def phase_map_batch_cross_check(mb, n=16):
     """The first n reads of phase 3e through map_batch on the card and on
     the CPU (plain versions, a CPU copy of the index): identical dicts."""
@@ -2805,6 +3028,7 @@ def main():
         rows = timed("kernels", phase_kernels, main_, hpc, spl, dvb, g38)
         rows += timed("align kernels", phase_align_kernels, aln)
         rows += timed("new kernels", phase_new_kernels, hpc, spl)
+        timed("offdist kernels", phase_offdist_kernels, g38["offdist"], rows)
         timed("sr kernels", phase_sr_kernels, srp, rows)
         timed("rmq kernels", phase_rmq_kernels, lrq, mb, rows)
         timed("splice:sr kernels", phase_splice_sr_kernels, ssr, rows)
@@ -2826,6 +3050,8 @@ def main():
                 ssr["pe"]["launches"], r["name"])
             r["launches_splice_sr_se"] = kernel_launches(
                 ssr["se"]["launches"], r["name"])
+            r["launches_offdist"] = kernel_launches(
+                g38["offdist"]["launches"], r["name"])
         timed("breakdown", phase_breakdown, main_)
         timed("hpc breakdown", phase_breakdown, hpc, "HPC")
         timed("align breakdown", phase_align_breakdown, aln)
@@ -2843,6 +3069,7 @@ def main():
               "lr:hqae")
         timed("cross map_batch", phase_map_batch_cross_check, mb)
         host = timed("host", phase_host_route, main_, tmp)
+        mpy = timed("mappy", phase_mappy, main_, tmp)
     for ok, msg in (aln["gates"] + spl["gates"] + srp["gates"]
                     + lrq["gates"] + ssr["gates"]):
         require(ok, msg)
@@ -2865,6 +3092,7 @@ def main():
         f"after a first, which took {mb['cold_s']:.2f}s; "
         f"the scan {mb['scan_s']:.2f}s), "
         f"{host['reads_per_s']['8']:.1f} reads/s (no --batch, host, -t 8), "
+        f"{mpy['reads'] / mpy['map_s']:.1f} reads/s (mappy, host), "
         f"{hpc['reads_per_s']:.1f} reads/s (map-pb), "
         f"{spl['reads_per_s']:.1f} reads/s (-a -x "
         f"splice, {100 * spl['intron_share']:.1f}% of introns exact; host "
@@ -2875,7 +3103,8 @@ def main():
         f"single-end) on the 100 Mb genome (its .mmi dumped in "
         f"{main_['mmi_s']['dump']:.2f}s, loaded in "
         f"{main_['mmi_s']['load']:.2f}s); {g38['map']['reads_per_s']:.1f} reads/s "
-        f"(PAF) on the "
+        f"(PAF) and {OFFDIST_READS / g38['offdist']['map_s']:.1f} reads/s "
+        f"(the CLR-like reads at L 32768, one step) on the "
         f"GRCh38 envelope, its index built in {g38['stages']['total']:.1f}s "
         f"(100 Mb: {dvb['stages']['total']:.1f}s); "
         f"{time.time() - t_start:.0f}s in all, by phase {secs}")

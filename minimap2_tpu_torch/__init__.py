@@ -1,10 +1,15 @@
-"""PyTorch/CUDA port of minimap2_tpu's batched PAF mapper.
+"""PyTorch/CUDA port of minimap2_tpu, the TPU-native minimap2.
 
 The package stands alone: it imports torch and numpy, never jax and
 nothing of ``minimap2_tpu``.  Module names follow the JAX package so each
-counterpart is easy to find; the three Pallas kernels of the ``--batch``
-path (sketch, 3-plane bitonic sort, chain DP) are hand-written CUDA under
-``ops/csrc``.
+counterpart is easy to find.  The seven Pallas kernels (sketch, the
+3-plane and 1-plane bitonic sorts, the chain DP, the extd2 and exts2 DPs
+and the traceback) are hand-written CUDA under ``ops/csrc``; the device
+paths are ``parallel/`` (the ``--batch`` steps, the device index build).
+The entry points are the CLI (``cli.py``, with and without ``--batch``,
+its debug output included), ``mappy.py`` (the Python binding's API, on the
+host) and ``tools/paftools.py``; the host mapping path is ``map/`` over
+``native/``.
 """
 import torch
 

@@ -24,8 +24,10 @@ files in fragment mode (paired ends), else run_batched_align_cli with
 -c/-a, else run_batched_cli.  Without --batch, the host mapping path as in
 the JAX package: each fragment through map_fragment + write_fragment,
 serially with -t 1 and in a spawn pool of -t workers otherwise; it touches
-no device.  The debug-output flags of _OFF_SLICE_ARGS raise
-NotImplementedError (a later slice).
+no device.  The debug-output flags (--print-seeds, --print-chains,
+--print-aln-seq, --dbg-seed-occ, --print-qname) set MapOptions.dbg_flag
+and print on stderr what the JAX CLI prints, on both routes: under
+--batch for the reads the host mapping path takes.
 """
 from __future__ import annotations
 
@@ -75,14 +77,18 @@ LONG_FLAG_OPTS = {
     "--secondary-seq": C.MM_F_SECONDARY_SEQ,
 }
 
-# the JAX CLI's debug-output flags, which the port does not carry yet
-_OFF_SLICE_ARGS = {
-    "--print-seeds": "the host path's debug output",
-    "--print-chains": "the host path's debug output",
-    "--print-aln-seq": "the host path's debug output",
-    "--dbg-seed-occ": "the host path's debug output",
-    "--print-qname": "the host path's debug output",
+# the debug-output flags: bits of MapOptions.dbg_flag (JAX cli.py:91,
+# :306-322)
+DBG_FLAG_OPTS = {
+    "--print-qname": C.MM_DBG_PRINT_QNAME,
+    "--print-seeds": C.MM_DBG_PRINT_SEED,
+    "--print-chains": C.MM_DBG_PRINT_CHAIN,
+    "--print-aln-seq": C.MM_DBG_PRINT_ALN_SEQ,
+    "--dbg-seed-occ": C.MM_DBG_SEED_FREQ,
 }
+# the debug output that keeps the host route serial (JAX cli.py:636-644)
+_DBG_SERIAL = (C.MM_DBG_PRINT_SEED | C.MM_DBG_PRINT_CHAIN
+               | C.MM_DBG_PRINT_ALN_SEQ | C.MM_DBG_SEED_FREQ)
 
 
 def _expand_short(argv):
@@ -179,10 +185,6 @@ def parse_args(argv):
                       "'yes' or 'no'.", file=sys.stderr)
 
         abase = a.split("=", 1)[0] if a.startswith("--") else a
-        if abase in _OFF_SLICE_ARGS:
-            raise NotImplementedError(
-                f"option {abase}: {_OFF_SLICE_ARGS[abase]} is not on the "
-                "port's paths yet (a later slice)")
         if a == "-x":
             i += 1  # already applied
         elif a == "-a":
@@ -417,6 +419,10 @@ def parse_args(argv):
         elif a == "-h" or a == "--help":
             print(USAGE)
             return 0
+        elif a in DBG_FLAG_OPTS:
+            mo.dbg_flag |= DBG_FLAG_OPTS[a]
+            if a == "--print-aln-seq":      # main.c:224 (forces 1 thread)
+                args.n_threads = 1
         elif a in LONG_FLAG_OPTS:
             mo.flag |= LONG_FLAG_OPTS[a]
             if a in ("--MD", "--ds"):
@@ -444,10 +450,12 @@ def run_host(mi, mo, queries, out, n_threads: int) -> int:
     """The route without --batch (JAX cli.py:634-657): every fragment (one
     read, or with two or more query files or --frag=yes the reads of one
     name) through map_fragment + write_fragment on the host; with
-    n_threads > 1 on Linux in a spawn pool that keeps input order.
-    Returns the number of reads mapped."""
+    n_threads > 1 on Linux in a spawn pool that keeps input order, unless
+    debug output other than --print-qname is on.  Returns the number of
+    reads mapped."""
     frag_mode = len(queries) > 1 or bool(mo.flag & C.MM_F_FRAG_MODE)
-    if n_threads > 1 and sys.platform.startswith("linux"):
+    if n_threads > 1 and sys.platform.startswith("linux") \
+            and not mo.dbg_flag & _DBG_SERIAL:
         return run_parallel(mi, mo, queries, out, frag_mode, n_threads)
     return map_fragments(mi, mo, iter_fragments(queries, frag_mode), out)
 

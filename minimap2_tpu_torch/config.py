@@ -69,6 +69,14 @@ MM_SEED_SELF      = 1 << 43
 MM_SEED_SEG_SHIFT = 48
 MM_SEED_SEG_MASK  = 0xFF << MM_SEED_SEG_SHIFT
 
+# mm_dbg_flag bits (mmpriv.h:12-17), set by the CLI's debug-output flags
+# and carried on MapOptions.dbg_flag
+MM_DBG_PRINT_QNAME   = 0x2     # --print-qname: QR/QT lines
+MM_DBG_PRINT_SEED    = 0x4     # --print-seeds: RS/SD lines (and CN lines)
+MM_DBG_PRINT_ALN_SEQ = 0x8     # --print-aln-seq: the DPs' inputs, score
+MM_DBG_PRINT_CHAIN   = 0x10    # --print-chains: CN lines
+MM_DBG_SEED_FREQ     = 0x20    # --dbg-seed-occ: SF lines
+
 MM_PARENT_UNSET = -1
 MM_PARENT_TMP_PRI = -2
 
@@ -156,6 +164,9 @@ class MapOptions:
     max_sw_mat: int = 100000000
     cap_kalloc: int = 500000000
     split_prefix: str | None = None
+    # the reference's global mm_dbg_flag (MM_DBG_* bits), carried with the
+    # options so that each call and each worker sees its own
+    dbg_flag: int = 0
 
 
 PRESETS = (

@@ -1,7 +1,9 @@
 """FASTA/FASTQ streaming reader: the pure-Python path of
 minimap2_tpu.io.fastx (bseq.c + kseq.h semantics: plain or gzip input,
 U->T conversion), without the native scanner, and the pairing helpers
-qname_same and revcomp_record."""
+qname_same and revcomp_record.  As with the JAX package's native scanner
+(its default reader), a non-blank line where a record should start raises
+ValueError: a binary file is not read as an empty FASTA."""
 from __future__ import annotations
 
 import gzip
@@ -53,9 +55,11 @@ class FastxReader:
             if not line:
                 self.eof = True
                 return None
-            line = line.rstrip()
             if line[:1] in (b">", b"@"):
+                line = line.rstrip()
                 break
+            if line.strip(b"\r\n"):   # as the JAX package's native scanner
+                raise ValueError("malformed FASTA/FASTQ input")
         is_fq = line[:1] == b"@"
         head = line[1:].decode()
         parts = head.split(None, 1)

@@ -4,8 +4,10 @@ extensions.
 
 The port's copy differs in two ways: the DPs (extd2, extz2, exts2, ll)
 and the z-drop and mm_update_extra scans run only through the C++ routines
-of native/ (their NumPy versions are the tests' business), and the
---print-aln-seq dump is gone (the port's CLI has no debug output yet).
+of native/ (their NumPy versions are the tests' business).  With
+MapOptions.dbg_flag's MM_DBG_PRINT_ALN_SEQ bit (--print-aln-seq)
+mm_align_pair writes each DP's parameters, target and query, then its
+score and CIGAR, on stderr (align.c:339-346, :361-367).
 
 Reference anchors (file:line cited per function): mm_align_skeleton
 (align.c:1048-1120), mm_align1 (:645-914), mm_align1_inv (:916-971),
@@ -19,10 +21,12 @@ from __future__ import annotations
 
 import copy
 import math
+import sys
 
 import numpy as np
 
-from ..config import (MM_F_EQX, MM_F_FOR_ONLY, MM_F_NO_END_FLT, MM_F_NO_INV,
+from ..config import (MM_CIGAR_STR, MM_DBG_PRINT_ALN_SEQ, MM_F_EQX,
+                      MM_F_FOR_ONLY, MM_F_NO_END_FLT, MM_F_NO_INV,
                       MM_F_QSTRAND, MM_F_REV_ONLY, MM_F_SPLICE,
                       MM_F_SPLICE_FLANK, MM_F_SPLICE_FOR, MM_F_SPLICE_OLD,
                       MM_F_SPLICE_REV, MM_F_SR, MM_F_SR_RNA, MM_F_ALL_CHAINS,
@@ -252,6 +256,13 @@ def align_pair(opt, qseq, tseq, junc, mat, w, end_bonus, zdrop, ksw_flag,
                ez: K.ExtzResult):
     """mm_align_pair (align.c:336-368)."""
     qlen, tlen = len(qseq), len(tseq)
+    dbg = opt.dbg_flag & MM_DBG_PRINT_ALN_SEQ
+    if dbg:
+        sys.stderr.write(
+            f"===> q=({opt.q},{opt.q2}), e=({opt.e},{opt.e2}), bw={w}, "
+            f"ksw_flag={ksw_flag}, zdrop={opt.zdrop}, "
+            f"end_bonus={end_bonus} <===\n{_nt_str(tseq)}\n"
+            f"{_nt_str(qseq)}\n")
     if opt.transition != 0 and opt.b != opt.transition:
         ksw_flag |= K.KSW_EZ_GENERIC_SC
     if opt.max_sw_mat > 0 and tlen * qlen > opt.max_sw_mat:
@@ -269,7 +280,16 @@ def align_pair(opt, qseq, tseq, junc, mat, w, end_bonus, zdrop, ksw_flag,
     else:
         native.ksw_extd2(qlen, qseq, tlen, tseq, 5, mat, opt.q, opt.e,
                          opt.q2, opt.e2, w, zdrop, end_bonus, ksw_flag, ez)
+    if dbg:
+        cig = "".join(f"{c >> 4}{MM_CIGAR_STR[c & 0xF]}" for c in ez.cigar)
+        sys.stderr.write(f"score={ez.score}, cigar={cig}\n")
     return ez
+
+
+def _nt_str(codes) -> str:
+    """nt4 codes as ACGTN text (codes past 4 as N)."""
+    c = np.minimum(np.asarray(codes, np.uint8), 4)
+    return np.frombuffer(b"ACGTN", np.uint8)[c].tobytes().decode()
 
 
 def get_hplen_back(mi, rid, x):

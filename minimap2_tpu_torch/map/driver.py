@@ -8,6 +8,7 @@ fallback reads and fragments through these."""
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 
@@ -75,7 +76,14 @@ def flip_back(regs, qlen: int) -> None:
 
 
 def map_fragment(mi, mo, frag):
-    """worker_for (map.c:425-474): pe_ori revcomp, map, flip back."""
+    """worker_for (map.c:425-474): pe_ori revcomp, map, flip back; with
+    --print-qname or --print-aln-seq the QR and QT lines of the fragment's
+    reads on stderr (map.c:433-434, :472-473)."""
+    dbg_qname = mo.dbg_flag & (C.MM_DBG_PRINT_ALN_SEQ | C.MM_DBG_PRINT_QNAME)
+    if dbg_qname:
+        t_qr = time.time()
+        for r in frag:
+            print(f"QR\t{r.name}\t0\t{len(r.seq)}", file=sys.stderr)
     n_seg = len(frag)
     pe_ori = mo.pe_ori
     flipped = [n_seg == 2 and ((j == 0 and (pe_ori >> 1) & 1)
@@ -91,6 +99,10 @@ def map_fragment(mi, mo, frag):
     for j in range(n_seg):
         if flipped[j]:
             flip_back(results[j].regs, len(frag[j].seq))
+    if dbg_qname:
+        for r in frag:
+            print(f"QT\t{r.name}\t0\t{time.time() - t_qr:.6f}",
+                  file=sys.stderr)
     return results
 
 

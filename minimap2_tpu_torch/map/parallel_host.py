@@ -15,9 +15,15 @@ writes once, not through the pool's initargs: a spawning parent writes
 each worker's arguments into its pipe and waits there while the worker
 imports its modules, so a large index would start the workers one after
 another, each behind the last one's imports.
+
+The workers map with the debug output off: the JAX package keeps it in
+module globals that its spawned workers never set, so its pool prints no
+QR lines under --print-qname (the reference does; ROADMAP Queue 3).  The
+other debug flags keep the CLI serial.
 """
 from __future__ import annotations
 
+import copy
 import io
 import os
 import pickle
@@ -74,8 +80,10 @@ def run_parallel(mi, mo, queries, out, frag_mode: bool, n_threads: int,
     n_mapped = 0
     with tempfile.TemporaryDirectory() as tmp:
         state = os.path.join(tmp, "state.pkl")
+        mo_w = copy.copy(mo)
+        mo_w.dbg_flag = 0
         with open(state, "wb") as f:
-            pickle.dump((mi, mo), f, protocol=pickle.HIGHEST_PROTOCOL)
+            pickle.dump((mi, mo_w), f, protocol=pickle.HIGHEST_PROTOCOL)
         with ctx.Pool(n_threads, initializer=_init_worker,
                       initargs=(state,)) as pool:
             for n, txt in pool.imap(_work_chunk, chunks()):

@@ -10,15 +10,19 @@ jointly, split per segment (map/pe.seg_gen), aligned per segment and
 paired by mm_pair (map/pe.pair).  Sketch, anchors, chaining and the DPs run
 through the C++ routines of native/host_map.cpp.  With jump side data (-j,
 --pass1) a spliced single segment's clipped ends go through jump_split
-(map/jump.py).  The copy drops the --print-seeds / --print-chains dumps
-(the port's CLI has no debug output yet).
+(map/jump.py).  With MapOptions.dbg_flag's MM_DBG_PRINT_SEED or
+MM_DBG_PRINT_CHAIN bits (--print-seeds, --print-chains) it writes the RS/SD
+and CN lines of the JAX package (map.c:255-260, :326-330) on stderr.
 """
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 
 from .. import native
-from ..config import (MM_F_ALL_CHAINS, MM_F_HARD_MLEVEL, MM_F_HEAP_SORT,
+from ..config import (MM_DBG_PRINT_CHAIN, MM_DBG_PRINT_SEED,
+                      MM_F_ALL_CHAINS, MM_F_HARD_MLEVEL, MM_F_HEAP_SORT,
                       MM_F_CIGAR, MM_F_NO_HASH_NAME, MM_F_NO_LJOIN,
                       MM_F_QSTRAND,
                       MM_F_RMQ, MM_F_SPLICE, MM_F_SR, MM_F_SR_RNA,
@@ -33,6 +37,45 @@ from .pe import pair as mm_pair
 from .pe import seg_gen, select_sub_multi
 from .sdust import dust_minier
 from .seed import collect_seed_hits, collect_seed_hits_heap, seed_mz_flt
+
+
+def _anchor_fields(ax, ay):
+    """The SD/CN columns of anchors ax/ay: contig ids, rpos, strand
+    characters, qpos, spans (map.c:255-260)."""
+    ax = np.asarray(ax, np.uint64)
+    ay = np.asarray(ay, np.uint64)
+    rid = ((ax << np.uint64(1)) >> np.uint64(33)).tolist()
+    rpos = ax.astype(np.uint32).view(np.int32).astype(np.int64)
+    strand = np.where(ax >> np.uint64(63), "-", "+").tolist()
+    qpos = ay.astype(np.uint32).view(np.int32).astype(np.int64)
+    span = ((ay >> np.uint64(32)) & np.uint64(0xFF)).tolist()
+    return rid, rpos, strand, qpos, span
+
+
+def _dbg_seed_dump(mi, ax, ay, rep_len):
+    """--print-seeds RS/SD lines (map.c:255-260)."""
+    rid, rpos, strand, qpos, span = _anchor_fields(ax, ay)
+    gap = np.diff(qpos, prepend=qpos[:1]) - np.diff(rpos, prepend=rpos[:1])
+    sys.stderr.write(f"RS\t{rep_len}\n" + "".join(
+        f"SD\t{mi.seq[r].name}\t{rp}\t{st}\t{qp}\t{sp}\t{g}\n"
+        for r, rp, st, qp, sp, g in zip(rid, rpos.tolist(), strand,
+                                        qpos.tolist(), span, gap.tolist())))
+
+
+def _dbg_chain_dump(mi, regs0, ax, ay):
+    """--print-chains CN lines (map.c:326-330): each chain's anchors, the
+    gap measured from the chain's previous anchor."""
+    rid, rpos, strand, qpos, span = _anchor_fields(ax, ay)
+    lines = []
+    for j, r in enumerate(regs0):
+        sl = slice(r.as_, r.as_ + r.cnt)
+        q, rp = qpos[sl], rpos[sl]
+        gap = np.diff(q, prepend=q[:1]) - np.diff(rp, prepend=rp[:1])
+        lines += [f"CN\t{j}\t{mi.seq[a].name}\t{b}\t{c}\t{d}\t{e}\t{g}\n"
+                  for a, b, c, d, e, g in zip(rid[sl], rp.tolist(),
+                                              strand[sl], q.tolist(),
+                                              span[sl], gap.tolist())]
+    sys.stderr.write("".join(lines))
 
 
 def collect_minimizers(mi: MiniIndex, opt: MapOptions, seqs: list[bytes]):
@@ -89,6 +132,8 @@ def map_frag_core(mi: MiniIndex, seqs: list[bytes], opt: MapOptions,
                 else collect_seed_hits)     # map.c:252-253
     ax, ay, rep_len, mini_pos = _collect(
         mi, opt, opt.mid_occ, mx, my, qlen_sum, qname)
+    if opt.dbg_flag & MM_DBG_PRINT_SEED:
+        _dbg_seed_dump(mi, ax, ay, rep_len)
 
     # chaining gaps (map.c:262-274)
     if is_sr:
@@ -163,6 +208,8 @@ def map_frag_core(mi: MiniIndex, seqs: list[bytes], opt: MapOptions,
     if mi.n_alt:
         hitmod.mark_alt(mi, regs0)
         regs0 = hitmod.hit_sort(regs0, opt.alt_drop)
+    if opt.dbg_flag & (MM_DBG_PRINT_SEED | MM_DBG_PRINT_CHAIN):
+        _dbg_chain_dump(mi, regs0, ax, ay)
 
     # chain_post (map.c:206-213)
     if not (opt.flag & MM_F_ALL_CHAINS):

@@ -13,14 +13,15 @@ here uses kind='stable' on the same key to preserve tie order.
 """
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 
 import numpy as np
 
 from .. import native
-from ..config import (MM_F_FOR_ONLY, MM_F_NO_DIAG, MM_F_NO_DUAL, MM_F_QSTRAND,
-                      MM_F_REV_ONLY, MM_SEED_SEG_SHIFT, MM_SEED_SELF,
-                      MM_SEED_TANDEM)
+from ..config import (MM_DBG_SEED_FREQ, MM_F_FOR_ONLY, MM_F_NO_DIAG,
+                      MM_F_NO_DUAL, MM_F_QSTRAND, MM_F_REV_ONLY,
+                      MM_SEED_SEG_SHIFT, MM_SEED_SELF, MM_SEED_TANDEM)
 
 U64 = np.uint64
 
@@ -107,14 +108,25 @@ def seed_select(s: Seeds, qlen: int, max_occ: int, max_max_occ: int, dist: int):
             last0 = i
 
 
+def dbg_seed_freq(pos, n, flt) -> None:
+    """--dbg-seed-occ SF lines (seed.c:115-116): each seed that hit the
+    index, its query position, occurrences and whether it was filtered."""
+    sys.stderr.write("".join(f"SF\t{p}\t{c}\t{f}\n" for p, c, f in zip(
+        np.asarray(pos).tolist(), np.asarray(n).tolist(),
+        np.asarray(flt, np.int64).tolist())))
+
+
 def collect_matches(mi, mx, my, qlen: int, max_occ: int, max_max_occ: int,
-                    dist: int):
-    """seed.c:98-132: returns (seeds kept, n_a, rep_len, mini_pos array)."""
+                    dist: int, seed_freq: bool = False):
+    """seed.c:98-132: returns (seeds kept, n_a, rep_len, mini_pos array);
+    with seed_freq, the SF lines of --dbg-seed-occ on stderr."""
     s = seed_collect_all(mi, mx, my)
     if dist > 0 and max_max_occ > max_occ:
         seed_select(s, qlen, max_occ, max_max_occ, dist)
     else:
         s.flt |= s.n > max_occ
+    if seed_freq:
+        dbg_seed_freq(s.q_pos.astype(np.int64) >> 1, s.n, s.flt)
     # rep_len: union length of filtered-seed intervals, merged in seed order
     rep_len = 0
     rep_st = rep_en = 0
@@ -188,7 +200,8 @@ def collect_seed_hits_heap(mi, opt, max_occ: int, mx, my, qlen: int,
 
     Returns (ax, ay, rep_len, mini_pos)."""
     s, n_a, rep_len, mini_pos = collect_matches(
-        mi, mx, my, qlen, max_occ, opt.max_max_occ, opt.occ_dist)
+        mi, mx, my, qlen, max_occ, opt.max_max_occ, opt.occ_dist,
+        bool(opt.dbg_flag & MM_DBG_SEED_FREQ))
     n_m = len(s.n)
     pos = mi.pos
     flag = opt.flag
@@ -254,22 +267,29 @@ def collect_seed_hits(mi, opt, max_occ: int, mx, my, qlen: int,
 
     The C++ routine has no skip_seed (ava's -X/--dual) and no --for-only,
     --rev-only or --qstrand: with those flags the NumPy expansion is the
-    route, as in the JAX package."""
+    route, as in the JAX package.  Under --dbg-seed-occ the C++ routine
+    hands back its seeds and the SF lines are written here (the JAX
+    package runs its NumPy expansion for them)."""
     if opt.flag & (MM_F_NO_DIAG | MM_F_NO_DUAL | MM_F_FOR_ONLY
                    | MM_F_REV_ONLY | MM_F_QSTRAND):
         return collect_seed_hits_np(mi, opt, max_occ, mx, my, qlen, qname)
     mmo = opt.max_max_occ if (opt.occ_dist > 0
                               and opt.max_max_occ > max_occ) else 0
-    return native.collect_anchors(mx, my, mi.keys, mi.starts, mi.pos, qlen,
-                                  max_occ, mmo if mmo else max_occ,
-                                  opt.occ_dist if mmo else 0)
+    seed_freq = bool(opt.dbg_flag & MM_DBG_SEED_FREQ)
+    out = native.collect_anchors(mx, my, mi.keys, mi.starts, mi.pos, qlen,
+                                 max_occ, mmo if mmo else max_occ,
+                                 opt.occ_dist if mmo else 0, seed_freq)
+    if seed_freq:
+        dbg_seed_freq(*out[4].T)
+    return out[:4]
 
 
 def collect_seed_hits_np(mi, opt, max_occ: int, mx, my, qlen: int,
                          qname: str | None):
     """collect_seed_hits, plain version."""
     s, n_a, rep_len, mini_pos = collect_matches(
-        mi, mx, my, qlen, max_occ, opt.max_max_occ, opt.occ_dist)
+        mi, mx, my, qlen, max_occ, opt.max_max_occ, opt.occ_dist,
+        bool(opt.dbg_flag & MM_DBG_SEED_FREQ))
     n_m = len(s.n)
     if n_a == 0:
         return (np.empty(0, dtype=np.uint64), np.empty(0, dtype=np.uint64),

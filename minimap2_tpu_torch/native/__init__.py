@@ -101,7 +101,7 @@ def map_lib():
     sigs = {
         "mm_sketch_nt4": [P, I64, I, I, C.c_uint32, I, P, P, I64],
         "mm_collect_anchors": [P, P, I64, P, P, I64, P, I64, I64, I64, I64,
-                               P, P, I64, P, P, P],
+                               P, P, I64, P, P, P, P, P],
         "ksw_extd2_cpp": [I, P, I, P, I, P] + [I] * 8 + [EZ, P, I64],
         "ksw_extz2_cpp": [I, P, I, P, I, P] + [I] * 6 + [EZ, P, I64],
         "ksw_exts2_cpp": [I, P, I, P, I, P] + [I] * 9 + [P, EZ, P, I64],
@@ -180,10 +180,12 @@ def sketch(codes: np.ndarray, w: int, k: int, rid: int, is_hpc: bool):
 
 
 def collect_anchors(mx, my, keys, starts, pos, qlen: int, max_occ: int,
-                    max_max_occ: int, dist: int):
+                    max_max_occ: int, dist: int, seed_freq: bool = False):
     """Seed lookup + selection + anchor expansion + stable sort by x
     (map/seed.py's ``collect_seed_hits_np`` is the plain version).
-    Returns (ax, ay, rep_len, mini_pos)."""
+    Returns (ax, ay, rep_len, mini_pos), and with seed_freq also the
+    (n_seeds, 3) int64 rows (pos, occurrences, filtered) of the seeds that
+    hit the index, in query order, for --dbg-seed-occ's SF lines."""
     mx = np.ascontiguousarray(mx, dtype=np.uint64)
     my = np.ascontiguousarray(my, dtype=np.uint64)
     keys = np.ascontiguousarray(keys, dtype=np.uint64)
@@ -192,6 +194,8 @@ def collect_anchors(mx, my, keys, starts, pos, qlen: int, max_occ: int,
     cap = max(1024, 64 * len(mx))
     rep = np.zeros(1, np.int64)
     n_mini = np.zeros(1, np.int64)
+    sf = np.empty((len(mx), 3), np.int64) if seed_freq else None
+    n_sf = np.zeros(1, np.int64)
     while True:
         ax = np.empty(cap, np.uint64)
         ay = np.empty(cap, np.uint64)
@@ -200,9 +204,10 @@ def collect_anchors(mx, my, keys, starts, pos, qlen: int, max_occ: int,
             _ptr(mx), _ptr(my), len(mx), _ptr(keys), _ptr(starts),
             len(keys), _ptr(pos), qlen, max_occ, max_max_occ, dist,
             _ptr(ax), _ptr(ay), cap, _ptr(rep), _ptr(minipos),
-            _ptr(n_mini))
+            _ptr(n_mini), None if sf is None else _ptr(sf), _ptr(n_sf))
         if n < cap:
-            return ax[:n], ay[:n], int(rep[0]), minipos[:int(n_mini[0])]
+            out = (ax[:n], ay[:n], int(rep[0]), minipos[:int(n_mini[0])])
+            return out if sf is None else out + (sf[:int(n_sf[0])],)
         cap *= 4
 
 

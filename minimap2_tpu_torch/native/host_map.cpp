@@ -159,7 +159,8 @@ int64_t mm_collect_anchors(const uint64_t *mx, const uint64_t *my,
                            int64_t dist,
                            uint64_t *ax, uint64_t *ay, int64_t cap,
                            int64_t *rep_len_out,
-                           uint64_t *mini_pos, int64_t *n_mini_out)
+                           uint64_t *mini_pos, int64_t *n_mini_out,
+                           int64_t *sf_out, int64_t *n_sf_out)
 {
     std::vector<SeedRec> seeds;
     seeds.reserve(n_m);
@@ -226,6 +227,16 @@ int64_t mm_collect_anchors(const uint64_t *mx, const uint64_t *my,
     } else {
         for (auto &s : seeds)
             if (s.n > max_occ) s.flt = 1;
+    }
+    // --dbg-seed-occ: each seed's (pos, occurrences, filtered) for the
+    // caller's SF lines (seed.c:115-116), when sf_out is given (3n slots)
+    if (sf_out) {
+        for (int64_t i = 0; i < n; ++i) {
+            sf_out[3 * i] = (int64_t)(seeds[i].q_pos >> 1);
+            sf_out[3 * i + 1] = seeds[i].n;
+            sf_out[3 * i + 2] = seeds[i].flt;
+        }
+        *n_sf_out = n;
     }
     // rep_len: merged interval union of filtered seeds, in seed order
     int64_t rep_len = 0, rep_st = 0, rep_en = 0;

@@ -26,7 +26,7 @@ from .. import resolve_device
 from ..ops.chain import NEG_INF, comput_sc, last_valid
 from ..ops.extend import EZ_SCORE, extd2_batch2
 from ..ops.sketch import hash64_t, sketch_batch
-from ..ops.sort import sort1_rows, sort3_chunked, sort3_rows
+from ..ops.sort import MAX_WIDTH, sort1_rows, sort3_chunked, sort3_rows
 from ..utils.u32 import M32, i32, u32, umax_where
 
 
@@ -374,7 +374,12 @@ def _compact_minimizers(hhi, hlo, strand, is_mini, M: int):
     the 3-plane bitonic route of the JAX package (key = pos<<1 | strand,
     unique per row, with the hash pair riding as the other two planes).
     The rank-scatter route agrees with it on valid lanes only; downstream
-    code masks the rest with mvalid."""
+    code masks the rest with mvalid.
+
+    Past 16384 lanes (the JAX package's one-key lax.sort, batch.py:833-838)
+    the key plane alone goes through sort1_rows and the hash pair is
+    gathered at each sorted key's position: the keys are unique, so the
+    valid lanes are the JAX package's; invalid lanes hold hash 0."""
     B, L = hhi.shape
     A = 1 << (max(L, M) - 1).bit_length()                 # pad to pow2
     posi = torch.arange(L, device=hhi.device, dtype=torch.int32)[None, :]
@@ -384,16 +389,19 @@ def _compact_minimizers(hhi, hlo, strand, is_mini, M: int):
         def pad(x, v):
             return torch.cat([x, x.new_full((B, A - L), v)], dim=1)
         key, hhi, hlo = pad(key, KEY_NONE), pad(hhi, 0), pad(hlo, 0)
-    if A > 16384:
-        raise NotImplementedError(
-            f"compaction width {A} > 16384 (the JAX package's lax.sort "
-            "branch) is not ported")
-    if A > 4096:
-        skey, mh_hi, mh_lo = sort3_chunked(key, hhi, hlo, chunk=2048,
-                                           keep=1024)
+    if A > MAX_WIDTH:
+        skey = sort1_rows(key)[:, :M]
+        live = skey != KEY_NONE
+        at = torch.where(live, skey >> 1, 0).to(torch.int64)
+        mh_hi, mh_lo = (torch.where(live, torch.gather(x, 1, at), 0)
+                        for x in (hhi, hlo))
     else:
-        skey, mh_hi, mh_lo = sort3_rows(key, hhi, hlo)
-    skey, mh_hi, mh_lo = skey[:, :M], mh_hi[:, :M], mh_lo[:, :M]
+        if A > 4096:
+            skey, mh_hi, mh_lo = sort3_chunked(key, hhi, hlo, chunk=2048,
+                                               keep=1024)
+        else:
+            skey, mh_hi, mh_lo = sort3_rows(key, hhi, hlo)
+        skey, mh_hi, mh_lo = skey[:, :M], mh_hi[:, :M], mh_lo[:, :M]
     mvalid = skey != KEY_NONE
     mpos = torch.where(mvalid, skey >> 1, torch.full_like(skey, L))
     mz = torch.where(mvalid, skey & 1, torch.zeros_like(skey))

@@ -52,7 +52,7 @@ from .batch import (H2R_LOAD, H2R_SLOTS, DeviceIndex, _mulhi_u32,
 UMAX = -1                   # 0xFFFFFFFF as an int32 bit pattern
 I64_MAX = (1 << 63) - 1     # above every (hi << 32 | lo) hash of 2k <= 56
 KROWS_ROUTE = ("the krows / bucket-table index layout is not ported "
-              "(ROADMAP Queue 1 item 10): the port probes the h2r table only")
+              "(ROADMAP Queue 1 item 8): the port probes the h2r table only")
 
 
 @dataclass

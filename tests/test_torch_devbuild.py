@@ -150,7 +150,7 @@ def test_devbuild_several_chunks_matches_jax(monkeypatch):
 def test_devbuild_krows_route_raises(monkeypatch):
     monkeypatch.setenv("MM2TPU_DEVBUILD_H2R", "0")
     names, seqs = _genome(3, [80_000])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         build_device_index(names, seqs, 10, 15, device="cpu")
 
 

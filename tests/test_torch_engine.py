@@ -6,11 +6,12 @@
     also with secondaries and waypoints (the -c/-a path's step);
 (b) run_batched_cli's PAF is byte-identical to the JAX engine's;
 (c) cli.main parses options and reads side data (--junc-bed, --alt) as
-    the JAX CLI does, and the debug-output flags raise
-    NotImplementedError;
+    the JAX CLI does (the debug output: tests/test_torch_debug_output.py);
 (d) a read longer than L takes the host path and gives the JAX package's
     PAF;
-(e) the device occurrence cap reads MM2TPU_OCC_CAP as the JAX package does.
+(e) the device occurrence cap reads MM2TPU_OCC_CAP as the JAX package does;
+(f) PafStep at bench.py's off-distribution widths (L 32768) on CLR-like
+    reads equals the JAX step.
 """
 import functools
 import io
@@ -136,6 +137,65 @@ def test_paf_step_sec_wp_match_jax_kernel_route(monkeypatch):
     assert (want[1][0] >= 0).sum(1).min() > 1        # waypoints per read
 
 
+def _clr_reads(g, n, rng):
+    """pbsim-CLR-shaped reads from g (bench.py's off-distribution gate,
+    scaled down): 12-30 kb, 5% errors (sub:ins:del 10:60:30), every
+    fourth with a 1-10 kb internal deletion, half reverse-complemented."""
+    reads = []
+    for i in range(n):
+        ln = int(rng.integers(12000, 30000))
+        st = int(rng.integers(0, len(g) - ln - 10000))
+        r = g[st:st + ln]
+        if i % 4 == 1:
+            cut = int(rng.integers(1000, 10000))
+            r = np.concatenate([r[:ln // 2], g[st + ln // 2 + cut:st + ln + cut]])
+        ev = rng.random(len(r))
+        sub, ins, dele = ev < 0.005, (ev >= 0.005) & (ev < 0.035), ev >= 0.985
+        r = np.where(sub, (r + rng.integers(1, 4, len(r))) % 4, r)
+        r = np.concatenate([np.repeat(r[~dele], 1 + ins[~dele])])
+        if i % 2:
+            r = (3 - r)[::-1]
+        reads.append(ACGT[r.astype(np.uint8)].tobytes())
+    return reads
+
+
+def test_paf_step_at_l32768_matches_jax(monkeypatch):
+    """PafStep at bench.py's off-distribution widths (L 32768, M 4096, A
+    8192, window 64, bw_long 0, K 5, min_sc 40; bench.py:108-118,
+    :481-483) on 8 CLR-like reads of 12-30 kb: the compaction past 16384
+    lanes (sort1 + gather; JAX's lax.sort at B % 8 == 0), the sketch at
+    32768 lanes and the anchor sort at 8192, records equal to
+    make_paf_step(interpret=False)'s with the Pallas sketch in interpret
+    mode (8 reads: the chain scan route in both)."""
+    rng = np.random.default_rng(15)
+    g = rng.integers(0, 4, 400_000).astype(np.uint8)
+    fam = rng.integers(0, 4, 800).astype(np.uint8)
+    for st in rng.integers(0, 399_000, 20):
+        g[st:st + 800] = fam
+    reads = _clr_reads(g, 8, rng)
+    jmi = JaxMiniIndex.build_codes(["g"], [g], w=10, k=15)
+    mid_occ = jmi.cal_max_occ(2e-4)
+    shape = dict(k=15, w=10, L=32768, M=4096, A=8192,
+                 occ_cap=min(max(mid_occ, 10), 64), chain_window=64,
+                 bw_long=0)
+    monkeypatch.setattr(sketch_pallas, "sketch_batch", functools.partial(
+        sketch_pallas.sketch_batch, interpret=True))
+    jstep = jax_engine.make_paf_step(JaxDeviceIndex.from_host(jmi, 1)[0],
+                                     JaxBatchParams(**shape), K=5,
+                                     min_sc=40, interpret=False)
+    codes, lens = engine.encode_batch(reads, 32768)
+    packed, nbits = engine.pack_codes(codes)
+    want = np.asarray(jstep(jnp.asarray(packed), jnp.asarray(nbits),
+                            jnp.asarray(lens)))
+    di = DeviceIndex.from_host(MiniIndex.build_codes(["g"], [g], w=10, k=15),
+                               "cpu")
+    step = engine.PafStep(di, BatchParams(**shape), K=5, min_sc=40)
+    got = step(*(torch.from_numpy(x) for x in (packed, nbits, lens)))
+    assert got.shape == want.shape == (10, 5, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[0, 0] > 1000).all()                # every read maps
+
+
 @pytest.fixture(scope="module")
 def conc_world(tmp_path_factory):
     """The world of tests/test_concurrency.py."""
@@ -214,14 +274,9 @@ def test_cli_options_match_jax(conc_world, monkeypatch, tmp_path, opts):
     assert jax_cli.main(argv) == 0
     got = _captured(monkeypatch, engine)
     assert port_cli.main(argv, device="cpu") == 0
-    assert got and got == want
-
-
-def test_cli_debug_output_raises(conc_world):
-    """The JAX CLI's debug-output flags are a later slice of the port."""
-    _, ref, reads = conc_world
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_cli.main(["--batch", "--print-seeds", ref, reads], device="cpu")
+    # the port carries the JAX CLI's debug globals on the options
+    assert got and got["opt"].pop("dbg_flag") == 0
+    assert got == want
 
 
 @pytest.mark.parametrize("preset", ["map-ont", "map-pb"])

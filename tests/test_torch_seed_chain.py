@@ -66,6 +66,29 @@ def test_compaction_matches_on_valid_lanes(L, M):
         np.testing.assert_array_equal(g[valid], w[valid], err_msg=name)
 
 
+@pytest.mark.parametrize("B,density", [(2, 0.15), (8, 0.25)])
+def test_wide_compaction_matches_jax(B, density):
+    """Past 16384 lanes (L 20000 -> A 32768): the port's sort1 + gather
+    against the JAX package's route (lax.sort at B % 8 == 0, else its
+    rank scatter); at density 0.25 a row holds more minimizers than M."""
+    L, M = 20000, 4096
+    hhi, hlo, z, mini = _front_inputs(B, B, L, density)
+    got = tb._compact_minimizers(_t(hhi), _t(hlo), torch.from_numpy(z) != 0,
+                                 torch.from_numpy(mini), M)
+    want = jb._compact_minimizers(jnp.asarray(hhi), jnp.asarray(hlo),
+                                  jnp.asarray(z), jnp.asarray(mini), M,
+                                  use_pallas=True)
+    valid = np.asarray(want[4])
+    assert valid.sum(1).min() > 0 and (valid.sum(1) == M).any() == (B == 8)
+    _eq(got[4], valid, "mvalid")
+    for name, g, w in zip(("mh_hi", "mh_lo", "mz", "mpos"), got, want):
+        w = np.asarray(w)
+        g = g.numpy().view(w.dtype)
+        np.testing.assert_array_equal(g[valid], w[valid], err_msg=name)
+        if B % 8 == 0 and name in ("mz", "mpos"):   # the lax.sort route
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
 def test_compaction_matches_sort_route_on_all_lanes(monkeypatch):
     hhi, hlo, z, mini = _front_inputs(1, 8, 512, 0.2)
     orig = sort_pallas.sort3_rows
