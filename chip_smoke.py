@@ -21,7 +21,19 @@ seconds):
      tables decoded to host coordinates equal phase 3's host MiniIndex
      (keys, run starts, positions) and mid_occ its cal_max_occ(2e-4); phase
      3's reads mapped through it at phase 3's widths give byte-identical
-     PAF; each build stage's seconds and the peak device memory;
+     PAF; each build stage's seconds and the peak device memory; then the
+     same genome under MM2TPU_DEVBUILD_H2R=0: the krows layout (probe_win
+     2), decoded equal to phase 3's host index with every key, phase 3's
+     reads through it (the rule of 3f);
+  3f. phase 3's host index as the h2 layout with pos_fmt 0 and s_fmt 1
+     (MM2TPU_H2R=0, MM2TPU_PACK_S=1, force_pos_fmt=0): its seconds and
+     table sizes; phase 3's reads through it at occ_cap 62 (what phase
+     3's stride-2 h2r rows apply) with PAF equal to phase 3's but for
+     reads holding a key the h2r build dropped, and at occ_cap 64, where
+     a read may also differ through a key of 63-64 occurrences (each such
+     read named); _lookup_anchors timed whole and as the probe alone on
+     phase 3's first compacted minimizers (512 x 4096) for h2r, h2, krows
+     and h2 with pos_fmt 0 (the last three with equal anchors);
   3c. the 3.1 Gb / 195-contig GRCh38 envelope: generated on the card
      (alt0 and alt170 equal to the same contigs generated on the CPU),
      1024 ONT-like reads sliced from its 24 big chromosomes, indexed on the
@@ -132,7 +144,10 @@ seconds):
      splice traceback on the first 32 jobs of run (b)'s first launch;
      at phase 3c's off-distribution shapes: the sketch at 256 x 32768,
      sort1 on the compaction keys (256 x 32768), sort3 on the anchor keys
-     and the chain on the anchor planes (256 x 8192)),
+     and the chain on the anchor planes (256 x 8192); sort1's chunked
+     route in the compaction of a seeded 256 x 65536 batch, launches
+     counted, bit-equal to sort1_rows_plain at full width, beside
+     torch.sort),
      timed with CUDA events;
      extd2's DP cell-updates/s as bench.py defines them;
      blocks per SM of every kernel, and the sketch's, sort3's and sort1's
@@ -442,6 +457,32 @@ def same_index(tag, a, b):
                 f"{tag}: the .mmi's {x} differ from the host index's")
 
 
+@contextlib.contextmanager
+def _env(**env):
+    """Environment variables set for a block, restored after it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def describe_index(di):
+    """A DeviceIndex's probe layout, its aux ints that shape the probe and
+    the MB of each of its tables."""
+    from minimap2_tpu_torch.parallel import batch
+    mb = {n: round(t.numel() * t.element_size() / 1e6, 1)
+          for n, t in di.named_buffers()}
+    return (f"{batch.probe_layout(di)} layout (h2r_nb {di.h2r_nb}, h2_nb "
+            f"{di.h2_nb}, probe_win {di.probe_win}, key_shift "
+            f"{di.key_shift}, n_probe {di.n_probe}), tables in MB {mb}")
+
+
 def _build_on_card(tag, names, parts, w, k, **kw):
     """build_device_index on the card with its sketch launches counted
     (counts set to 0 just before, read just after) and its first sketch
@@ -465,9 +506,9 @@ def _build_on_card(tag, names, parts, w, k, **kw):
     stages = {n: round(t, 3) for n, t in meta.stage_s.items()}
     log(f"[{tag}] device index build: {stages} s; peak device memory "
         f"{peak_gb:.2f} GB above the {base / 1e9:.2f} GB held before; "
-        f"pos_fmt {di.pos_fmt}, s_fmt {di.s_fmt}, h2r {tuple(di.h2r.shape)}"
-        f" ({di.h2r_nb} buckets); n_mini {meta.n_mini}, distinct "
-        f"{meta.n_distinct}, mid_occ {meta.mid_occ}; launches {counts}")
+        f"pos_fmt {di.pos_fmt}, s_fmt {di.s_fmt}, {describe_index(di)}; "
+        f"n_mini {meta.n_mini}, distinct {meta.n_distinct}, mid_occ "
+        f"{meta.mid_occ}; launches {counts}")
     return di, meta, dict(stages=stages, peak_gb=peak_gb, launches=counts,
                           sketch_in=sk["args"], n_mini=meta.n_mini,
                           n_distinct=meta.n_distinct, mid_occ=meta.mid_occ)
@@ -497,13 +538,14 @@ def _map_on_card(tag, step, mi, rd, out_path, batch_reads=512,
 
 def phase_devbuild(main, tmp):
     """Phase 3's genome indexed on the card; held against phase 3's host
-    index and its PAF."""
-    from minimap2_tpu_torch.parallel import devbuild, engine
+    index and its PAF.  Then the same genome under MM2TPU_DEVBUILD_H2R=0
+    (the krows layout), held to the host index with every key, and phase
+    3's reads mapped through it (``_map_layout``)."""
+    from minimap2_tpu_torch.parallel import batch, devbuild, engine
     names, seqs = main.pop("genome")
     mi = main["mi"]
     di, meta, info = _build_on_card("devbuild", names, list(seqs), mi.w,
                                     mi.k)
-    del seqs
     t = time.time()
     step = main["step"]
     # the h2r table equals the one phase 3 built from the host index (the
@@ -524,10 +566,11 @@ def phase_devbuild(main, tmp):
     require(np.array_equal(pos, mi.pos), "device-built positions differ")
     require(meta.mid_occ == mi.cal_max_occ(2e-4),
             f"device-built mid_occ {meta.mid_occ} != {mi.cal_max_occ(2e-4)}")
+    dropped = np.delete(mi.keys, at)
     log(f"[devbuild] h2r table equal to phase 3's; its {len(keys)} keys "
-        f"({len(mi.keys) - len(keys)} dropped, as in phase 3's), their runs "
-        f"and all {len(pos)} positions equal phase 3's host index, mid_occ "
-        f"{meta.mid_occ} (checked in {time.time() - t:.1f}s)")
+        f"({len(dropped)} dropped, as in phase 3's: {dropped.tolist()}), "
+        f"their runs and all {len(pos)} positions equal phase 3's host "
+        f"index, mid_occ {meta.mid_occ} (checked in {time.time() - t:.1f}s)")
     dstep = engine.PafStep(di, step.p, step.K, step.min_sc)
     paf = os.path.join(tmp, "devbuild.paf")
     run = _map_on_card("devbuild", dstep, meta.seq_table(), main["rd"], paf)
@@ -536,7 +579,153 @@ def phase_devbuild(main, tmp):
     require(same, "PAF through the device-built index differs from phase 3's")
     log("[devbuild] PAF through the device-built index byte-identical to "
         "phase 3's")
-    return dict(info, map=run, di=di, contigs=list(names))
+    # the krows layout of the same genome, before the genome goes
+    with _env(MM2TPU_DEVBUILD_H2R="0"):
+        kdi, kmeta, kinfo = _build_on_card("devbuild krows", names,
+                                           list(seqs), mi.w, mi.k)
+    del seqs, kinfo["sketch_in"]
+    require(batch.probe_layout(kdi) == "krows" and kdi.probe_win == 2,
+            f"MM2TPU_DEVBUILD_H2R=0 built the {batch.probe_layout(kdi)} "
+            f"layout, probe_win {kdi.probe_win}")
+    t = time.time()
+    keys, starts, counts, pos = devbuild.host_tables(kdi, kmeta)
+    require(np.array_equal(keys, mi.keys)
+            and np.array_equal(starts, mi.starts[:-1])
+            and np.array_equal(counts, np.diff(mi.starts))
+            and np.array_equal(pos, mi.pos) and kmeta.mid_occ == meta.mid_occ,
+            "the krows index's keys, runs, positions or mid_occ differ from "
+            "phase 3's host index")
+    log(f"[devbuild krows] all {len(keys)} keys, their runs and all "
+        f"{len(pos)} positions equal phase 3's host index, mid_occ "
+        f"{kmeta.mid_occ} (checked in {time.time() - t:.1f}s)")
+    kruns = _map_layout("devbuild krows", kdi, kmeta.seq_table(), main,
+                        dropped, tmp)
+    return dict(info, map=run, di=di, contigs=list(names), dropped=dropped,
+                krows=dict(kinfo, di=kdi, runs=kruns))
+
+
+def _paf_records(path):
+    """A PAF's lines grouped by query name."""
+    recs = {}
+    with open(path) as f:
+        for ln in f:
+            recs.setdefault(ln.split("\t", 1)[0], []).append(ln)
+    return recs
+
+
+def _map_layout(tag, di, seq_mi, main, dropped, tmp):
+    """Phase 3's reads through a PafStep on another layout of phase 3's
+    index, the PAF held to phase 3's.  Phase 3's stride-2 h2r rows clamp a
+    count at 63, so that index skips seeds of more than 62 occurrences
+    whatever occ_cap says, and its build dropped a few keys; a layout with
+    exact counts and every key does neither.  So the reads are mapped at
+    that cap, min(occ_cap, 62), where a read's PAF may differ from phase
+    3's only if the read holds a dropped key, and at phase 3's occ_cap,
+    where it may also differ if it holds a key of 63..occ_cap occurrences.
+    Each such read is named (its keys from the host sketch)."""
+    from minimap2_tpu_torch import native
+    from minimap2_tpu_torch.io.fastx import read_fasta
+    from minimap2_tpu_torch.parallel import batch, engine
+    from minimap2_tpu_torch.utils.intfloat import SEQ_NT4
+    step, mi = main["step"], main["mi"]
+    p = step.p
+    cap = p.occ_cap
+    if step.di.h2r.shape[1] == 2 * batch.H2R_SLOTS:
+        cap = min(cap, batch.H2R2_OCC_CAP)
+    cnt = np.diff(mi.starts)
+    many = mi.keys[(cnt > cap) & (cnt <= p.occ_cap)]
+    want = _paf_records(main["paf"])
+    reads = dict(zip(*read_fasta(main["rd"])))
+    out = []
+    for c, allowed, why in (
+            (cap, dropped, "a key the h2r build dropped"),
+            (p.occ_cap, np.union1d(dropped, many),
+             f"a dropped key or one of {cap + 1}..{p.occ_cap} occurrences")):
+        paf = os.path.join(tmp, f"{tag.replace(' ', '_')}_{c}.paf")
+        run = _map_on_card(f"{tag}, occ_cap {c}", engine.PafStep(
+            di, dataclasses.replace(p, occ_cap=c), step.K, step.min_sc),
+            seq_mi, main["rd"], paf)
+        got = _paf_records(paf)
+        diff = sorted(n for n in set(got) | set(want)
+                      if got.get(n) != want.get(n))
+        bad = [n for n in diff if not np.isin(native.sketch(
+            SEQ_NT4[np.frombuffer(reads[n], np.uint8)], mi.w, mi.k, 0,
+            False)[0] >> np.uint64(8), allowed).any()]
+        require(not bad, f"{tag}, occ_cap {c}: the PAF of {len(bad)} reads "
+                f"differs from phase 3's without {why}: {bad[:8]}")
+        log(f"[{tag}] occ_cap {c}: PAF equal to phase 3's on "
+            f"{len(reads) - len(diff)} reads; {len(diff)} differ, each "
+            f"holding {why}: {diff}")
+        out.append(dict(run, occ_cap=c, differing=diff))
+        if c == p.occ_cap:
+            break
+    return out
+
+
+def phase_layouts(main, dvb, tmp):
+    """Phase 3f: phase 3's host index as the h2 layout with pos_fmt 0 and
+    s_fmt 1 (MM2TPU_H2R=0, MM2TPU_PACK_S=1, force_pos_fmt=0), phase 3's
+    reads mapped through it (``_map_layout``); then the probe of four
+    layouts timed on phase 3's first compacted minimizers (512 x 4096):
+    h2r (phase 3's), h2 (with phase 3's pos_fmt 1 tables), krows (phase
+    3b's) and h2 with pos_fmt 0, each as the whole _lookup_anchors and as
+    the probe alone; the last three give equal anchor planes."""
+    from minimap2_tpu_torch.ops.sketch import sketch_batch
+    from minimap2_tpu_torch.parallel import batch, engine
+    from minimap2_tpu_torch.parallel.batch import DeviceIndex
+    mi, step = main["mi"], main["step"]
+    p = step.p
+    torch.cuda.synchronize()
+    t = time.time()
+    with _env(MM2TPU_H2R="0", MM2TPU_PACK_S="1"):
+        di = DeviceIndex.from_host(mi, "cuda", force_pos_fmt=0)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    require(batch.probe_layout(di) == "h2" and (di.pos_fmt, di.s_fmt)
+            == (0, 1), "MM2TPU_H2R=0 / MM2TPU_PACK_S=1 / force_pos_fmt=0 "
+            f"built {batch.probe_layout(di)}, pos_fmt {di.pos_fmt}, s_fmt "
+            f"{di.s_fmt}")
+    log(f"[layouts] h2 index (pos_fmt 0, s_fmt 1) from phase 3's host index "
+        f"in {build_s:.2f}s: {describe_index(di)}")
+    runs = _map_layout("layouts h2", di, mi, main, dvb["dropped"], tmp)
+    # the probe timings; h2 with pos_fmt 1 takes phase 3's position tables
+    h2f1 = DeviceIndex.from_tensors(
+        dict({n: getattr(di, n) for n in ("keys2", "sc2", "bucket_start",
+                                          "h2")},
+             **{n: getattr(step.di, n) for n in ("pos2", "pstrand", "S",
+                                                 "seq_off", "seq_len",
+                                                 "rtab")}),
+        dict(di.aux_dict(), pos_fmt=step.di.pos_fmt, s_fmt=step.di.s_fmt,
+             rtab_on=step.di.rtab_on))
+    kdi = dvb["krows"].pop("di")
+    packed, nbits, lens = (x.cuda() for x in
+                           _first_batch(step, main["rd"], 512))
+    with torch.no_grad():
+        codes = engine.unpack_codes(packed, nbits, p.L)
+        front = batch._compact_minimizers(
+            *sketch_batch(codes, lens, p.k, p.w), p.M)
+        mh_hi, mh_lo, _, _, mvalid = front
+        probes, planes = {}, {}
+        for name, d in (("h2r", step.di), ("h2", h2f1), ("krows", kdi),
+                        ("h2 pos_fmt 0", di)):
+            planes[name] = batch._lookup_anchors(d, *front, lens, p)
+            probes[name] = dict(
+                lookup_ms=cuda_ms(lambda d=d: batch._lookup_anchors(
+                    d, *front, lens, p), reps=5),
+                probe_ms=cuda_ms(lambda d=d: batch.probe_seeds(
+                    d, mh_hi, mh_lo, mvalid, p.occ_cap), reps=5))
+    for name in ("krows", "h2 pos_fmt 0"):
+        require(all(torch.equal(a, b) for a, b in
+                    zip(planes[name], planes["h2"])),
+                f"the {name} anchors differ from the h2 layout's")
+    log(f"[layouts] _lookup_anchors on phase 3's first compacted minimizers "
+        f"{tuple(mh_lo.shape)} (A {p.A}, occ_cap {p.occ_cap}; h2, krows and "
+        f"h2 pos_fmt 0 give equal anchors), ms whole / probe alone: "
+        + ", ".join(f"{n} {v['lookup_ms']:.4f} / {v['probe_ms']:.4f}"
+                    for n, v in probes.items()))
+    del di, h2f1, kdi, planes, front, codes
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, runs=runs, probes=probes)
 
 
 def _truth_ok(name, contigs, rid, rev, rs, re_):
@@ -689,7 +878,7 @@ def phase_offdist(di, p, meta, clr_rd, tmp):
     paf = os.path.join(tmp, "grch38_clr.paf")
     sk, s1, s3, ch = {}, {}, {}, {}
     with _hooked([_capture_first(engine, "sketch_batch", sk),
-                  _capture_first(batch, "sort1_rows", s1),
+                  _capture_first(batch, "sort1_ascending", s1),
                   _capture_first(batch, "sort3_rows", s3),
                   _capture_first(engine, "chain_batch", ch)]):
         run = _map_on_card("offdist", step, meta.seq_table(), clr_rd, paf,
@@ -1341,7 +1530,7 @@ def phase_hpc_path(main, tmp):
     run = _paf_run("hpc", ["--batch", "-x", "map-pb", "-o", paf, main["ref"],
                            main["hpc_rd"]], ("sort1", "sketch", "sort3",
                                              "sort3_merge", "chain"),
-                   [_capture_first(batch, "sort1_rows", keys),
+                   [_capture_first(batch, "sort1_ascending", keys),
                     _capture_first(engine, "sketch_batch", sk)])
     require(run["step"].p.hpc, "the map-pb step is not an HPC step")
     paf_accuracy("hpc", paf, main["hnames"])
@@ -1759,8 +1948,10 @@ def ptxas_usage(src):
 
 
 def kernel_launches(counts, name):
-    """Launches of a kernel on a run: sort3 counts its merge launches too."""
-    return counts.get(name, 0) + counts.get(f"{name}_merge", 0)
+    """Launches of a kernel on a run: sort3 counts its merge launches too,
+    sort1 its chunked ones."""
+    return (counts.get(name, 0) + counts.get(f"{name}_merge", 0)
+            + counts.get(f"{name}_chunked", 0))
 
 
 def phase_kernels(main, hpc, spl, dvb, g38):
@@ -2310,6 +2501,74 @@ def phase_offdist_kernels(od, rows):
         f"{n_max}): bit-equal, {ch_ms:.3f} ms, "
         f"{1e6 * ch_ms / max(n_max, 1):.1f} ns a step of the longest read, "
         f"plain {plain_ms:.1f} ms (one call), bound {b_ms:.4f} ms ({b_by})")
+
+
+def phase_sort1_chunked(rows, B=256, L=65536):
+    """Phase 7, sort1 past 32768 lanes: the minimizer compaction of a
+    (256, 65536) sketch-like batch made from a seed (minimizer density
+    2/11, as at w 10) with the launches counted around it, sort1_chunked
+    required; its positions equal each row's minimizers in order; the
+    chunked route (``sort.sort1_ascending``: one sort1 launch over
+    32768-lane chunks and a scatter) bit-equal to sort1_rows_plain at full
+    width on the compaction's key plane, timed beside torch.sort and its
+    bound, as the "chunked" entry of the sort1 row."""
+    from minimap2_tpu_torch.ops import sort
+    from minimap2_tpu_torch.ops._build import launches
+    from minimap2_tpu_torch.parallel import batch
+    from minimap2_tpu_torch.utils.u32 import i32
+    by = {r["name"]: r for r in rows}
+    g = torch.Generator(device="cuda").manual_seed(16)
+    is_mini = torch.rand((B, L), generator=g, device="cuda") < 2 / 11
+    z = torch.randint(0, 2, (B, L), generator=g, device="cuda",
+                      dtype=torch.int32)
+    hhi, hlo = (i32(torch.randint(0, 1 << 32, (B, L), generator=g,
+                                  device="cuda")) for _ in range(2))
+    M = L // 4
+    torch.cuda.synchronize()
+    launches.clear()
+    with torch.no_grad():
+        mh_hi, mh_lo, mz, mpos, mvalid = batch._compact_minimizers(
+            hhi, hlo, z, is_mini, M)
+        torch.cuda.synchronize()
+    counts = dict(launches)
+    require(counts.get("sort1_chunked", 0) > 0,
+            f"sort1 never launched chunked in the {B} x {L} compaction "
+            f"({counts})")
+    n = is_mini.sum(1)
+    ar = torch.arange(M, device="cuda")[None, :]
+    posi = torch.arange(L, device="cuda")[None, :]
+    first = torch.sort(torch.where(is_mini, posi, L), dim=1).values[:, :M]
+    require(torch.equal(mvalid, ar < n[:, None])
+            and torch.equal(torch.where(mvalid, mpos, L), first.to(mpos.dtype))
+            and torch.equal(torch.where(mvalid, mz, 0), torch.where(
+                mvalid, torch.gather(z, 1, first.clamp(max=L - 1)), 0)),
+            "the chunked compaction's minimizers differ from each row's "
+            "minimizers in order")
+    key = torch.where(is_mini, (posi.to(torch.int32) << 1) | z,
+                      sort.KEY_NONE)
+    got = sort.sort1_ascending(key)
+    e = max_abs_err([got], [sort.sort1_rows_plain(key)])
+    require(e == 0, f"the chunked sort1 route differs from sort1_rows_plain "
+            f"at {B} x {L} ({e})")
+    del got
+    W = sort.SORT1_MAX_WIDTH
+    b_ms, b_by = bound(8 * B * L, B * (L // 2) * sort_stages(W) * 2)
+    x = by["sort1"]["chunked"] = dict(
+        shape=[B, L], launches=counts["sort1_chunked"], max_abs_err=e,
+        ms=cuda_ms(lambda: sort.sort1_ascending(key)),
+        compaction_ms=cuda_ms(lambda: batch._compact_minimizers(
+            hhi, hlo, z, is_mini, M)),
+        plain_ms=cuda_ms(lambda: sort.sort1_rows_plain(key), reps=2,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.sort(key, dim=1), reps=5))
+    by["sort1"]["max_abs_err"] = max(by["sort1"]["max_abs_err"], e)
+    log(f"[kernels] sort1 chunked ({B} x {L} as {B * L // W} rows of {W}, "
+        f"{int(n.float().mean())} minimizers a row): bit-equal to "
+        f"sort1_rows_plain at full width, {x['ms']:.4f} ms (the whole "
+        f"compaction {x['compaction_ms']:.4f} ms), plain {x['plain_ms']:.2f}"
+        f" ms, bound {b_ms:.4f} ms ({b_by}), torch.sort "
+        f"{x['library_ms']:.4f} ms; launches {counts}")
 
 
 def phase_rmq_kernels(lrq, mb, rows):
@@ -3016,6 +3275,7 @@ def main():
         main_ = timed("paf", phase_main_path, tmp)
         long_ = timed("long", phase_long_reads, main_, tmp)
         dvb = timed("devbuild", phase_devbuild, main_, tmp)
+        lay = timed("layouts", phase_layouts, main_, dvb, tmp)
         mb = timed("map_batch", phase_map_batch, main_, dvb)
         g38 = timed("grch38", phase_grch38, tmp)
         aln = timed("align", phase_align_path, main_, tmp)
@@ -3029,6 +3289,7 @@ def main():
         rows += timed("align kernels", phase_align_kernels, aln)
         rows += timed("new kernels", phase_new_kernels, hpc, spl)
         timed("offdist kernels", phase_offdist_kernels, g38["offdist"], rows)
+        timed("sort1 chunked", phase_sort1_chunked, rows)
         timed("sr kernels", phase_sr_kernels, srp, rows)
         timed("rmq kernels", phase_rmq_kernels, lrq, mb, rows)
         timed("splice:sr kernels", phase_splice_sr_kernels, ssr, rows)
@@ -3052,6 +3313,10 @@ def main():
                 ssr["se"]["launches"], r["name"])
             r["launches_offdist"] = kernel_launches(
                 g38["offdist"]["launches"], r["name"])
+            r["launches_h2"] = kernel_launches(
+                lay["runs"][0]["launches"], r["name"])
+            r["launches_krows"] = kernel_launches(
+                dvb["krows"]["runs"][0]["launches"], r["name"])
         timed("breakdown", phase_breakdown, main_)
         timed("hpc breakdown", phase_breakdown, hpc, "HPC")
         timed("align breakdown", phase_align_breakdown, aln)

@@ -10,9 +10,11 @@ compute the same floats) and the CPU's feature flags (-march=native):
   mm_update_extra statistics);
 - ``host_map.cpp``: the host mapping path's sketch, anchor collection,
   chaining DPs (mg_lchain_dp, mg_lchain_rmq) and ksw2 extensions (extd2,
-  extz2, exts2, ll).
+  extz2, exts2, ll), and the device index's h2 table builder.
 
 Without g++ this raises: the port has no other route for these routines.
+``available()`` says whether the host-mapping library builds; the device
+index takes its h2 layout only then, as the JAX package does.
 Their NumPy versions (index/sketch.py, map/seed.py, map/chain.py,
 ops/ksw2_np.py, ops/ksw2_exts.py) are called by name from the tests only.
 """
@@ -108,6 +110,7 @@ def map_lib():
         "mg_lchain_dp_cpp": [I64] * 7 + [F, F, I, I, I64] + [P] * 6,
         "mg_lchain_rmq_cpp": [I64] * 7 + [F, F, I64] + [P] * 6,
         "ksw_ll_cpp": [I, P, I, P, I, P, I, I, P, P],
+        "build_hash2_table": [P, P, I64, I64, I, I, I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lb, name)
@@ -115,6 +118,16 @@ def map_lib():
         fn.restype = I64
     _libs["map"] = lb
     return lb
+
+
+def available() -> bool:
+    """Whether the host-mapping library builds and loads here (the
+    counterpart of minimap2_tpu.native.available)."""
+    try:
+        map_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _ptr(a: np.ndarray):
@@ -321,3 +334,21 @@ def lchain_rmq(max_dist, max_dist_inner, bw, max_chn_skip, cap_rmq_size,
         _ptr(ay), _ptr(u), _ptr(oax), _ptr(oay), _ptr(na))
     k = int(na[0])
     return u[:n_u].copy(), oax[:k].copy(), oay[:k].copy()
+
+
+def build_hash2_table(keys: np.ndarray, starts: np.ndarray, NB: int,
+                      S: int, key32: bool,
+                      mulhi: bool = False) -> tuple[np.ndarray, int]:
+    """The (NB, S * stride) int32 2-choice bucketed table of the device
+    index's h2 layout (stride 3 when key32 else 4) over the sorted keys
+    and their len(keys) + 1 run bounds.  Returns (table, n_overflow).
+    mulhi=True maps buckets by ((u64)h * NB) >> 32 (any NB), else by a
+    low-bits mask (NB a power of two)."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    stride = 3 if key32 else 4
+    table = np.empty((NB, S * stride), np.int32)
+    ov = map_lib().build_hash2_table(_ptr(keys), _ptr(starts), len(keys),
+                                     NB, S, int(key32), int(mulhi),
+                                     _ptr(table))
+    return table, int(ov)

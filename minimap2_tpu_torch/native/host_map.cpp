@@ -2,8 +2,9 @@
 // map_frag_core and its callees), copied from minimap2_tpu/native/mmtpu.cpp:
 // mm_sketch_nt4 :43, mm_collect_anchors :157, ksw_extd2_cpp :390,
 // ksw_extz2_cpp :679, ksw_exts2_cpp :880, mg_lchain_dp_cpp :1333,
-// mg_lchain_rmq_cpp :1480 and ksw_ll_cpp :1619, with the helpers they use.
-// The plain NumPy versions of the same routines (index/sketch.py,
+// mg_lchain_rmq_cpp :1480 and ksw_ll_cpp :1619, with the helpers they use;
+// and build_hash2_table :2084, the device index's h2 table
+// (parallel/batch.py DeviceIndex.from_host).  The plain NumPy versions of the same routines (index/sketch.py,
 // map/seed.py, map/chain.py, ops/ksw2_np.py, ops/ksw2_exts.py) hold them
 // in the tests.  Built with g++ into build/minimap2_tpu_torch/ at first use
 // and bound with ctypes by minimap2_tpu_torch/native/__init__.py.
@@ -1684,6 +1685,68 @@ int64_t ksw_ll_cpp(int qlen, const uint8_t *query, int tlen,
             qe = iflat / 8 + (iflat % 8) * slen;
     *qe_out = qe; *te_out = te;
     return gmax;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------
+// 2-choice bucketed hash table of the device seed lookup (the h2 layout
+// of parallel/batch.py): each key goes into the emptier of two candidate
+// buckets of S slots, so a device probe is two row gathers.  Layouts
+// (empty slot marker in [0]):
+//   key32=1 (key bits < 32): (NB, S, 3) int32 [key_lo, start, cnt],
+//            empty key_lo = -1 (unreachable: keys < 2^31)
+//   key32=0: (NB, S, 4) int32 [key_hi, key_lo, start, cnt], empty
+//            key_hi = -1 (unreachable: keys < 2^56)
+// The b1/b2 mixing matches the probe in parallel/batch.py bit for bit:
+// mulhi=1 maps a hash h to ((u64)h * NB) >> 32 (any NB), mulhi=0 to a
+// low-bits mask (NB a power of two).  Returns the number of keys that fit
+// neither bucket (0 on success).
+// ---------------------------------------------------------------------
+int64_t build_hash2_table(const uint64_t* keys, const int64_t* starts,
+                          int64_t n, int64_t NB, int S, int key32,
+                          int mulhi, int32_t* table)
+{
+    uint32_t mask = (uint32_t)(NB - 1);
+    int st = key32 ? 3 : 4;
+    std::vector<uint8_t> occ((size_t)NB, 0);
+    std::memset(table, 0, (size_t)NB * S * st * sizeof(int32_t));
+    for (int64_t b = 0; b < NB; ++b)
+        for (int s = 0; s < S; ++s)
+            table[(b * S + s) * st] = -1;
+    int64_t overflow = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        uint64_t key = keys[i];
+        uint32_t lo = (uint32_t)key, hi = (uint32_t)(key >> 32);
+        uint32_t k11 = (uint32_t)((lo >> 11) | (hi << 21)) * 2654435761u;
+        uint32_t b1, b2;
+        if (mulhi) {
+            uint32_t m1 = lo * 2654435769u;
+            b1 = (uint32_t)(((uint64_t)m1 * (uint64_t)NB) >> 32);
+            b2 = (uint32_t)(((uint64_t)k11 * (uint64_t)NB) >> 32);
+        } else {
+            b1 = lo & mask;
+            b2 = (k11 >> 7) & mask;
+        }
+        uint32_t b = occ[b1] <= occ[b2] ? b1 : b2;
+        if (occ[b] >= S) b = (b == b1) ? b2 : b1;
+        if (occ[b] >= S) { ++overflow; continue; }
+        int32_t* slot = table + ((int64_t)b * S + occ[b]) * st;
+        if (key32) {
+            slot[0] = (int32_t)lo;
+            slot[1] = (int32_t)starts[i];
+            slot[2] = (int32_t)(starts[i + 1] - starts[i]);
+        } else {
+            slot[0] = (int32_t)hi;
+            slot[1] = (int32_t)lo;
+            slot[2] = (int32_t)starts[i];
+            slot[3] = (int32_t)(starts[i + 1] - starts[i]);
+        }
+        ++occ[b];
+    }
+    return overflow;
 }
 
 }  // extern "C"

@@ -11,6 +11,8 @@ bitonic network (partner = i ^ j) in torch.
 ``sort3_rows``, ``sort3_chunked`` and ``sort1_rows`` launch their kernels
 (csrc/sort3.cu, csrc/sort1.cu) for CUDA tensors and run
 ``sort3_rows_plain`` / ``sort1_rows_plain`` for CPU tensors.
+``sort1_ascending`` takes the compaction's keys past SORT1_MAX_WIDTH
+lanes: one sort1 launch over row chunks, then a scatter.
 """
 from __future__ import annotations
 
@@ -76,6 +78,12 @@ def sort1_rows(k1):
         raise ValueError(f"sort1_rows: width {A} is not a power of two")
     if k1.device.type == "cpu":
         return sort1_rows_plain(k1)
+    return _launch_sort1(k1, "sort1")
+
+
+def _launch_sort1(k1, counter):
+    """mm2_sort1 on a (rows, A) CUDA plane, counted under ``counter``."""
+    B, A = k1.shape
     _build.require_cuda("sort1_rows", k1)
     if k1.dtype != torch.int32:
         raise ValueError("sort1_rows: one (B, A) int32 plane")
@@ -87,8 +95,45 @@ def sort1_rows(k1):
     err = _build.lib().mm2_sort1(k1.data_ptr(), out.data_ptr(), B, A,
                                  _build.stream_ptr(k1))
     _build.check(err, "mm2_sort1")
-    _build.launches["sort1"] += 1
+    _build.launches[counter] += 1
     return out
+
+
+KEY_NONE = 0x7FFFFFFF     # a compaction key's empty lane
+
+
+def sort1_ascending(k1, keep: int | None = None):
+    """sort1_rows for the compaction's keys at any power-of-two width:
+    each row's keys other than KEY_NONE already ascend along the row, and
+    every other lane holds KEY_NONE, so sorting a row compacts it.  Up to
+    SORT1_MAX_WIDTH lanes this is sort1_rows.  Wider rows are cut into
+    SORT1_MAX_WIDTH-lane chunks, all compacted by one sort1 launch (counted
+    as ``sort1_chunked``; the plain version on the CPU), and each chunk's
+    live prefix is scattered after the prefixes of the chunks before it
+    (a cumsum of their counts): the result equals sort1_rows_plain at full
+    width.  Returns the first ``keep`` lanes (default all)."""
+    B, A = k1.shape
+    keep = A if keep is None else keep
+    if A <= SORT1_MAX_WIDTH:
+        return sort1_rows(k1)[:, :keep]
+    if A & (A - 1):
+        raise ValueError(f"sort1_ascending: width {A} is not a power of two")
+    W = SORT1_MAX_WIDTH
+    pieces = k1.reshape(B * (A // W), W)
+    if k1.device.type == "cpu":
+        s = sort1_rows_plain(pieces)
+    else:
+        s = _launch_sort1(pieces.contiguous(), "sort1_chunked")
+    s = s.view(B, A // W, W)
+    n = (s != KEY_NONE).sum(-1, keepdim=True)                 # (B, C, 1)
+    lane = torch.arange(W, device=k1.device)
+    # a live lane goes after the chunks before it; the rest, and lanes
+    # past keep, to a spare column
+    dest = torch.where(lane < n, torch.clamp(torch.cumsum(n, 1) - n + lane,
+                                             max=keep), keep)
+    out = s.new_full((B, keep + 1), KEY_NONE)
+    out.scatter_(1, dest.view(B, A), s.view(B, A))
+    return out[:, :keep]
 
 
 def _sort3_planes(name, k1, k2, k3, A):

@@ -1,9 +1,10 @@
 """Device-batched seeding, chaining and extension: the port of
 minimap2_tpu.parallel.batch.
 
-A read batch runs sketch -> minimizer compaction -> h2r index probe ->
-anchor expansion and sort -> windowed chain DP -> top-K chain selection
-as PyTorch ops on one device, with fixed shapes throughout (the ``--batch``
+A read batch runs sketch -> minimizer compaction -> index probe (any
+layout of the JAX DeviceIndex: h2r, h2, krows, binary search) -> anchor
+expansion and sort -> windowed chain DP -> top-K chain selection as
+PyTorch ops on one device, with fixed shapes throughout (the ``--batch``
 drivers' step, parallel/engine.py).  ``map_batch`` is the one-call step
 of the JAX package: sketch -> compaction -> probe -> chain scan -> a
 score-only extd2 extension of each read's best chain.  The Pallas kernels
@@ -16,17 +17,19 @@ bit pattern, with arithmetic on masked int64 copies (utils/u32.py).
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch import nn
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..ops.chain import NEG_INF, comput_sc, last_valid
 from ..ops.extend import EZ_SCORE, extd2_batch2
 from ..ops.sketch import hash64_t, sketch_batch
-from ..ops.sort import MAX_WIDTH, sort1_rows, sort3_chunked, sort3_rows
+from ..ops.sort import (KEY_NONE, MAX_WIDTH, sort1_ascending, sort3_chunked,
+                        sort3_rows)
 from ..utils.u32 import M32, i32, u32, umax_where
 
 
@@ -240,20 +243,49 @@ def _as_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-class DeviceIndex(nn.Module):
-    """The minimizer index resident on the device, h2r layout only: the
-    payload-fused 2-choice bucket table ``h2r`` (one probe = two row
-    gathers), the position plane ``pos2`` (pos_fmt 1: global pos<<1 |
-    strand; pos_fmt 2: global pos with strand in the ``pstrand`` bitmap),
-    the reference codes ``S`` (s_fmt 0: one nt4 code a byte; 1: two),
-    contig offsets/lengths and, for > 16 contigs of >= 4 KiB, the 4 KiB
-    block rid table ``rtab``.  Tables are buffers; u32 tables are int32
-    bit patterns.  The aux ints carry the JAX DeviceIndex's names and
-    values."""
+UMAX64 = 0xFFFFFFFFFFFFFFFF     # key pad of the bucket layout's keys2
 
-    LEAVES = ("h2r", "pos2", "pstrand", "S", "seq_off", "seq_len", "rtab")
+
+class DeviceIndex(nn.Module):
+    """The minimizer index resident on the device, in any layout of the JAX
+    DeviceIndex (same leaf and aux names and values).  One probe table
+    serves the seed lookup, the first present of:
+
+    - ``h2r`` (NB, 64 * stride) u32: the payload-fused 2-choice bucket
+      table (one probe = two row gathers; ``h2r_nb`` buckets);
+    - ``h2`` (NB, slots * 3 or 4) i32: the 2-choice bucketed table of the
+      host library's build_hash2_table, [key_lo, start, cnt] (keys < 2^32)
+      or [key_hi, key_lo, start, cnt]; buckets by mulhi over ``h2_nb``, or
+      by a 2^``h2_bits`` mask when h2_nb is 0;
+    - ``krows`` (K/64, 128) u32: the sorted keys as 64 interleaved (hi, lo)
+      pairs a row, probed by a two-row window from ``bucket_start`` (every
+      bucket holds <= 25 keys; ``probe_win``), the runs in ``sc2``;
+    - ``bucket_start`` (2^bb + 1,) i32 over ``keys2`` (K, 2) u32 [hi, lo]:
+      a binary search of ``n_probe`` steps within the key's bucket
+      (key >> ``key_shift``);
+    - ``keys2`` alone: a binary search over all keys.
+
+    ``sc2`` (K, 2) i32 holds each key's [start, cnt] run in the position
+    plane ``pos2``: pos_fmt 0 (P, 2) i32 [rid, rpos << 1 | strand]; pos_fmt
+    1 (P,) u32 global pos << 1 | strand; pos_fmt 2 (P,) u32 global pos with
+    the strand in the ``pstrand`` bitmap.  ``S`` holds the reference codes
+    (s_fmt 0: one nt4 code a byte; 1: two), with contig offsets/lengths
+    and, for > 16 contigs of >= 4 KiB at pos_fmt 1 and 2, the 4 KiB block
+    rid table ``rtab``.  Tables are buffers, u32 tables int32 bit patterns;
+    an absent table is None."""
+
+    # the JAX DeviceIndex's leaves, in its order (that of its .npz cache)
+    LEAVES = ("keys2", "sc2", "pos2", "S", "seq_off", "seq_len",
+              "bucket_start", "h2", "pstrand", "krows", "h2r", "rtab")
     AUX = ("key_shift", "n_probe", "h2_bits", "h2_slots", "pos_fmt",
            "h2_nb", "s_fmt", "probe_win", "h2r_nb", "key_bits", "rtab_on")
+    DTYPES = {"keys2": torch.int32, "sc2": torch.int32, "pos2": torch.int32,
+              "S": torch.uint8, "seq_off": torch.int32,
+              "seq_len": torch.int32, "bucket_start": torch.int32,
+              "h2": torch.int32, "pstrand": torch.uint8,
+              "krows": torch.int32, "h2r": torch.int32, "rtab": torch.int32}
+    # leaves the JAX package keeps as u32 (pos2 too unless pos_fmt 0)
+    U32 = ("keys2", "krows", "h2r", "rtab")
 
     def __init__(self, tables: dict, aux: dict):
         super().__init__()
@@ -261,83 +293,190 @@ class DeviceIndex(nn.Module):
             self.register_buffer(name, tables.get(name))
         for name in self.AUX:
             setattr(self, name, int(aux[name]))
-        if self.h2r is None or not self.h2r_nb:
-            raise NotImplementedError(
-                "the port probes the h2r table only; the h2 / krows / "
-                "binary-search layouts are not ported")
-        if self.pos_fmt not in (1, 2):
-            raise NotImplementedError(
-                f"pos_fmt {self.pos_fmt}: the port reads pos_fmt 1 and 2")
+        if self.pos_fmt not in (0, 1, 2):
+            raise ValueError(f"pos_fmt {self.pos_fmt}")
+
+    @property
+    def device(self) -> torch.device:
+        """The device the tables live on (pos2 is in every layout)."""
+        return self.pos2.device
 
     def aux_dict(self) -> dict:
         return {a: getattr(self, a) for a in self.AUX}
+
+    def to_numpy(self) -> dict:
+        """The leaves as NumPy arrays with the JAX DeviceIndex's dtypes
+        (u32 tables as uint32); absent leaves are left out."""
+        out = {}
+        for name in self.LEAVES:
+            t = getattr(self, name)
+            if t is None:
+                continue
+            a = t.cpu().numpy()
+            if name in self.U32 or (name == "pos2" and self.pos_fmt):
+                a = a.view(np.uint32)
+            out[name] = a
+        return out
 
     @classmethod
     def from_tensors(cls, tables: dict, aux: dict):
         """From tables already on one device (the index build's,
         parallel/devbuild.py): no copy, no host round trip.  u32 tables are
         int32 bit patterns; None = absent."""
-        dtypes = {"h2r": torch.int32, "pos2": torch.int32,
-                  "pstrand": torch.uint8, "S": torch.uint8,
-                  "seq_off": torch.int32, "seq_len": torch.int32,
-                  "rtab": torch.int32}
         tabs = {n: t for n, t in tables.items() if t is not None}
         devs = {t.device for t in tabs.values()}
         if len(devs) != 1:
             raise ValueError(f"DeviceIndex tables on several devices: {devs}")
         for n, t in tabs.items():
-            if t.dtype != dtypes[n]:
+            if t.dtype != cls.DTYPES[n]:
                 raise ValueError(f"DeviceIndex table {n}: {t.dtype}, "
-                                 f"expected {dtypes[n]}")
+                                 f"expected {cls.DTYPES[n]}")
         return cls(tabs, aux)
 
     @classmethod
     def from_numpy(cls, leaves: dict, aux: dict, device=None):
-        """From NumPy tables named as the JAX DeviceIndex's leaves (extra
-        leaves such as keys2/sc2 are ignored; None = absent)."""
+        """From NumPy tables named as the JAX DeviceIndex's leaves (None or
+        missing = absent): a JAX index of any layout, given as NumPy
+        arrays, becomes the port's."""
         device = resolve_device(device)
         tables = {n: _as_tensor(np.asarray(leaves[n]), device)
                   for n in cls.LEAVES if leaves.get(n) is not None}
-        return cls(tables, aux)
+        return cls.from_tensors(tables, aux)
 
     @classmethod
     def from_host(cls, mi, device=None, force_pos_fmt: int | None = None,
-                  force_s_fmt: int | None = None):
-        """Build the device index from a host MiniIndex, with the layout
-        choices of the JAX DeviceIndex.from_host on its h2r route."""
-        K = len(mi.keys)
-        if K == 0:
-            raise NotImplementedError("empty index: nothing to probe")
-        cnts = (mi.starts[1:] - mi.starts[:-1]).astype(np.int32)
-        S = np.ascontiguousarray(mi.S if mi.S is not None
-                                 else np.zeros(1, np.uint8))
-        seq_off64 = np.array([s.offset for s in mi.seq] or [0], np.uint64)
-        seq_len = np.array([s.length for s in mi.seq] or [0], np.int32)
-        bb = min(26, max(4, int(math.ceil(math.log2(max(K, 2)))) + 2))
-        key_bits = 2 * mi.k
-        rows, nb = build_h2rows_np(mi.keys, mi.starts[:-1].astype(np.int64),
-                                   cnts, key_bits,
-                                   nb0=max(64, -(-K // H2R_LOAD)))
-        pos = mi.pos
-        total_len = (int(seq_off64[-1]) + int(seq_len[-1]) if len(S) else 0)
-        if total_len < (1 << 31):
-            pos_fmt = 1
-        elif total_len < (1 << 32) - 1:
-            pos_fmt = 2      # GRCh38 scale: strand in a side bitmap
-        else:
-            pos_fmt = 0
-        if force_pos_fmt is not None:
-            pos_fmt = force_pos_fmt
-        if pos_fmt not in (1, 2):
-            raise NotImplementedError(
-                f"pos_fmt {pos_fmt} (genomes of 2^32 bases or more)")
+                  force_s_fmt: int | None = None, cache: str | None = None):
+        """Build the device index from a host MiniIndex with the layout
+        rules of the JAX DeviceIndex.from_host (one shard).  ``cache``
+        names an .npz file of the JAX package's format: loaded when it
+        exists and loads (any failure rebuilds), written after a build."""
+        # as in the JAX package, a cache that does not load is rebuilt and
+        # one that cannot be written is skipped: the cache only saves time
+        if cache and os.path.exists(cache):
+            try:
+                return cls._load_cache(cache, device)
+            except Exception:
+                pass
+        leaves, aux = host_layout(mi, force_pos_fmt, force_s_fmt)
+        di = cls.from_numpy(leaves, aux, device)
+        if cache:
+            try:
+                cls._save_cache(cache, leaves, aux)
+            except Exception:
+                pass
+        return di
+
+    @classmethod
+    def _save_cache(cls, path, leaves: dict, aux: dict):
+        arrs = {f"s0_{n}": np.asarray(leaves[n]) for n in cls.LEAVES
+                if leaves.get(n) is not None}
+        arrs["meta"] = np.array([1] + [int(aux[a]) for a in cls.AUX],
+                                np.int64)
+        np.savez(path, **arrs)
+
+    @classmethod
+    def _load_cache(cls, path, device=None):
+        with np.load(path) as z:
+            meta = z["meta"]
+            leaves = {n: z[f"s0_{n}"] for n in cls.LEAVES
+                      if f"s0_{n}" in z.files}
+        if int(meta[0]) != 1:
+            raise ValueError("shard count mismatch")
+        if len(meta) != 1 + len(cls.AUX):
+            raise ValueError("cache from an older layout")
+        aux = {a: int(v) for a, v in zip(cls.AUX, meta[1:])}
+        if aux["probe_win"] and "krows" not in leaves:
+            raise ValueError("cache predates the krows layout")
+        if aux["h2r_nb"] and "h2r" not in leaves:
+            raise ValueError("cache predates the h2r layout")
+        return cls.from_numpy(leaves, aux, device)
+
+
+def host_layout(mi, force_pos_fmt: int | None = None,
+                force_s_fmt: int | None = None):
+    """The device index's NumPy leaves (the JAX DeviceIndex's dtypes) and
+    aux ints from a host MiniIndex, by the rules of the JAX from_host with
+    one shard: the h2r table unless MM2TPU_H2R=0 or the index is empty;
+    else the h2 table when the host library builds (grown by 15% until no
+    key overflows); else the bucket table over the sorted keys, probed
+    through krows when no bucket holds more than 25 keys.  pos_fmt 1 below
+    2^31 bases, 2 below 2^32 - 1, else 0; s_fmt 1 from 1.6 Gb, at pos_fmt
+    2, or with MM2TPU_PACK_S=1."""
+    K = len(mi.keys)
+    cnts = (mi.starts[1:] - mi.starts[:-1]).astype(np.int32)
+    kpad = (max(1, K) + 63) // 64 * 64      # krows: 64-pair rows
+    S = np.ascontiguousarray(mi.S if mi.S is not None
+                             else np.zeros(1, np.uint8))
+    seq_off64 = np.array([s.offset for s in mi.seq] or [0], np.uint64)
+    seq_off = seq_off64.astype(np.uint32).view(np.int32)
+    seq_len = np.array([s.length for s in mi.seq] or [0], np.int32)
+    ppad = max(1, int(mi.starts[K] - mi.starts[0]))
+    bb = min(26, max(4, int(math.ceil(math.log2(max(K, 2)))) + 2))
+    key_bits = 2 * mi.k
+    shift = max(0, key_bits - bb)
+    use_h2r = K > 0 and os.environ.get("MM2TPU_H2R", "1") != "0"
+    use_h2 = not use_h2r and K > 0 and native.available()
+    key32 = key_bits < 32
+    h2_slots = 4 if key32 else 8
+    p0 = int(mi.starts[0]) if K else 0
+    p1 = int(mi.starts[K]) if K else 0
+    h2 = h2r = krows = None
+    h2_nb = h2r_nb = 0
+    if use_h2r:
+        h2r, h2r_nb = build_h2rows_np(
+            mi.keys, (mi.starts[:-1] - p0).astype(np.int64), cnts, key_bits,
+            nb0=max(64, -(-K // H2R_LOAD)))
+    elif use_h2:
+        # mulhi over a bucket count that is not a power of two; grow 15%
+        # while any key overflows both of its buckets
+        h2_nb = max(64, int(math.ceil(K / (h2_slots * 0.85))))
+        rel = (mi.starts - p0).astype(np.int64)
+        while True:
+            h2, ov = native.build_hash2_table(mi.keys, rel, h2_nb, h2_slots,
+                                              key32, mulhi=True)
+            if ov == 0:
+                break
+            h2_nb = int(h2_nb * 1.15) + 1
+    if use_h2r or use_h2:
+        keys2 = np.full((1, 2), 0xFFFFFFFF, np.uint32)
+        sc2 = np.zeros((1, 2), np.int32)
+        bstart = np.zeros(2, np.int32)
+        n_probe, probe_win = 1, 0
+    else:
+        keys = np.full(kpad, UMAX64, np.uint64)
+        keys[:K] = mi.keys
+        keys2 = np.empty((kpad, 2), np.uint32)
+        keys2[:, 0] = (keys >> np.uint64(32)).astype(np.uint32)
+        keys2[:, 1] = keys.astype(np.uint32)
+        nb = 1 << min(bb, key_bits)
+        bstart = np.searchsorted(
+            mi.keys.astype(np.uint64) >> np.uint64(shift),
+            np.arange(nb + 1, dtype=np.uint64)).astype(np.int32)
+        sc2 = np.zeros((kpad, 2), np.int32)
+        sc2[:K, 0] = (mi.starts[:K] - p0).astype(np.int32)
+        sc2[:K, 1] = cnts
+        bmax = int(np.diff(bstart).max()) if len(bstart) > 1 else 1
+        n_probe = max(1, int(math.ceil(math.log2(bmax + 1))))
+        probe_win = 2 if (bmax <= 25 and kpad >= 128) else 0
+        if probe_win:       # (kpad, 2) row-major = [hi0, lo0, hi1, ...]
+            krows = keys2.reshape(-1, 128)
+    pos = mi.pos[p0:p1]
+    total_len = (int(seq_off64[-1]) + int(seq_len[-1]) if len(S) else 0)
+    if total_len < (1 << 31):
+        pos_fmt = 1
+    elif total_len < (1 << 32) - 1:
+        pos_fmt = 2      # GRCh38 scale: strand in a side bitmap
+    else:
+        pos_fmt = 0
+    if force_pos_fmt is not None:
+        pos_fmt = force_pos_fmt
+    pstrand = None
+    if pos_fmt:
         rid_h = (pos >> np.uint64(32)).astype(np.int64)
         rp_h = (pos & np.uint64(0xFFFFFFFF)).astype(np.uint32)
         goff = seq_off64.astype(np.uint32)[
             np.clip(rid_h, 0, len(seq_off64) - 1)]
-        ppad = max(1, len(pos))
         pos2 = np.zeros(ppad, np.uint32)
-        pstrand = None
         if pos_fmt == 1:
             pos2[:len(pos)] = rp_h + (goff << np.uint32(1))
         else:
@@ -346,28 +485,30 @@ class DeviceIndex(nn.Module):
             sbits[:len(pos)] = (rp_h & np.uint32(1)).astype(np.uint8)
             pstrand = np.packbits(sbits.reshape(-1, 8), axis=-1,
                                   bitorder="little")[:, 0]
-        s_fmt = 1 if (len(S) >= int(1.6e9) or pos_fmt == 2) else 0
-        if force_s_fmt is not None:
-            s_fmt = force_s_fmt
-        rtab = build_rtab_np(seq_off64, total_len)
-        leaves = {"h2r": rows, "pos2": pos2, "pstrand": pstrand,
-                  "S": _pack_s4(S) if s_fmt else S,
-                  "seq_off": seq_off64.astype(np.uint32).view(np.int32),
-                  "seq_len": seq_len, "rtab": rtab}
-        aux = {"key_shift": max(0, key_bits - bb), "n_probe": 1,
-               "h2_bits": 0, "h2_slots": 4 if key_bits < 32 else 8,
-               "pos_fmt": pos_fmt, "h2_nb": 0, "s_fmt": s_fmt,
-               "probe_win": 0, "h2r_nb": nb, "key_bits": key_bits,
-               "rtab_on": 0 if rtab is None else 1}
-        return cls.from_numpy(leaves, aux, device)
+    else:
+        # two planes: rid, and rpos << 1 | strand
+        pos2 = np.zeros((ppad, 2), np.int32)
+        pos2[:len(pos), 0] = (pos >> np.uint64(32)).astype(np.int32)
+        pos2[:len(pos), 1] = (pos & np.uint64(0xFFFFFFFF)).astype(np.int32)
+    s_fmt = 1 if (len(S) >= int(1.6e9) or pos_fmt == 2
+                  or os.environ.get("MM2TPU_PACK_S") == "1") else 0
+    if force_s_fmt is not None:
+        s_fmt = force_s_fmt
+    rtab = build_rtab_np(seq_off64, total_len) if pos_fmt else None
+    leaves = {"keys2": keys2, "sc2": sc2, "pos2": pos2,
+              "S": _pack_s4(S) if s_fmt else S, "seq_off": seq_off,
+              "seq_len": seq_len, "bucket_start": bstart, "h2": h2,
+              "pstrand": pstrand, "krows": krows, "h2r": h2r, "rtab": rtab}
+    aux = {"key_shift": shift, "n_probe": n_probe, "h2_bits": 0,
+           "h2_slots": h2_slots, "pos_fmt": pos_fmt, "h2_nb": h2_nb,
+           "s_fmt": s_fmt, "probe_win": probe_win, "h2r_nb": h2r_nb,
+           "key_bits": key_bits, "rtab_on": 0 if rtab is None else 1}
+    return leaves, aux
 
 
 # ---------------------------------------------------------------------------
 # seeding
 # ---------------------------------------------------------------------------
-
-KEY_NONE = 0x7FFFFFFF       # compaction key of a non-minimizer lane
-
 
 def _compact_minimizers(hhi, hlo, strand, is_mini, M: int):
     """Select up to M minimizer positions per read, in position order:
@@ -377,9 +518,10 @@ def _compact_minimizers(hhi, hlo, strand, is_mini, M: int):
     code masks the rest with mvalid.
 
     Past 16384 lanes (the JAX package's one-key lax.sort, batch.py:833-838)
-    the key plane alone goes through sort1_rows and the hash pair is
-    gathered at each sorted key's position: the keys are unique, so the
-    valid lanes are the JAX package's; invalid lanes hold hash 0."""
+    the key plane alone goes through sort1 (past 32768 lanes in chunks,
+    ``sort1_ascending``) and the hash pair is gathered at each sorted key's
+    position: the keys are unique, so the valid lanes are the JAX
+    package's; invalid lanes hold hash 0."""
     B, L = hhi.shape
     A = 1 << (max(L, M) - 1).bit_length()                 # pad to pow2
     posi = torch.arange(L, device=hhi.device, dtype=torch.int32)[None, :]
@@ -390,7 +532,7 @@ def _compact_minimizers(hhi, hlo, strand, is_mini, M: int):
             return torch.cat([x, x.new_full((B, A - L), v)], dim=1)
         key, hhi, hlo = pad(key, KEY_NONE), pad(hhi, 0), pad(hlo, 0)
     if A > MAX_WIDTH:
-        skey = sort1_rows(key)[:, :M]
+        skey = sort1_ascending(key, keep=M)
         live = skey != KEY_NONE
         at = torch.where(live, skey >> 1, 0).to(torch.int64)
         mh_hi, mh_lo = (torch.where(live, torch.gather(x, 1, at), 0)
@@ -410,7 +552,8 @@ def _compact_minimizers(hhi, hlo, strand, is_mini, M: int):
 
 def hpc_compact(codes, lens):
     """Homopolymer-run compression (sketch.c:94-105 HPC mode), the sort1
-    route of the JAX package's hpc_compact (batch.py:873-910).  Each run
+    route of the JAX package's hpc_compact (batch.py:873-910), past 32768
+    lanes in chunks (``sort1_ascending``).  Each run
     contributes one symbol at the position of its LAST base.  Returns
     (hcodes (B, L) uint8, 4 past the compacted read; hpos (B, L) int32 run
     end positions in the read, L past the compacted read; lc (B,) int32
@@ -428,16 +571,16 @@ def hpc_compact(codes, lens):
     key = torch.where(run_end, posi, KEY_NONE)
     if A > L:
         key = torch.cat([key, key.new_full((B, A - L), KEY_NONE)], dim=1)
-    hpos = torch.clamp(sort1_rows(key)[:, :L], max=L)
+    hpos = torch.clamp(sort1_ascending(key, keep=L), max=L)
     hcodes = torch.where(hpos < L, torch.gather(
         c32, 1, torch.clamp(hpos, max=L - 1).to(torch.int64)), 4)
     return hcodes.to(torch.uint8), hpos, lc
 
 
-def _probe_h2r(di: DeviceIndex, mh_hi, mh_lo, mvalid, occ_cap: int):
-    """The h2r probe: two row gathers per minimizer -> (start, cnt, flt)
-    with cnt zeroed above the occurrence cap and flt marking seeds the
-    cap filtered.  Gathers stay int32 ((B, M, 128) words each)."""
+def _probe_h2r(di: DeviceIndex, mh_hi, mh_lo, mvalid):
+    """The h2r probe: two row gathers per minimizer.  Gathers stay int32
+    ((B, M, 128) words each).  Each probe returns (start, cnt_raw,
+    found)."""
     lo, hi = u32(mh_lo), u32(mh_hi)
     nb = di.h2r_nb
     b1 = _mulhi_u32((lo * 2654435769) & M32, nb)
@@ -461,7 +604,6 @@ def _probe_h2r(di: DeviceIndex, mh_hi, mh_lo, mvalid, occ_cap: int):
         found = (fa | fb) & mvalid
         start = torch.where(found, w1v & 0x0FFFFFFF, 0)
         cnt_raw = ((w0v >> 30) << 4) | (w1v >> 28)
-        occ_eff = min(occ_cap, H2R2_OCC_CAP)
     else:
         # stride-4 rows: slot s = [key_sel, aux, start, cnt]
         wide = di.key_bits >= 32
@@ -479,20 +621,133 @@ def _probe_h2r(di: DeviceIndex, mh_hi, mh_lo, mvalid, occ_cap: int):
         found = (hits[0] | hits[1]) & mvalid
         start = torch.where(found, torch.maximum(*starts), 0)
         cnt_raw = torch.maximum(*cnts)
-        occ_eff = occ_cap
-    cnt = torch.where(found & (cnt_raw <= occ_eff), cnt_raw, 0)
-    flt = found & (cnt_raw > occ_eff)
-    return start.to(torch.int32), cnt.to(torch.int32), flt
+    return start, cnt_raw, found
+
+
+def _lt64(ahi, alo, bhi, blo):
+    """(ahi, alo) < (bhi, blo) on u32 values held in int64."""
+    return (ahi < bhi) | ((ahi == bhi) & (alo < blo))
+
+
+def _probe_h2(di: DeviceIndex, mh_hi, mh_lo, mvalid):
+    """The h2 probe: the rows of both candidate buckets, [key_lo, start,
+    cnt] slots (keys < 2^32) or [key_hi, key_lo, start, cnt]; buckets by
+    mulhi over h2_nb, or by the legacy 2^h2_bits mask."""
+    lo, hi = u32(mh_lo), u32(mh_hi)
+    S_ = di.h2_slots
+    key32 = di.h2.shape[1] == S_ * 3
+    st = 3 if key32 else 4
+    k11 = ((((lo >> 11) | (hi << 21)) & M32) * 2654435761) & M32
+    if di.h2_nb:
+        b1 = _mulhi_u32((lo * 2654435769) & M32, di.h2_nb)
+        b2 = _mulhi_u32(k11, di.h2_nb)
+    else:
+        mask = (1 << di.h2_bits) - 1
+        b1, b2 = lo & mask, (k11 >> 7) & mask
+    B, M = mh_lo.shape
+    t = torch.cat([di.h2[b1], di.h2[b2]], dim=-1).view(B, M, 2 * S_, st)
+    if key32:
+        hit = t[..., 0] == mh_lo[..., None]
+    else:
+        hit = (t[..., 0] == mh_hi[..., None]) & (t[..., 1] == mh_lo[..., None])
+    found = hit.any(-1) & mvalid
+    start = torch.where(found, torch.where(hit, t[..., st - 2], 0).amax(-1), 0)
+    cnt_raw = torch.where(hit, t[..., st - 1], 0).amax(-1)
+    return start, cnt_raw, found
+
+
+def _bucket_of(di: DeviceIndex, mh_hi, mh_lo):
+    """Bucket of each key in bucket_start: key >> key_shift (low word)."""
+    key = (u32(mh_hi) << 32) | u32(mh_lo)
+    return torch.clamp((key >> di.key_shift) & M32, 0,
+                       di.bucket_start.shape[0] - 2)
+
+
+def _probe_krows(di: DeviceIndex, mh_hi, mh_lo, mvalid):
+    """The windowed krows probe: a bucket's keys are contiguous in the
+    sorted keys and at most 25, so the two 64-pair rows from the row of
+    bucket_start[b] hold them all; the first equal lane (argmax) gives the
+    key's index into sc2."""
+    RK, KP = di.krows.shape[0], di.sc2.shape[0]
+    B, M = mh_lo.shape
+    lo0 = di.bucket_start[_bucket_of(di, mh_hi, mh_lo)]
+    row = torch.clamp(lo0 >> 6, 0, RK - 2).to(torch.int64)
+    eq = []
+    for r in (row, row + 1):
+        kr = di.krows[r].view(B, M, 64, 2)
+        eq.append((kr[..., 0] == mh_hi[..., None])
+                  & (kr[..., 1] == mh_lo[..., None]))
+    eq = torch.cat(eq, dim=-1)                                # (B, M, 128)
+    found = eq.any(-1) & mvalid
+    lane = torch.argmax(eq.to(torch.uint8), dim=-1)
+    sv = di.sc2[torch.clamp(row * 64 + lane, max=KP - 1)]
+    return torch.where(found, sv[..., 0], 0), sv[..., 1], found
+
+
+def _probe_sorted(di: DeviceIndex, mh_hi, mh_lo, mvalid):
+    """The binary search over keys2: within the key's bucket in n_probe
+    steps when bucket_start is there, else over all keys in
+    bit_length(K + 1) steps (the JAX package's searchsorted_u64pair)."""
+    K = di.keys2.shape[0]
+    qhi, qlo = u32(mh_hi), u32(mh_lo)
+    if di.bucket_start is not None:
+        bkt = _bucket_of(di, mh_hi, mh_lo)
+        lo_ = di.bucket_start[bkt].to(torch.int64)
+        hi_ = di.bucket_start[bkt + 1].to(torch.int64)
+        steps = di.n_probe
+    else:
+        lo_ = torch.zeros_like(qhi)
+        hi_ = torch.full_like(qhi, K)
+        steps = max(1, (K + 1).bit_length())
+    for _ in range(steps):
+        mid = (lo_ + hi_) >> 1
+        kv = di.keys2[torch.clamp(mid, 0, K - 1)]
+        less = _lt64(u32(kv[..., 0]), u32(kv[..., 1]), qhi, qlo) & (mid < hi_)
+        lo_ = torch.where(less, mid + 1, lo_)
+        hi_ = torch.where(less, hi_, mid)
+    idx = torch.clamp(lo_, max=K - 1)
+    kv = di.keys2[idx]
+    found = (kv[..., 0] == mh_hi) & (kv[..., 1] == mh_lo) & mvalid
+    sv = di.sc2[idx]
+    return torch.where(found, sv[..., 0], 0), sv[..., 1], found
+
+
+def probe_layout(di: DeviceIndex) -> str:
+    """The probe the index's tables select, in the JAX package's order."""
+    if di.h2r is not None:
+        return "h2r"
+    if di.h2 is not None:
+        return "h2"
+    if di.bucket_start is not None and di.probe_win and di.krows is not None:
+        return "krows"
+    return "bucket" if di.bucket_start is not None else "searchsorted"
+
+
+def probe_seeds(di: DeviceIndex, mh_hi, mh_lo, mvalid, occ_cap: int):
+    """Seed lookup (seed.c:30-52) through the index's probe -> (start,
+    cnt, flt): each minimizer's run in pos2, cnt zeroed above the
+    occurrence cap (mid_occ: such seeds are skipped, not truncated), flt
+    marking the seeds the cap filtered."""
+    layout = probe_layout(di)
+    probe = {"h2r": _probe_h2r, "h2": _probe_h2,
+             "krows": _probe_krows}.get(layout, _probe_sorted)
+    start, cnt_raw, found = probe(di, mh_hi, mh_lo, mvalid)
+    if layout == "h2r" and di.h2r.shape[1] == 2 * H2R_SLOTS:
+        # stride-2 rows clamp a count at 63
+        occ_cap = min(occ_cap, H2R2_OCC_CAP)
+    cnt = torch.where(found & (cnt_raw <= occ_cap), cnt_raw, 0)
+    return (start.to(torch.int32), cnt.to(torch.int32),
+            found & (cnt_raw > occ_cap))
 
 
 def _lookup_anchors(di: DeviceIndex, mh_hi, mh_lo, mz, mpos, mvalid, qlen,
                     p: BatchParams, mspan=None):
-    """Seed lookup + anchor expansion (seed.c:30-52, map.c:168-204): the
-    h2r branch of the JAX package's _lookup_anchors.  mspan is the (B, M)
+    """Seed lookup + anchor expansion (seed.c:30-52, map.c:168-204), the
+    JAX package's _lookup_anchors with every probe.  mspan is the (B, M)
     query span of each minimizer (k unless HPC).  Returns int32 anchor
     planes sorted by (rev, rid, rpos, qpos) -- rev, rid, rpos, qpos, span
     -- the valid mask, and the per-read rep_len."""
-    start, cnt, flt = _probe_h2r(di, mh_hi, mh_lo, mvalid, p.occ_cap)
+    start, cnt, flt = probe_seeds(di, mh_hi, mh_lo, mvalid, p.occ_cap)
     if mspan is None:
         mspan = torch.full_like(mpos, p.k)
     return _expand_anchors(di, start, cnt, flt, mz, mpos, mspan, qlen, p)
@@ -571,16 +826,24 @@ def _expand_anchors(di: DeviceIndex, start, cnt, flt, mz, mpos, mspan, qlen,
         return torch.gather(x, 1, seed_of)
     pidx = torch.clamp(g(start) + (slot - g(offs)), 0, di.pos2.shape[0] - 1) \
         .to(torch.int64)
-    pv1 = u32(di.pos2[pidx])
-    if di.pos_fmt == 1:
-        gpos_u = pv1 >> 1
-        rstrand = pv1 & 1
+    if di.pos_fmt == 0:
+        # two planes: [rid, rpos << 1 | strand]
+        pv = di.pos2[pidx]
+        rid = pv[..., 0].to(torch.int64)
+        rpos_u = (pv[..., 1] >> 1).to(torch.int64)
+        rstrand = (pv[..., 1] & 1).to(torch.int64)
     else:
-        gpos_u = pv1
-        sb = di.pstrand[torch.clamp(pidx >> 3, max=di.pstrand.shape[0] - 1)]
-        rstrand = (sb.to(torch.int64) >> (pidx & 7)) & 1
-    rid, off_sel = _rid_of(di, gpos_u)
-    rpos_u = (gpos_u - off_sel) & M32
+        pv1 = u32(di.pos2[pidx])
+        if di.pos_fmt == 1:
+            gpos_u = pv1 >> 1
+            rstrand = pv1 & 1
+        else:
+            gpos_u = pv1
+            sb = di.pstrand[torch.clamp(pidx >> 3,
+                                        max=di.pstrand.shape[0] - 1)]
+            rstrand = (sb.to(torch.int64) >> (pidx & 7)) & 1
+        rid, off_sel = _rid_of(di, gpos_u)
+        rpos_u = (gpos_u - off_sel) & M32
     qz, qpos, span = g(mz), g(mpos), g(mspan)
     same = rstrand == qz
     rev = (~same).to(torch.int64)

@@ -4,17 +4,23 @@ minimap2_tpu.parallel.devbuild).
 The host build (index/index.py) sketches with NumPy in a process pool:
 ~0.3 s a megabase, so a 3.1 Gb genome does not fit a run.  Here the whole
 build -- sketch, genome-scale (key, pos) sort, distinct-key compaction and
-the h2r table -- runs on the device, and the finished DeviceIndex never
+the probe table -- runs on the device, and the finished DeviceIndex never
 leaves it; only scalars (counts, mid_occ) come back to the host.
 
-Layout produced: the h2r DeviceIndex that parallel/batch.py probes --
-  h2r  (NB, 64 * stride) u32  the payload-fused 2-choice bucket table
+Layouts produced (the DeviceIndex of parallel/batch.py), as the JAX
+package chooses them:
+  h2r  (NB, 64 * stride) u32  the payload-fused 2-choice bucket table,
+       when the memory plan admits it (in one piece, or chunked) and it
+       builds; otherwise (MM2TPU_DEVBUILD_H2R=0, both plans over their
+       bounds, five overflowing tries or a chunked build that fails)
+  krows (K/64, 128) u32 + sc2 (K, 2) i32 + bucket_start (2^bb + 1,) i32
+       the windowed probe over the sorted keys, bb grown until no bucket
+       holds more than 25 keys (keys2 (K, 2) u32 in place of krows if one
+       still does)
   pos2 (NPAD,) u32  sorted by (key, pos): pos_fmt 1 = global_pos << 1 |
                     strand, pos_fmt 2 = global_pos (strand in pstrand)
   S    nt4 codes with OV-wide separators between sequences (s_fmt 0: a
        code a byte; s_fmt 1 for pos_fmt 2: two codes a byte)
-The JAX package's fallback layout (krows + bucket table) is not ported:
-where it would take that route this module raises NotImplementedError.
 
 Chunking: a position's minimizer flag depends only on codes [p - k - w +
 2, p + w - 1].  Sequences are laid end to end with OV = k + 2w - 3
@@ -51,8 +57,6 @@ from .batch import (H2R_LOAD, H2R_SLOTS, DeviceIndex, _mulhi_u32,
 
 UMAX = -1                   # 0xFFFFFFFF as an int32 bit pattern
 I64_MAX = (1 << 63) - 1     # above every (hi << 32 | lo) hash of 2k <= 56
-KROWS_ROUTE = ("the krows / bucket-table index layout is not ported "
-              "(ROADMAP Queue 1 item 8): the port probes the h2r table only")
 
 
 @dataclass
@@ -365,8 +369,8 @@ def _h2r_pass2(keys2, sc2, flat, occ, mvbuf, mv_n: int, *, NB, key_bits,
 def _build_h2r_chunked(keys2, sc2, K: int, KPAD: int, key_bits: int,
                        stride2: bool, NB0: int):
     """GRCh38-scale h2r build, O(CK) temporaries instead of the monolithic
-    KPAD-scale rank sort.  Returns (rows, NB) or (None, 0) after three
-    table sizes."""
+    KPAD-scale rank sort.  Returns (rows, NB), or (None, 0) after three
+    table sizes or when the device runs out of memory."""
     dev = keys2.device
     stw = 2 if stride2 else 4
     ROWW = stw * H2R_SLOTS
@@ -377,24 +381,44 @@ def _build_h2r_chunked(keys2, sc2, K: int, KPAD: int, key_bits: int,
     CAPM = _round_up(max(KPAD // 16, 1 << 20), 1 << 20)
     NB = NB0
     for _ in range(3):
-        flat = torch.full((NB * ROWW,), UMAX, dtype=torch.int32, device=dev)
-        occ = torch.zeros(NB + 1, dtype=torch.int64, device=dev)
-        mvbuf = torch.full((CAPM,), -1, dtype=torch.int64, device=dev)
-        mv_n = 0
-        for off in range(0, KPAD, CK):
-            mv_n += _h2r_chunk(keys2, sc2, flat, occ, mvbuf, mv_n, off, K,
-                               NB=NB, CK=CK, CKM=CKM, key_bits=key_bits,
-                               stride2=stride2)
-            if mv_n > CAPM - CKM:
-                break
-        else:
-            n_ov = _h2r_pass2(keys2, sc2, flat, occ, mvbuf, mv_n, NB=NB,
-                              key_bits=key_bits, stride2=stride2)
-            if n_ov <= max(0, K // 1_000_000):
-                return flat.view(NB, ROWW), NB
+        try:
+            flat = torch.full((NB * ROWW,), UMAX, dtype=torch.int32,
+                              device=dev)
+            occ = torch.zeros(NB + 1, dtype=torch.int64, device=dev)
+            mvbuf = torch.full((CAPM,), -1, dtype=torch.int64, device=dev)
+            mv_n = 0
+            for off in range(0, KPAD, CK):
+                mv_n += _h2r_chunk(keys2, sc2, flat, occ, mvbuf, mv_n, off,
+                                   K, NB=NB, CK=CK, CKM=CKM,
+                                   key_bits=key_bits, stride2=stride2)
+                if mv_n > CAPM - CKM:
+                    break
+            else:
+                n_ov = _h2r_pass2(keys2, sc2, flat, occ, mvbuf, mv_n, NB=NB,
+                                  key_bits=key_bits, stride2=stride2)
+                if n_ov <= max(0, K // 1_000_000):
+                    return flat.view(NB, ROWW), NB
+        except torch.OutOfMemoryError:
+            return None, 0      # the krows probe instead
         del flat, occ, mvbuf
         NB = int(NB * 1.12) + 1
     return None, 0
+
+
+def _bucket_table(keys2, K: int, *, bb: int, shift: int):
+    """bucket_start[b] = the first distinct-key row whose key >> shift is
+    >= b, over 2^bb buckets (the JAX package's scatter-min and reverse
+    cummin); returns it (int32) and the largest bucket's key count."""
+    dev = keys2.device
+    KPAD = keys2.shape[0]
+    NBK = 1 << bb
+    pad = torch.arange(KPAD, device=dev) >= K
+    key = (torch.where(pad, 0, u32(keys2[:, 0])) << 32) | u32(keys2[:, 1])
+    b_of = torch.where(pad, NBK, torch.clamp(key >> shift, max=NBK))
+    bs = torch.full((NBK + 1,), K, dtype=torch.int64, device=dev)
+    bs.scatter_reduce_(0, b_of, torch.arange(KPAD, device=dev), "amin")
+    bs = torch.flip(torch.cummin(torch.flip(bs, [0]), 0).values, [0])
+    return bs.to(torch.int32), int(torch.diff(bs).max())
 
 
 def build_device_index(names, codes_list, w: int, k: int,
@@ -402,15 +426,13 @@ def build_device_index(names, codes_list, w: int, k: int,
                        occ_frac: float = 2e-4, device=None,
                        force_pos_fmt: int | None = None,
                        consume: bool = False):
-    """Build the h2r DeviceIndex on ``device`` (CUDA unless named) from nt4
-    code arrays (NumPy, or uint8 tensors on any device).  Returns
-    (DeviceIndex, DevBuildMeta).  On CUDA the sketch runs the kernel; on
-    the CPU its plain version.  consume=True drops each of the caller's
-    contigs (the list entry) once it is copied, so a genome-sized list
-    and the flat genome are not both held.  Raises NotImplementedError
-    where the JAX package would build the krows layout: with
-    MM2TPU_DEVBUILD_H2R=0, when the planned h2r build would not fit its
-    memory plan, or when it fails its table sizes."""
+    """Build the DeviceIndex on ``device`` (CUDA unless named) from nt4
+    code arrays (NumPy, or uint8 tensors on any device): the h2r layout,
+    or the krows layout where the JAX package takes it (module
+    docstring).  Returns (DeviceIndex, DevBuildMeta).  On CUDA the sketch
+    runs the kernel; on the CPU its plain version.  consume=True drops each
+    of the caller's contigs (the list entry) once it is copied, so a
+    genome-sized list and the flat genome are not both held."""
     dev = resolve_device(device)
     if 2 * k > 56:
         raise ValueError("device build supports k <= 28")
@@ -506,8 +528,6 @@ def build_device_index(names, codes_list, w: int, k: int,
                      and mono_peak < 12.0e9)
     plan_chunk = bool(K and env != "0" and not plan_mono
                       and chunk_peak < 14.0e9)
-    if not (plan_mono or plan_chunk):
-        raise NotImplementedError(KROWS_ROUTE)
     keys2, sc2, chist = _compact(keys_s, khi_s, neq, N, KPAD=KPAD,
                                  NPAD=NPAD, wide=wide)
     pos2 = pos_s
@@ -518,12 +538,15 @@ def build_device_index(names, codes_list, w: int, k: int,
     if plan_chunk:
         h2r, h2r_nb = _build_h2r_chunked(keys2, sc2, K, KPAD, key_bits,
                                          stride2, NBH)
-    else:
+    elif plan_mono:
         CAPM = _round_up(max(KPAD // 16, 1 << 20), 1 << 20)
         for _ in range(5):
-            rows, n_ov, n_mv = _h2rows_try(keys2, sc2, K, NB=NBH, CAPM=CAPM,
-                                           key_bits=key_bits,
-                                           stride2=stride2)
+            try:
+                rows, n_ov, n_mv = _h2rows_try(keys2, sc2, K, NB=NBH,
+                                               CAPM=CAPM, key_bits=key_bits,
+                                               stride2=stride2)
+            except torch.OutOfMemoryError:
+                break       # out of memory at the margin: the krows probe
             # a residual overflow of <= 1e-6 of the keys is dropped (those
             # minimizers never match); more grows the table
             if n_mv <= CAPM and n_ov <= max(0, K // 1_000_000):
@@ -531,14 +554,38 @@ def build_device_index(names, codes_list, w: int, k: int,
                 break
             del rows
             NBH = int(NBH * 1.15) + 1
-    if h2r is None:
-        raise NotImplementedError(KROWS_ROUTE)
-    del keys2, sc2
-    mark("h2r")
+    if h2r is not None:
+        # the payload probe reads h2r only: keys2/sc2 become placeholders
+        bs = torch.zeros(2, dtype=torch.int32, device=dev)
+        shift, probe_win, n_probe, krows = 0, 0, 1, None
+        keys2 = torch.full((1, 2), UMAX, dtype=torch.int32, device=dev)
+        sc2 = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    else:
+        # the krows probe: grow bb until no bucket holds more than 25 keys
+        bb = min(26, max(4, int(math.ceil(math.log2(max(K, 2)))) + 2),
+                 key_bits)
+        while True:
+            shift = max(0, key_bits - bb)
+            bs, bmax = _bucket_table(keys2, K, bb=bb, shift=shift)
+            if bmax <= 25 or bb >= min(28, key_bits):
+                break
+            bb += 1
+        probe_win = 2 if (bmax <= 25 and KPAD >= 128) else 0
+        n_probe = max(1, int(math.ceil(math.log2(bmax + 1))))
+        krows = None
+        if probe_win:
+            # 64 interleaved (hi, lo) pairs a row; the window probe reads
+            # krows and sc2 only, so keys2 becomes a placeholder
+            krows = keys2.reshape(-1, 128)
+            keys2 = torch.full((1, 2), UMAX, dtype=torch.int32, device=dev)
+    mark("h2r" if h2r is not None else "krows")
     # mid_occ = (k-th smallest count) + 1, read off the histogram
-    kk = min(int((1.0 - occ_frac) * K), K - 1)
-    cum_real = chist.cpu().numpy() - (KPAD - K)     # pad rows sit in bin 0
-    mid_occ = int(np.searchsorted(cum_real, kk + 1, side="left")) + 1
+    if K:
+        kk = min(int((1.0 - occ_frac) * K), K - 1)
+        cum_real = chist.cpu().numpy() - (KPAD - K)  # pad rows sit in bin 0
+        mid_occ = int(np.searchsorted(cum_real, kk + 1, side="left")) + 1
+    else:
+        mid_occ = (1 << 31) - 1
     pstrand = None
     if fmt2:
         # strand plane -> little-bit-order bitmap (bit j of byte b =
@@ -553,15 +600,17 @@ def build_device_index(names, codes_list, w: int, k: int,
     del str_s
     rtab = build_rtab_np(np.asarray(seq_off, np.int64), int(total_sep))
     tables = {
+        "keys2": keys2, "sc2": sc2, "bucket_start": bs, "krows": krows,
         "h2r": h2r, "pos2": pos2, "pstrand": pstrand, "S": S,
         "seq_off": torch.from_numpy(seq_off.astype(np.uint32)
                                     .view(np.int32)).to(dev),
         "seq_len": torch.from_numpy(lens.astype(np.int32)).to(dev),
         "rtab": None if rtab is None
         else torch.from_numpy(rtab.view(np.int32)).to(dev)}
-    aux = {"key_shift": 0, "n_probe": 1, "h2_bits": 0, "h2_slots": 8,
-           "pos_fmt": 2 if fmt2 else 1, "h2_nb": 0, "s_fmt": 1 if fmt2 else 0,
-           "probe_win": 0, "h2r_nb": h2r_nb, "key_bits": key_bits,
+    aux = {"key_shift": shift, "n_probe": n_probe, "h2_bits": 0,
+           "h2_slots": 8, "pos_fmt": 2 if fmt2 else 1, "h2_nb": 0,
+           "s_fmt": 1 if fmt2 else 0, "probe_win": probe_win,
+           "h2r_nb": h2r_nb, "key_bits": key_bits,
            "rtab_on": 0 if rtab is None else 1}
     di = DeviceIndex.from_tensors(tables, aux)
     mark("finish")
@@ -575,14 +624,21 @@ def build_device_index(names, codes_list, w: int, k: int,
 def host_tables(di: DeviceIndex, meta: DevBuildMeta):
     """The index's tables copied to the host in MiniIndex coordinates, to
     hold a device build against a host build: (keys, starts, counts, y) --
-    the sorted keys the h2r table holds (all n_distinct but the <= 1e-6
-    the build may drop), each key's run start and count in pos2 (counts
-    clamp at 63 in stride-2 rows), and y = rid << 32 | pos << 1 | strand
-    of all n_mini positions.  Reads the whole h2r table and pos2: a check,
-    not a mapping step."""
-    h2r = di.h2r.cpu().numpy().view(np.uint32)
+    the sorted keys the probe table holds (h2r: all n_distinct but the <=
+    1e-6 the build may drop; krows or keys2: every one), each key's run
+    start and count in pos2 (counts clamp at 63 in stride-2 h2r rows), and
+    y = rid << 32 | pos << 1 | strand of all n_mini positions.  Reads the
+    whole probe table and pos2: a check, not a mapping step."""
     K = meta.n_distinct
-    if h2r.shape[1] == 128:             # stride 2
+    if di.h2r is None:
+        kp = (di.krows if di.krows is not None else di.keys2).cpu().numpy()
+        kp = kp.view(np.uint32).reshape(-1, 2)[:K].astype(np.uint64)
+        keys = (kp[:, 0] << np.uint64(32)) | kp[:, 1]
+        sc = di.sc2[:K].cpu().numpy().astype(np.int64)
+        st, cn = sc[:, 0], sc[:, 1]
+        ok = np.ones(len(keys), bool)
+    elif di.h2r.shape[1] == 128:        # stride 2
+        h2r = di.h2r.cpu().numpy().view(np.uint32)
         r = h2r.reshape(-1, 64, 2)
         ok = r[..., 0] != np.uint32(0xFFFFFFFF)
         keys = (r[..., 0][ok] & np.uint32(0x3FFFFFFF)).astype(np.uint64)
@@ -590,6 +646,7 @@ def host_tables(di: DeviceIndex, meta: DevBuildMeta):
         cn = (((r[..., 0][ok] >> np.uint32(30)) << np.uint32(4))
               | (r[..., 1][ok] >> np.uint32(28))).astype(np.int64)
     else:
+        h2r = di.h2r.cpu().numpy().view(np.uint32)
         r = h2r.reshape(-1, 64, 4)
         ok = r[..., 0] != np.uint32(0xFFFFFFFF)
         keys = r[..., 0][ok].astype(np.uint64)
@@ -598,7 +655,8 @@ def host_tables(di: DeviceIndex, meta: DevBuildMeta):
         st = r[..., 2][ok].astype(np.int64)
         cn = r[..., 3][ok].astype(np.int64)
     if not K - max(0, K // 1_000_000) <= int(ok.sum()) <= K:
-        raise ValueError(f"h2r holds {int(ok.sum())} keys of {K}")
+        raise ValueError(f"the probe table holds {int(ok.sum())} keys of "
+                         f"{K}")
     order = np.argsort(keys, kind="stable")
     p = di.pos2.cpu().numpy().view(np.uint32)[:meta.n_mini].astype(np.int64)
     if di.pos_fmt == 1:

@@ -307,7 +307,7 @@ def dispatch_batch(step: PafStep, seqs, p: BatchParams,
         seqs = list(seqs) + [b""] * (tgt - B)
     codes, lens = encode_batch(seqs, p.L)
     packed, nbits = pack_codes(codes)
-    dev = step.di.h2r.device
+    dev = step.di.device
 
     def up(a):
         t = torch.from_numpy(a)
@@ -465,7 +465,7 @@ def map_queries(step: PafStep, mi, queries, out, batch_reads: int,
     dt = time.time() - t0
     print(f"[M::batch] mapped {n_reads} reads in {dt:.2f}s "
           f"({n_reads / max(dt, 1e-9):.1f} reads/s) on "
-          f"{step.di.h2r.device}; host path (reads longer than L): "
+          f"{step.di.device}; host path (reads longer than L): "
           f"{n_host} ({100.0 * n_host / max(n_reads, 1):.1f}%)",
           file=sys.stderr)
     return n_reads

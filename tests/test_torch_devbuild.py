@@ -1,10 +1,11 @@
 """Port device index build (parallel/devbuild.py) vs the JAX package's
 build_device_index (interpret=True: its XLA sketch, no Pallas), tolerance
-0: the h2r table, pos2, S, pstrand, seq_off, seq_len, rtab and the aux
-ints equal, and meta's counts, mid_occ and offsets; the port's tables,
-decoded, equal the port's host MiniIndex; the krows route raises; and a
-PafStep batch through the device-built index gives the JAX step's records
-through the JAX device-built index."""
+0: every table (h2r or krows, keys2, sc2, bucket_start, pos2, S, pstrand,
+seq_off, seq_len, rtab) and aux int equal, and meta's counts, mid_occ and
+offsets; the port's tables, decoded, equal the port's host MiniIndex; the
+krows route (MM2TPU_DEVBUILD_H2R=0, or an h2r build that fails) probes as
+the JAX package's does; and a PafStep batch through the device-built
+index gives the JAX step's records through the JAX device-built index."""
 import numpy as np
 import pytest
 import torch
@@ -12,11 +13,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import minimap2_tpu.parallel.batch as jax_batch
+import minimap2_tpu.parallel.devbuild as jax_devbuild
 import minimap2_tpu.parallel.engine as jax_engine
 from minimap2_tpu.parallel.batch import BatchParams as JaxBatchParams
 from minimap2_tpu.parallel.devbuild import build_device_index as jax_build
 from minimap2_tpu_torch.index.index import MiniIndex
-from minimap2_tpu_torch.parallel import devbuild, engine
+from minimap2_tpu_torch.parallel import batch, devbuild, engine
 from minimap2_tpu_torch.parallel.batch import BatchParams, DeviceIndex
 from minimap2_tpu_torch.parallel.devbuild import build_device_index
 
@@ -33,8 +36,8 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(n)
 
-TABLES = ("h2r", "pos2", "S", "pstrand", "seq_off", "seq_len", "rtab")
-AUX = ("h2r_nb", "pos_fmt", "s_fmt", "key_bits")
+TABLES = DeviceIndex.LEAVES
+AUX = DeviceIndex.AUX
 
 
 def _genome(seed, lens, n_frac=0.0):
@@ -147,11 +150,50 @@ def test_devbuild_several_chunks_matches_jax(monkeypatch):
     assert calls == [(8, 8192)] * 5
 
 
-def test_devbuild_krows_route_raises(monkeypatch):
-    monkeypatch.setenv("MM2TPU_DEVBUILD_H2R", "0")
-    names, seqs = _genome(3, [80_000])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_device_index(names, seqs, 10, 15, device="cpu")
+@pytest.mark.parametrize("case", ["env0", "h2r_fails", "chunk_fails"])
+def test_devbuild_krows_route_matches_jax(monkeypatch, case):
+    """The krows layout, under MM2TPU_DEVBUILD_H2R=0 and when the h2r
+    build fails in both packages (five overflowing tries; the chunked
+    build returning None): the tables equal the JAX build's, decode to the
+    port's host MiniIndex with every key, and _lookup_anchors on them
+    gives the JAX package's anchors (20 contigs: the rid table)."""
+    if case == "env0":
+        monkeypatch.setenv("MM2TPU_DEVBUILD_H2R", "0")
+    elif case == "h2r_fails":
+        for mod in (jax_devbuild, devbuild):
+            monkeypatch.setattr(mod, "_h2rows_try",
+                                lambda *a, **kw: (None, 1 << 40, 0))
+    else:
+        monkeypatch.setenv("MM2TPU_DEVBUILD_H2R", "chunk")
+        for mod in (jax_devbuild, devbuild):
+            monkeypatch.setattr(mod, "_build_h2r_chunked",
+                                lambda *a, **kw: (None, 0))
+    names, seqs = _genome(3, [9_000] * 20)
+    tdi, meta = _both(names, seqs, 10, 15)
+    assert batch.probe_layout(tdi) == "krows" and tdi.probe_win == 2
+    assert tdi.h2r is None and tuple(tdi.keys2.shape) == (1, 2)
+    mi = MiniIndex.build_codes(names, seqs, w=10, k=15)
+    keys, starts, counts, y = devbuild.host_tables(tdi, meta)
+    np.testing.assert_array_equal(keys, mi.keys)
+    np.testing.assert_array_equal(starts, mi.starts[:-1])
+    np.testing.assert_array_equal(counts, np.diff(mi.starts))
+    np.testing.assert_array_equal(y, mi.pos)
+    jdi, _ = jax_build(names, list(seqs), 10, 15, interpret=True)
+    codes, lens = _reads(seqs, 8, 7)
+    p = dict(k=15, L=SHAPE["L"], M=256, A=256, occ_cap=16)
+    hhi, hlo, z, is_mini = jax_batch.device_sketch(
+        jnp.asarray(codes), jnp.asarray(lens), 15, 10)
+    front = jax_batch._compact_minimizers(hhi, hlo, z, is_mini, p["M"])
+    want = jax_batch._lookup_anchors(jdi, *front, jnp.asarray(lens),
+                                     JaxBatchParams(**p), True)
+    got = batch._lookup_anchors(
+        tdi, *(torch.from_numpy(np.array(x).view(np.int32)
+                                if x.dtype == jnp.uint32 else np.array(x))
+               for x in front), torch.from_numpy(lens), BatchParams(**p))
+    assert int(np.asarray(want[5]).sum()) > 500
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.numpy().astype(np.int64),
+                                      np.asarray(a).astype(np.int64))
 
 
 @pytest.mark.parametrize("fmt", [1, 2])
@@ -177,9 +219,10 @@ SHAPE = dict(k=15, w=10, L=1024, M=256, A=256, occ_cap=16, chain_window=64,
              bw=500, bw_long=20000)
 
 
-def _batch(seqs, n, seed):
-    """n packed 900 bp reads with 3% substitutions, read i from contig
-    i % len(seqs), every other one reverse-complemented."""
+def _reads(seqs, n, seed):
+    """n 900 bp reads with 3% substitutions, read i from contig i %
+    len(seqs), every other one reverse-complemented: (codes, lens) at
+    SHAPE's L."""
     rng = np.random.default_rng(seed)
     reads = []
     for i in range(n):
@@ -190,7 +233,12 @@ def _batch(seqs, n, seed):
         r[m] = rng.integers(0, 4, int(m.sum()))
         reads.append(np.frombuffer(b"ACGT", np.uint8)[
             (3 - r)[::-1] if i % 2 else r].tobytes())
-    codes, lens = engine.encode_batch(reads, SHAPE["L"])
+    return engine.encode_batch(reads, SHAPE["L"])
+
+
+def _batch(seqs, n, seed):
+    """_reads, packed for PafStep."""
+    codes, lens = _reads(seqs, n, seed)
     return engine.pack_codes(codes) + (lens,)
 
 

@@ -1,7 +1,8 @@
 """Port index vs the JAX package: the host MiniIndex (keys, starts, pos)
 and the DeviceIndex tables (h2r, pos2, pstrand, S, seq_off, seq_len,
-rtab) and aux ints are byte-equal to DeviceIndex.from_host's, over the
-layouts the h2r route can take."""
+rtab, and the keys2 / sc2 / bucket_start placeholders) and aux ints are
+byte-equal to DeviceIndex.from_host's, over the layouts the h2r route can
+take."""
 import numpy as np
 import pytest
 
@@ -14,7 +15,7 @@ from minimap2_tpu_torch.parallel.batch import DeviceIndex
 
 jax.config.update("jax_platforms", "cpu")
 
-LEAVES = ("h2r", "pos2", "pstrand", "S", "seq_off", "seq_len", "rtab")
+LEAVES = DeviceIndex.LEAVES
 
 
 def _genome(case):
