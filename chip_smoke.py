@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught; each prints its
 seconds):
   1. the card: nvidia-smi name and power limit; no CUDA device -> exit;
-  2. build the CUDA kernels from minimap2_tpu_torch/ops/csrc;
+  2. build the CUDA kernels from minimap2_tpu_torch/ops/csrc, and the
+     host library from minimap2_tpu_torch/native/host_map.cpp (g++);
   3. the PAF path: a 100 Mb, 8-contig repeat-bearing genome and 1024
      ONT-like 8-11 kb reads through ``minimap2_tpu_torch.cli.main(
      ["--batch", "-x", "map-ont", "-d", "main.mmi", ...])``; every kernel
@@ -15,7 +16,9 @@ seconds):
      run wrote, loaded again, must equal the run's host MiniIndex array
      for array (keys, run starts, positions, reference codes, names and
      lengths); the dump's and the load's seconds; the port's ``paftools
-     mapeval`` rows of the PAF;
+     mapeval`` rows of the PAF; every host index build from FASTA (here
+     and in phases 4b, 4c, 5 and 6: the native batched sketch and radix
+     sort) prints its seconds;
   3b. the device index build (pos_fmt 1, h2r built in one piece) of phase
      3's genome on the card: the sketch kernel launched in the build, its
      tables decoded to host coordinates equal phase 3's host MiniIndex
@@ -57,6 +60,23 @@ seconds):
      and strand right and [rs, re) on their source interval, ext_score > 0
      on every mapped read; reads/s and the chain scan's seconds from a
      second call on the same inputs (equal dicts);
+  3g. the sharded step (``parallel/sharded.py``): phase 3's host index
+     split into two key-range shards by ``DeviceIndex.from_host(mi,
+     n_shards=2, cache=...)`` (its seconds, each shard's keys and table
+     MB); four ranks (minimap2_tpu_torch/parallel/ranks.py) share the card
+     at (data=2, idx=2) through gloo, each loading only its shard from
+     the .npz, and map phase 3e's 512 reads (256 a data row) at the
+     BatchParams defaults, twice: sketch, sort3, the shard merge's sort3
+     and extd2 launched in every rank, the chain kernel in none; the
+     gathered output bit-equal to map_batch on phase 3's one-shard index
+     on every read of at most A one-shard anchors (the reads above A
+     counted and named), its first 16 reads equal to the same step run by
+     four CPU gloo ranks (plain versions), n_mapped the gathered mapped
+     count; the anchor counts, the idx balance, the second call's
+     seconds and reads/s (slowest rank), the collectives' seconds and
+     each rank's peak device memory; then a 1-rank NCCL group in this
+     process runs the step at (1, 1) on the same reads, equal to
+     map_batch;
   3d. reads longer than L: on phase 3's main.mmi, 1024 ONT-like reads (5%
      sub, 2.5% del, 2.5% ins; seeds 5, 6 and 7), 896 of 8-11 kb and 128 of
      16.6-50 kb (past L = 16384) in a shuffled order, through
@@ -142,6 +162,10 @@ seconds):
      sketch (k15 w5, 512 x 1024), sort3, the chain, extd2 and the
      traceback on run (a)'s first batch and align launch, exts2 and the
      splice traceback on the first 32 jobs of run (b)'s first launch;
+     sort3 on the keys phase 3g's rank 0 merged (256 x 2048, the first
+     1024 kept), its own row of the kernels line (``sort3_shard_merge``),
+     and the merge of those parts twice over in rows of two (the route
+     past one sort row's width) bit-equal to one plain sort;
      at phase 3c's off-distribution shapes: the sketch at 256 x 32768,
      sort1 on the compaction keys (256 x 32768), sort3 on the anchor keys
      and the chain on the anchor planes (256 x 8192); sort1's chunked
@@ -326,6 +350,12 @@ def phase_build():
              if "registers" in ln or "spill" in ln or ln.startswith("==")]
     log(f"[build] kernels built and loaded in {dt:.1f}s "
         f"(nvcc {_build.build_seconds:.1f}s)")
+    from minimap2_tpu_torch import native
+    t0 = time.time()
+    native.map_lib()
+    log(f"[build] host library (native/host_map.cpp: the index build's "
+        f"sketch and radix sort, the host path) built and loaded in "
+        f"{time.time() - t0:.1f}s")
     for ln in usage:
         log(f"[build]   {ln}")
 
@@ -802,6 +832,204 @@ def phase_map_batch(main, dvb):
                 map_s=map_s, cold_s=cold_s, scan_s=scans[1][0],
                 first_job=job,
                 reads_per_s=len(codes) / map_s, correct=frac)
+
+
+def phase_sharded(main, mb, tmp, n_cpu=16):
+    """Phase 3g: the sharded step at full width.  Phase 3's host index is
+    split into two key-range shards (``from_host(mi, n_shards=2,
+    cache=...)``); four gloo ranks share the card at (data=2, idx=2), each
+    loading only its shard from the .npz, and map phase 3e's 512 reads
+    (256 a data row) at the BatchParams defaults, twice; sketch, sort3,
+    the shard merge's sort3 and extd2 must launch in every rank and the
+    chain kernel in none.  The gathered output must equal map_batch on
+    phase 3's one-shard index (phase 3's PafStep's) on every read whose
+    one-shard anchor count is at most A (the reads above are counted and
+    named); its first n_cpu reads must equal the same step run by four
+    gloo ranks on the CPU (plain versions); then a 1-rank NCCL group runs
+    the step at (1, 1) on all reads, equal to map_batch."""
+    import dataclasses
+
+    from minimap2_tpu_torch.parallel import batch, ranks, sharded
+    p = batch.BatchParams()
+    mi, di1 = main["mi"], main["step"].di
+    require((p.k, p.w) == (mi.k, mi.w), "phase 3's index is k15 w10")
+    cache = os.path.join(tmp, "main.idx2.npz")
+    t = time.time()
+    shards = batch.DeviceIndex.from_host(mi, "cpu", n_shards=2, cache=cache)
+    split_s = time.time() - t
+    K = len(mi.keys)
+    for i, sh in enumerate(shards):
+        nbytes = {n: t_.numel() * t_.element_size()
+                  for n, t_ in sh.named_buffers()}
+        log(f"[sharded] shard {i}: keys {(i + 1) * K // 2 - i * K // 2} of "
+            f"{K}, {batch.probe_layout(sh)} rows {sh.h2r_nb}, tables "
+            f"{sum(nbytes.values()) / 1e6:.1f} MB "
+            f"({ {n: round(b / 1e6, 1) for n, b in nbytes.items()} })")
+    del shards
+    log(f"[sharded] from_host(n_shards=2) of phase 3's index and its .npz "
+        f"({os.path.getsize(cache) / 1e6:.1f} MB) in {split_s:.1f}s")
+    codes, lens = mb["codes"], mb["lens"]
+    reads = os.path.join(tmp, "sharded_reads.npz")
+    np.savez(reads, codes=codes, lens=lens)
+    run = dict(tag="3g", cache=cache, reads=reads,
+               params=dataclasses.asdict(p), repeat=2, dump_merge=True)
+    job = dict(n_data=2, n_idx=2, device="cuda", runs=[run],
+               out=os.path.join(tmp, "sharded_cuda"))
+    t = time.time()
+    reports = ranks.spawn_ranks(job, timeout=420)
+    spawn_s = time.time() - t
+    got = ranks.load_result(job, 0)
+    for rep in reports:
+        r0 = rep["runs"][0]
+        first = r0["launches"][0]
+        for name in ("sketch", "sort3", "sort3_shard_merge", "extd2"):
+            require(first.get(name, 0) > 0, f"kernel {name} never launched "
+                    f"in rank {rep['rank']} of the sharded step")
+        require(first.get("chain", 0) == 0, f"the chain kernel launched in "
+                f"rank {rep['rank']} of the sharded step")
+        log(f"[sharded] rank {rep['rank']} on {rep['device']}: shard load "
+            f"{r0['load_s']:.2f}s, step {r0['seconds'][0]:.3f}s then "
+            f"{r0['seconds'][1]:.3f}s, collectives {r0['coll_s'][0]:.3f}s "
+            f"then {r0['coll_s'][1]:.3f}s, peak device memory "
+            f"{r0['peak_gb']:.2f} GB, {r0['n_anc_local']} anchors; launches"
+            f" {first}")
+    # the reference: map_batch on phase 3's one-shard index
+    c_t, l_t = (torch.from_numpy(x).cuda() for x in (codes, lens))
+    with torch.no_grad():
+        ref = batch.map_batch(di1, c_t, l_t, p)
+        hhi, hlo, z, mini = batch.sketch_batch(c_t, l_t, p.k, p.w)
+        front = batch._compact_minimizers(hhi, hlo, z, mini, p.M)
+        _s, cnt, _f = batch.probe_seeds(di1, front[0], front[1], front[4],
+                                        p.occ_cap)
+    ref = {k: v.cpu().numpy() for k, v in ref.items()}
+    total0 = cnt.sum(1).cpu().numpy()
+    over = np.flatnonzero(total0 > p.A)
+    under = total0 <= p.A
+    for f in sharded.OUT_FIELDS:
+        bad = np.flatnonzero(under & (got[f] != ref[f]))
+        require(len(bad) == 0, f"sharded step: {f} differs from map_batch on"
+                f" {len(bad)} reads at or under A anchors (first "
+                f"{bad[:8].tolist()})")
+    n_mapped = int(got["n_mapped"])
+    require(n_mapped == int((got["chain_score"] > 0).sum()),
+            f"sharded n_mapped {n_mapped} is not the gathered mapped count")
+    diff_over = [int(i) for i in over if any(
+        got[f][i] != ref[f][i] for f in sharded.OUT_FIELDS)]
+    names = [main["mb_names"][i].split("!")[0] for i in over]
+    log(f"[sharded] gathered output equal to map_batch on the "
+        f"{int(under.sum())} reads at or under A={p.A} anchors; "
+        f"{len(over)} reads above A (total0 {total0[over].tolist()}: "
+        f"{names}), {len(diff_over)} of them differing; n_mapped "
+        f"{n_mapped}")
+    # the same step on the CPU (plain versions) for the first n_cpu reads
+    creads = os.path.join(tmp, "sharded_reads_cpu.npz")
+    np.savez(creads, codes=codes[:n_cpu], lens=lens[:n_cpu])
+    cjob = dict(n_data=2, n_idx=2, device="cpu", threads=2,
+                runs=[dict(run, reads=creads, repeat=1, dump_merge=False)],
+                out=os.path.join(tmp, "sharded_cpu"))
+    t = time.time()
+    ranks.spawn_ranks(cjob, timeout=420)
+    cpu_s = time.time() - t
+    cgot = ranks.load_result(cjob, 0)
+    for f in sharded.OUT_FIELDS:
+        require(np.array_equal(cgot[f], got[f][:n_cpu]), f"sharded step: "
+                f"{f} of the first {n_cpu} reads differs between card and "
+                "CPU")
+    log(f"[sharded] the first {n_cpu} reads through four CPU gloo ranks "
+        f"(plain versions, {cpu_s:.1f}s with start-up): equal to the card's")
+    # the (2, 2) anchor counts and the idx balance
+    n_anc = got["n_anc"]
+    per_idx = n_anc.sum(axis=0).astype(np.float64)
+    bal = float(per_idx.max() / max(1.0, per_idx.mean()))
+    step_s = max(rep["runs"][0]["seconds"][1] for rep in reports)
+    coll_s = max(rep["runs"][0]["coll_s"][1] for rep in reports)
+    log(f"[sharded] (data=2, idx=2): anchors {n_anc.tolist()}, per idx "
+        f"{per_idx.astype(int).tolist()}, max/mean {bal:.3f}; the second "
+        f"call {step_s:.3f}s on the slowest rank ({len(codes) / step_s:.1f} "
+        f"reads/s), its collectives at most {coll_s:.3f}s a rank; the "
+        f"four ranks' spawn to exit {spawn_s:.1f}s")
+    # one NCCL rank in this process at (1, 1): NCCL's own all_reduce and
+    # all_gather on the card
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init = os.path.join(tmp, "nccl_init")
+    dev = sharded.init_rank(0, 1, "file://" + init, "cuda")
+    try:
+        require(torch.distributed.get_backend() == "nccl",
+                "the 1-rank group is not NCCL")
+        step = sharded.make_sharded_step(p, 1, 1)
+        with torch.no_grad():
+            out, nm1, na1 = step(di1, c_t.to(dev), l_t.to(dev))
+            full, counts = step.gather_sharded(out, na1)
+        torch.cuda.synchronize()
+        for f in sharded.OUT_FIELDS:
+            require(np.array_equal(full[f].cpu().numpy(), ref[f]),
+                    f"the 1-rank NCCL step differs from map_batch in {f}")
+        require(int(nm1) == int(ref["mapped"].sum())
+                and int(counts.sum()) == int(ref["n_anchors"].sum()),
+                "the 1-rank NCCL step's counts differ from map_batch's")
+        log(f"[sharded] 1-rank NCCL step at (1, 1): equal to map_batch on "
+            f"all {len(codes)} reads, collectives {step.coll_s:.4f}s")
+    finally:
+        torch.distributed.destroy_process_group()
+    merged = np.load(os.path.join(job["out"], "merge0.npz"))
+    merge_keys = [np.concatenate([merged[f"s{i}_k{q}"] for i in range(2)],
+                                 axis=1) for q in range(3)]
+    return dict(reports=reports, launches=[r["runs"][0]["launches"][0]
+                                           for r in reports],
+                merge_keys=merge_keys, A=p.A, step_s=step_s,
+                reads_per_s=len(codes) / step_s, coll_s=coll_s,
+                split_s=split_s, balance=bal, over=len(over))
+
+
+def phase_sharded_kernels(shd, rows):
+    """Phase 7 at phase 3g's merge shape: sort3 on the keys rank 0 merged
+    (256 x 2048, the first A kept) against its plain version and torch.sort,
+    its own row of the kernels line."""
+    from minimap2_tpu_torch.ops import _build, sort
+    from minimap2_tpu_torch.parallel import sharded
+    keys = [torch.from_numpy(x).cuda() for x in shd["merge_keys"]]
+    B, W = keys[0].shape
+    A = shd["A"]
+    got = sort.sort3_rows(*keys, counter="sort3_shard_merge")
+    err = max_abs_err([x[:, :A] for x in got],
+                      [x[:, :A] for x in sort.sort3_rows_plain(*keys)])
+    require(err == 0, f"sort3 differs from its plain version on the shard "
+            f"merge's keys ({err})")
+    bms, bby = bound(B * W * 12 + B * A * 12,
+                     B * (W // 2) * sort_stages(W) * 8)
+    row = dict(
+        name="sort3_shard_merge", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/sort3.cu",
+        replaces="minimap2_tpu/ops/sort_pallas.py:65",
+        launches=sum(c.get("sort3_shard_merge", 0)
+                     for c in shd["launches"]),
+        max_abs_err=err,
+        ms=cuda_ms(lambda: sort.sort3_rows(*keys,
+                                           counter="sort3_shard_merge")),
+        plain_ms=cuda_ms(lambda: sort.sort3_rows_plain(*keys), reps=3),
+        bound_ms=bms, bound_by=bby,
+        library_ms=cuda_ms(lambda: library_sort3(*keys), reps=5),
+        shape=[B, W], keep=A,
+        blocks_per_sm=_build.blocks_per_sm("sort3", W))
+    log(f"[kernels] sort3 on the shard merge's keys ({B} x {W}, the first "
+        f"{A} kept; {row['launches']} launches in phase 3g's four ranks): "
+        f"bit-equal, {row['ms']:.4f} ms, plain {row['plain_ms']:.2f} ms, "
+        f"bound {bms:.4f} ms ({bby}), torch.sort x3 "
+        f"{row['library_ms']:.4f} ms")
+    # the merge past one sort row's width (more shards than fit): the
+    # shards' parts twice over, merged two at a time, against the CPU
+    parts = [tuple(x[:, q * A:(q + 1) * A] for x in keys)
+             for q in range(W // A)] * 2
+    tree = sharded.merge_anchors(parts, A, max_width=2 * A)
+    flat = sharded.merge_anchors([tuple(x.cpu() for x in pt)
+                                  for pt in parts], A)
+    terr = max_abs_err([x.cpu() for x in tree], flat)
+    require(terr == 0, f"the shard merge in groups differs from one plain "
+            f"sort ({terr})")
+    log(f"[kernels] the shard merge of {len(parts)} parts two at a time "
+        f"({len(parts)} x {A} lanes, rows of {2 * A}): bit-equal to one "
+        f"plain sort")
+    rows.append(row)
 
 
 def phase_grch38(tmp):
@@ -1375,16 +1603,44 @@ def _hooked(hooks):
             setattr(m, n, f)
 
 
+HOST_BUILDS = []     # (Mb, k, w, seconds) of each host index build
+
+
+def _build_timer():
+    """A hook for cli.MiniIndex whose ``build`` (the host index build from
+    FASTA: the native batched sketch and radix sort) is timed, logged and
+    kept in HOST_BUILDS."""
+    from minimap2_tpu_torch import cli, native
+    base = cli.MiniIndex
+
+    class TimedIndex(base):
+        load = base.load        # an index of the base class, as build's
+
+        @classmethod
+        def build(cls, names, seqs, w, k, *a, **kw):
+            t = time.time()
+            mi = base.build(names, seqs, w, k, *a, **kw)
+            dt = time.time() - t
+            mb = sum(s.length for s in mi.seq) / 1e6
+            HOST_BUILDS.append((round(mb), k, w, round(dt, 1)))
+            log(f"[index] host index build of {mb:.0f} Mb at k{k} w{w}: "
+                f"{dt:.1f}s ({len(mi.keys)} keys; native sketch_many + "
+                f"radix_sort_pair: {native.available()})")
+            return mi
+    return cli, "MiniIndex", TimedIndex
+
+
 def _run_cli(argv, hooks):
-    """cli.main(argv) with the hooks in place (see _hooked).  Returns (rc,
-    launches, seconds, host path {reads, seconds})."""
+    """cli.main(argv) with the hooks in place (see _hooked) and the host
+    index build timed.  Returns (rc, launches, seconds, host path {reads,
+    seconds})."""
     from minimap2_tpu_torch import cli
     from minimap2_tpu_torch.ops._build import launches
     from minimap2_tpu_torch.parallel import engine
     launches.clear()
     engine.host_path.clear()
     t1 = time.time()
-    with _hooked(hooks):
+    with _hooked([_build_timer(), *hooks]):
         rc = cli.main(argv)
     host = {"reads": engine.host_path["reads"],
             "seconds": engine.host_path["seconds"]}
@@ -3277,6 +3533,7 @@ def main():
         dvb = timed("devbuild", phase_devbuild, main_, tmp)
         lay = timed("layouts", phase_layouts, main_, dvb, tmp)
         mb = timed("map_batch", phase_map_batch, main_, dvb)
+        shd = timed("sharded", phase_sharded, main_, mb, tmp)
         g38 = timed("grch38", phase_grch38, tmp)
         aln = timed("align", phase_align_path, main_, tmp)
         aln["rd"] = main_["rd"]
@@ -3293,9 +3550,14 @@ def main():
         timed("sr kernels", phase_sr_kernels, srp, rows)
         timed("rmq kernels", phase_rmq_kernels, lrq, mb, rows)
         timed("splice:sr kernels", phase_splice_sr_kernels, ssr, rows)
+        timed("sharded kernels", phase_sharded_kernels, shd, rows)
         for r in rows:          # the PAF kernels also run on the other paths
-            if r["name"] == "extd2_score_only":     # map_batch's mode only
-                continue
+            if r["name"] in ("extd2_score_only", "sort3_shard_merge"):
+                continue        # map_batch's mode, the sharded step's merge
+            r["launches_sharded"] = sum(
+                kernel_launches(c, r["name"])
+                + (c.get("sort3_shard_merge", 0) if r["name"] == "sort3"
+                   else 0) for c in shd["launches"])
             r["launches_align"] = kernel_launches(aln["launches"], r["name"])
             r["launches_hpc"] = kernel_launches(hpc["launches"], r["name"])
             r["launches_splice"] = kernel_launches(spl["launches"],
@@ -3356,6 +3618,9 @@ def main():
         f"{mb['reads_per_s']:.1f} reads/s (map_batch, one 512-read call "
         f"after a first, which took {mb['cold_s']:.2f}s; "
         f"the scan {mb['scan_s']:.2f}s), "
+        f"{shd['reads_per_s']:.1f} reads/s (the sharded step, 4 gloo ranks "
+        f"at (data=2, idx=2), the slowest rank's second call; collectives "
+        f"{shd['coll_s']:.3f}s), "
         f"{host['reads_per_s']['8']:.1f} reads/s (no --batch, host, -t 8), "
         f"{mpy['reads'] / mpy['map_s']:.1f} reads/s (mappy, host), "
         f"{hpc['reads_per_s']:.1f} reads/s (map-pb), "
@@ -3372,6 +3637,7 @@ def main():
         f"(the CLR-like reads at L 32768, one step) on the "
         f"GRCh38 envelope, its index built in {g38['stages']['total']:.1f}s "
         f"(100 Mb: {dvb['stages']['total']:.1f}s); "
+        f"host index builds (Mb, k, w, s) {HOST_BUILDS}; "
         f"{time.time() - t_start:.0f}s in all, by phase {secs}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

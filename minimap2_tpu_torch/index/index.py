@@ -1,5 +1,5 @@
-"""Minimizer index built on the host (copy of the NumPy branch of
-minimap2_tpu.index.index: mm_idx_gen index.c:389-408, worker_post
+"""Minimizer index built on the host (copy of minimap2_tpu.index.index,
+both of its routes: mm_idx_gen index.c:389-408, worker_post
 index.c:226-278, mm_idx_cal_max_occ index.c:198-220).
 
 Three flat arrays: ``keys`` (sorted distinct minimizer hashes, u64),
@@ -12,7 +12,6 @@ splice scores, -j/--pass1 jumps, --alt contigs), and reads and writes the
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,16 +28,23 @@ class SeqMeta:
     is_alt: bool = False
 
 
-def _sketch_job(args):
-    codes, w, k, rid, hpc = args
-    return sketch(codes, w, k, rid, hpc)
+def _sketch_numpy(mi, hpc: bool):
+    """The NumPy route's sketch: each contig of >= k bases by
+    index/sketch.py, in turn."""
+    xs, ys = [], []
+    for rid, s in enumerate(mi.seq):
+        if s.length >= mi.k:
+            x, y = sketch(mi.S[s.offset:s.offset + s.length], mi.w, mi.k,
+                          rid, hpc)
+            xs.append(x)
+            ys.append(y)
+    if not xs:
+        return np.empty(0, np.uint64), np.empty(0, np.uint64)
+    return np.concatenate(xs), np.concatenate(ys)
 
 
 class MiniIndex:
     """The minimizer index over a set of target sequences."""
-
-    # contigs are sketched in a process pool above this many bases
-    POOL_MIN_BASES = 20_000_000
 
     def __init__(self, w: int, k: int, b: int, flag: int):
         if k * 2 < b:
@@ -73,8 +79,15 @@ class MiniIndex:
                     flag: int = 0) -> "MiniIndex":
         """Build from nt4 code arrays (uint8, 0-3 + 4=ambiguous).
 
-        The (key, pos) stream is ordered by np.lexsort on (hash, y), the
-        flat-array analogue of the reference's per-bucket radix sort."""
+        With the host library (``native.available()``) every contig is
+        sketched by its batched mm_sketch and the (hash, y) stream ordered
+        by its stable LSD radix sort on the hash, which keeps emission
+        order within a key, as the reference's radix_sort_128x does
+        (index.c:226-278).  Without it, the contigs are sketched in turn
+        by the NumPy sketch and the stream ordered by np.lexsort on (hash,
+        y).  Both give the same arrays: within a key, emission order is y
+        order."""
+        from .. import native
         mi = cls(w, k, b, flag)
         total = sum(len(c) for c in codes_list)
         mi.S = np.empty(total, dtype=np.uint8)
@@ -83,24 +96,23 @@ class MiniIndex:
             mi.S[off:off + len(codes)] = codes
             mi.seq.append(SeqMeta(name=name, offset=off, length=len(codes)))
             off += len(codes)
-        jobs = [(mi.S[s.offset:s.offset + s.length], mi.w, mi.k, rid,
-                 bool(flag & 0x1))
-                for rid, s in enumerate(mi.seq) if s.length >= k]
-        nproc = min(len(jobs), os.cpu_count() or 1)
-        if total >= cls.POOL_MIN_BASES and nproc > 1:
-            import multiprocessing as mp
-            with mp.get_context("spawn").Pool(nproc) as pool:
-                parts = pool.map(_sketch_job, jobs)
+        hpc = bool(flag & 0x1)
+        use_native = native.available()
+        if use_native:
+            x, y = native.sketch_many(
+                mi.S, np.array([s.offset for s in mi.seq], np.int64),
+                np.array([s.length for s in mi.seq], np.int64), mi.w, mi.k,
+                hpc)
         else:
-            parts = list(map(_sketch_job, jobs))
-        x = np.concatenate([p[0] for p in parts]) if parts else \
-            np.empty(0, np.uint64)
-        y = np.concatenate([p[1] for p in parts]) if parts else \
-            np.empty(0, np.uint64)
+            x, y = _sketch_numpy(mi, hpc)
         if len(x):
-            h = x >> np.uint64(8)           # key = hash (span dropped)
-            order = np.lexsort((y, h))
-            h, y = h[order], y[order]
+            h = np.ascontiguousarray(x >> np.uint64(8))   # span dropped
+            y = np.ascontiguousarray(y)
+            if use_native:
+                native.radix_sort_pair(h, y, 2 * mi.k)
+            else:
+                order = np.lexsort((y, h))
+                h, y = h[order], y[order]
             bnd = np.flatnonzero(h[1:] != h[:-1]) + 1
             mi.keys = h[np.concatenate(([0], bnd))]
             mi.starts = np.concatenate(([0], bnd, [len(h)])).astype(np.int64)

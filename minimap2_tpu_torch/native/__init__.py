@@ -10,11 +10,13 @@ compute the same floats) and the CPU's feature flags (-march=native):
   mm_update_extra statistics);
 - ``host_map.cpp``: the host mapping path's sketch, anchor collection,
   chaining DPs (mg_lchain_dp, mg_lchain_rmq) and ksw2 extensions (extd2,
-  extz2, exts2, ll), and the device index's h2 table builder.
+  extz2, exts2, ll), the device index's h2 table build, and the host
+  index build's batched sketch and stable radix sort.
 
 Without g++ this raises: the port has no other route for these routines.
 ``available()`` says whether the host-mapping library builds; the device
-index takes its h2 layout only then, as the JAX package does.
+index takes its h2 layout, and the host index build its batched sketch
+and radix sort, only then, as the JAX package does.
 Their NumPy versions (index/sketch.py, map/seed.py, map/chain.py,
 ops/ksw2_np.py, ops/ksw2_exts.py) are called by name from the tests only.
 """
@@ -111,11 +113,14 @@ def map_lib():
         "mg_lchain_rmq_cpp": [I64] * 7 + [F, F, I64] + [P] * 6,
         "ksw_ll_cpp": [I, P, I, P, I, P, I, I, P, P],
         "build_hash2_table": [P, P, I64, I64, I, I, I, P],
+        "mm_sketch_many": [P, P, P, I64, I, I, I, P, P, I64],
     }
     for name, args in sigs.items():
         fn = getattr(lb, name)
         fn.argtypes = args
         fn.restype = I64
+    lb.radix_sort_u64_pair.argtypes = [P, P, I64, I]
+    lb.radix_sort_u64_pair.restype = None
     _libs["map"] = lb
     return lb
 
@@ -190,6 +195,39 @@ def sketch(codes: np.ndarray, w: int, k: int, rid: int, is_hpc: bool):
         if n <= cap:
             return out_x[:n], out_y[:n]
         cap = int(n) + 64
+
+
+def sketch_many(codes: np.ndarray, offs: np.ndarray, lens: np.ndarray,
+                w: int, k: int, is_hpc: bool):
+    """mm_sketch over every contig of the concatenated codes (contig r at
+    offs[r], lens[r] bases, rid r) -> (x, y) u64 arrays in contig order;
+    the output grows until it fits."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    cap = max(16, len(codes) + 1024)
+    while True:
+        out_x = np.empty(cap, np.uint64)
+        out_y = np.empty(cap, np.uint64)
+        n = map_lib().mm_sketch_many(_ptr(codes), _ptr(offs), _ptr(lens),
+                                     len(offs), w, k, int(is_hpc),
+                                     _ptr(out_x), _ptr(out_y), cap)
+        if n <= cap:
+            return out_x[:n], out_y[:n]
+        cap = int(n) + 1024
+
+
+def radix_sort_pair(keys: np.ndarray, vals: np.ndarray, key_bits: int):
+    """Stable in-place LSD radix sort of (u64 key, u64 payload) pairs by
+    the low key_bits of the key: equal keys keep their payloads' order."""
+    if keys.dtype != np.uint64 or vals.dtype != np.uint64:
+        raise TypeError("radix_sort_pair sorts uint64 keys and payloads")
+    if not (keys.flags.c_contiguous and vals.flags.c_contiguous) \
+            or len(keys) != len(vals):
+        raise ValueError("radix_sort_pair needs contiguous arrays of one "
+                         "length")
+    map_lib().radix_sort_u64_pair(_ptr(keys), _ptr(vals), len(keys),
+                                  key_bits)
 
 
 def collect_anchors(mx, my, keys, starts, pos, qlen: int, max_occ: int,

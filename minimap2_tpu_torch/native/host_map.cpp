@@ -3,8 +3,10 @@
 // mm_sketch_nt4 :43, mm_collect_anchors :157, ksw_extd2_cpp :390,
 // ksw_extz2_cpp :679, ksw_exts2_cpp :880, mg_lchain_dp_cpp :1333,
 // mg_lchain_rmq_cpp :1480 and ksw_ll_cpp :1619, with the helpers they use;
-// and build_hash2_table :2084, the device index's h2 table
-// (parallel/batch.py DeviceIndex.from_host).  The plain NumPy versions of the same routines (index/sketch.py,
+// build_hash2_table :2084, the device index's h2 table
+// (parallel/batch.py DeviceIndex.from_host); and the host index build's
+// mm_sketch_many :296 and radix_sort_u64_pair :1814
+// (index/index.py MiniIndex.build_codes).  The plain NumPy versions of the same routines (index/sketch.py,
 // map/seed.py, map/chain.py, ops/ksw2_np.py, ops/ksw2_exts.py) hold them
 // in the tests.  Built with g++ into build/minimap2_tpu_torch/ at first use
 // and bound with ctypes by minimap2_tpu_torch/native/__init__.py.
@@ -1747,6 +1749,66 @@ int64_t build_hash2_table(const uint64_t* keys, const int64_t* starts,
         ++occ[b];
     }
     return overflow;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------
+// Batched sketch of the index build: the contigs concatenated in codes,
+// contig r at offs[r] of lens[r] bases (rid r); contigs shorter than k
+// give nothing.  Returns the total written, or a count above cap when
+// the output does not fit (the caller grows it and calls again).
+// ---------------------------------------------------------------------
+int64_t mm_sketch_many(const uint8_t *codes, const int64_t *offs,
+                       const int64_t *lens, int64_t n_seq, int w, int k,
+                       int is_hpc, uint64_t *out_x, uint64_t *out_y,
+                       int64_t cap)
+{
+    int64_t total = 0;
+    for (int64_t r = 0; r < n_seq; ++r) {
+        if (lens[r] < k) continue;
+        int64_t m = mm_sketch_nt4(codes + offs[r], lens[r], w, k,
+                                  (uint32_t)r, is_hpc, out_x + total,
+                                  out_y + total, cap - total);
+        total += m;
+        if (total > cap) return total;
+    }
+    return total;
+}
+
+// ---------------------------------------------------------------------
+// Stable LSD radix sort of (key, payload) u64 pairs by the low key_bits
+// of the key, 16 bits a pass (the flat-array counterpart of the
+// reference's radix_sort_128x): in place, with one n-sized scratch pair.
+// ---------------------------------------------------------------------
+void radix_sort_u64_pair(uint64_t *keys, uint64_t *vals, int64_t n,
+                         int key_bits)
+{
+    if (n <= 1) return;
+    int passes = (key_bits + 15) / 16;
+    std::vector<uint64_t> tk((size_t)n), tv((size_t)n);
+    uint64_t *k0 = keys, *v0 = vals, *k1 = tk.data(), *v1 = tv.data();
+    std::vector<int64_t> cnt(1 << 16);
+    for (int p = 0; p < passes; ++p) {
+        int sh = p * 16;
+        std::fill(cnt.begin(), cnt.end(), 0);
+        for (int64_t i = 0; i < n; ++i) ++cnt[(k0[i] >> sh) & 0xFFFF];
+        int64_t acc = 0;
+        for (int b = 0; b < (1 << 16); ++b) {
+            int64_t c = cnt[b]; cnt[b] = acc; acc += c;
+        }
+        for (int64_t i = 0; i < n; ++i) {
+            int64_t d = cnt[(k0[i] >> sh) & 0xFFFF]++;
+            k1[d] = k0[i]; v1[d] = v0[i];
+        }
+        std::swap(k0, k1); std::swap(v0, v1);
+    }
+    if (k0 != keys) {
+        std::memcpy(keys, k0, (size_t)n * 8);
+        std::memcpy(vals, v0, (size_t)n * 8);
+    }
 }
 
 }  // extern "C"

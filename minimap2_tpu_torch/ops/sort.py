@@ -163,16 +163,17 @@ def _launch_sort3(planes, rows, A, kk0, keep, flip, counter):
     return outs
 
 
-def sort3_rows(k1, k2, k3):
+def sort3_rows(k1, k2, k3, counter: str = "sort3"):
     """Row-wise ascending lexicographic sort of three u32 planes
-    (int32 bit patterns, shape (B, A), A a power of two)."""
+    (int32 bit patterns, shape (B, A), A a power of two); a launch is
+    counted under ``counter`` (the sharded step's merge counts its own)."""
     B, A = k1.shape
     if A & (A - 1) or A < 2:
         raise ValueError(f"sort3_rows: width {A} is not a power of two")
     if k1.device.type == "cpu":
         return sort3_rows_plain(k1, k2, k3)
     planes = _sort3_planes("sort3_rows", k1, k2, k3, A)
-    return tuple(_launch_sort3(planes, B, A, 2, A, False, "sort3"))
+    return tuple(_launch_sort3(planes, B, A, 2, A, False, counter))
 
 
 def sort3_chunked(k1, k2, k3, chunk: int = 2048, keep: int = 1024):

@@ -345,72 +345,123 @@ class DeviceIndex(nn.Module):
 
     @classmethod
     def from_host(cls, mi, device=None, force_pos_fmt: int | None = None,
-                  force_s_fmt: int | None = None, cache: str | None = None):
+                  force_s_fmt: int | None = None, cache: str | None = None,
+                  n_shards: int | None = None):
         """Build the device index from a host MiniIndex with the layout
-        rules of the JAX DeviceIndex.from_host (one shard).  ``cache``
-        names an .npz file of the JAX package's format: loaded when it
-        exists and loads (any failure rebuilds), written after a build."""
+        rules of the JAX DeviceIndex.from_host.  With ``n_shards`` it
+        returns that many key-range shards, padded to one shape (the JAX
+        package's list); without, one DeviceIndex.  ``cache`` names an .npz
+        file of the JAX package's format: loaded when it exists and holds
+        this shard count (any failure rebuilds), written after a build."""
         # as in the JAX package, a cache that does not load is rebuilt and
         # one that cannot be written is skipped: the cache only saves time
         if cache and os.path.exists(cache):
             try:
-                return cls._load_cache(cache, device)
+                return cls._load_cache(cache, device, n_shards)
             except Exception:
                 pass
-        leaves, aux = host_layout(mi, force_pos_fmt, force_s_fmt)
-        di = cls.from_numpy(leaves, aux, device)
+        layouts = host_layout(mi, force_pos_fmt, force_s_fmt, n_shards or 1)
+        shards = [cls.from_numpy(lv, aux, device) for lv, aux in layouts]
         if cache:
             try:
-                cls._save_cache(cache, leaves, aux)
+                cls._save_cache(cache, layouts)
             except Exception:
                 pass
-        return di
+        return shards if n_shards is not None else shards[0]
 
     @classmethod
-    def _save_cache(cls, path, leaves: dict, aux: dict):
-        arrs = {f"s0_{n}": np.asarray(leaves[n]) for n in cls.LEAVES
-                if leaves.get(n) is not None}
-        arrs["meta"] = np.array([1] + [int(aux[a]) for a in cls.AUX],
-                                np.int64)
+    def _save_cache(cls, path, layouts):
+        """``s<i>_<leaf>`` for every shard's (leaves, aux), and meta: the
+        shard count, then shard 0's aux ints (the JAX package's file)."""
+        arrs = {f"s{i}_{n}": np.asarray(lv[n])
+                for i, (lv, _aux) in enumerate(layouts) for n in cls.LEAVES
+                if lv.get(n) is not None}
+        aux = layouts[0][1]
+        arrs["meta"] = np.array([len(layouts)] + [int(aux[a])
+                                                  for a in cls.AUX], np.int64)
         np.savez(path, **arrs)
 
     @classmethod
-    def _load_cache(cls, path, device=None):
+    def _load_cache(cls, path, device=None, n_shards: int | None = None,
+                    shard: int | None = None):
+        """The shards of an .npz cache, which must hold ``n_shards`` of
+        them (1 when None); every shard takes meta's aux.  Returns the list
+        when n_shards is given, else the one DeviceIndex; with ``shard`` only
+        that shard's arrays are read (np.load reads a key when asked)."""
+        n = 1 if n_shards is None else n_shards
         with np.load(path) as z:
             meta = z["meta"]
-            leaves = {n: z[f"s0_{n}"] for n in cls.LEAVES
-                      if f"s0_{n}" in z.files}
-        if int(meta[0]) != 1:
-            raise ValueError("shard count mismatch")
-        if len(meta) != 1 + len(cls.AUX):
-            raise ValueError("cache from an older layout")
-        aux = {a: int(v) for a, v in zip(cls.AUX, meta[1:])}
-        if aux["probe_win"] and "krows" not in leaves:
-            raise ValueError("cache predates the krows layout")
-        if aux["h2r_nb"] and "h2r" not in leaves:
-            raise ValueError("cache predates the h2r layout")
-        return cls.from_numpy(leaves, aux, device)
+            if int(meta[0]) != n:
+                raise ValueError("shard count mismatch")
+            if len(meta) != 1 + len(cls.AUX):
+                raise ValueError("cache from an older layout")
+            aux = {a: int(v) for a, v in zip(cls.AUX, meta[1:])}
+            shards = []
+            for i in range(n) if shard is None else [shard]:
+                leaves = {nm: z[f"s{i}_{nm}"] for nm in cls.LEAVES
+                          if f"s{i}_{nm}" in z.files}
+                if aux["probe_win"] and "krows" not in leaves:
+                    raise ValueError("cache predates the krows layout")
+                if aux["h2r_nb"] and "h2r" not in leaves:
+                    raise ValueError("cache predates the h2r layout")
+                shards.append(cls.from_numpy(leaves, aux, device))
+        return shards if n_shards is not None and shard is None \
+            else shards[0]
+
+    def shard(self, i: int) -> "DeviceIndex":
+        """Shard i of an index from ``stack_shards`` (its tables' row i)."""
+        return DeviceIndex({n: getattr(self, n)[i] for n in self.LEAVES
+                            if getattr(self, n) is not None},
+                           self.aux_dict())
+
+
+def stack_shards(shards: list) -> DeviceIndex:
+    """The shards' tables stacked along a leading shard axis (the JAX
+    package's tree_map(jnp.stack)); ``DeviceIndex.shard(i)`` undoes it.
+    Raises unless every shard has the same aux ints and table shapes."""
+    aux = shards[0].aux_dict()
+    for sh in shards[1:]:
+        if sh.aux_dict() != aux:
+            raise ValueError(f"stack_shards: aux {sh.aux_dict()} != {aux}")
+        for n in DeviceIndex.LEAVES:
+            a, b = getattr(shards[0], n), getattr(sh, n)
+            if (a is None) != (b is None) or (a is not None
+                                              and a.shape != b.shape):
+                raise ValueError(f"stack_shards: table {n} differs in "
+                                 "shape between shards")
+    return DeviceIndex({n: torch.stack([getattr(sh, n) for sh in shards])
+                        for n in DeviceIndex.LEAVES
+                        if getattr(shards[0], n) is not None}, aux)
 
 
 def host_layout(mi, force_pos_fmt: int | None = None,
-                force_s_fmt: int | None = None):
+                force_s_fmt: int | None = None, n_shards: int = 1) -> list:
     """The device index's NumPy leaves (the JAX DeviceIndex's dtypes) and
-    aux ints from a host MiniIndex, by the rules of the JAX from_host with
-    one shard: the h2r table unless MM2TPU_H2R=0 or the index is empty;
-    else the h2 table when the host library builds (grown by 15% until no
-    key overflows); else the bucket table over the sorted keys, probed
-    through krows when no bucket holds more than 25 keys.  pos_fmt 1 below
-    2^31 bases, 2 below 2^32 - 1, else 0; s_fmt 1 from 1.6 Gb, at pos_fmt
-    2, or with MM2TPU_PACK_S=1."""
+    aux ints from a host MiniIndex, one (leaves, aux) per key-range shard,
+    by the rules of the JAX from_host: the h2r table unless MM2TPU_H2R=0
+    or the index is empty; else the h2 table when the host library builds
+    (grown by 15% until no key overflows); else the bucket table over the
+    sorted keys, probed through krows when no bucket holds more than 25
+    keys.  pos_fmt 1 below 2^31 bases, 2 below 2^32 - 1, else 0; s_fmt 1
+    from 1.6 Gb, at pos_fmt 2, or with MM2TPU_PACK_S=1.
+
+    Shard i holds keys [i K / n, (i + 1) K / n) and their positions p0:p1,
+    its runs relative to p0; the key and position planes are padded to the
+    largest shard's (keys to a multiple of 64), and every shard has the
+    same h2r or h2 bucket count; S, the contig offsets and lengths and rtab are whole in
+    each."""
     K = len(mi.keys)
     cnts = (mi.starts[1:] - mi.starts[:-1]).astype(np.int32)
-    kpad = (max(1, K) + 63) // 64 * 64      # krows: 64-pair rows
+    bounds = [(i * K) // n_shards for i in range(n_shards + 1)]
+    spans = [(bounds[i], bounds[i + 1]) for i in range(n_shards)]
+    kmax = max(hi - lo for lo, hi in spans)
+    kpad = (max(1, kmax) + 63) // 64 * 64       # krows: 64-pair rows
     S = np.ascontiguousarray(mi.S if mi.S is not None
                              else np.zeros(1, np.uint8))
     seq_off64 = np.array([s.offset for s in mi.seq] or [0], np.uint64)
     seq_off = seq_off64.astype(np.uint32).view(np.int32)
     seq_len = np.array([s.length for s in mi.seq] or [0], np.int32)
-    ppad = max(1, int(mi.starts[K] - mi.starts[0]))
+    ppad = max(1, max(int(mi.starts[hi] - mi.starts[lo]) for lo, hi in spans))
     bb = min(26, max(4, int(math.ceil(math.log2(max(K, 2)))) + 2))
     key_bits = 2 * mi.k
     shift = max(0, key_bits - bb)
@@ -418,49 +469,40 @@ def host_layout(mi, force_pos_fmt: int | None = None,
     use_h2 = not use_h2r and K > 0 and native.available()
     key32 = key_bits < 32
     h2_slots = 4 if key32 else 8
-    p0 = int(mi.starts[0]) if K else 0
-    p1 = int(mi.starts[K]) if K else 0
-    h2 = h2r = krows = None
+
+    def p0_of(lo):
+        return int(mi.starts[lo]) if K else 0
+
+    tables = [None] * n_shards
     h2_nb = h2r_nb = 0
     if use_h2r:
-        h2r, h2r_nb = build_h2rows_np(
-            mi.keys, (mi.starts[:-1] - p0).astype(np.int64), cnts, key_bits,
-            nb0=max(64, -(-K // H2R_LOAD)))
+        # one bucket count for every shard: a build that grows it restarts
+        # every shard at the new count
+        h2r_nb = max(64, -(-kmax // H2R_LOAD))
+        i = 0
+        while i < n_shards:
+            lo, hi = spans[i]
+            tables[i], nb = build_h2rows_np(
+                mi.keys[lo:hi], (mi.starts[lo:hi] - p0_of(lo))
+                .astype(np.int64), cnts[lo:hi], key_bits, nb0=h2r_nb)
+            if nb != h2r_nb:
+                h2r_nb, i = nb, 0
+            else:
+                i += 1
     elif use_h2:
-        # mulhi over a bucket count that is not a power of two; grow 15%
-        # while any key overflows both of its buckets
-        h2_nb = max(64, int(math.ceil(K / (h2_slots * 0.85))))
-        rel = (mi.starts - p0).astype(np.int64)
+        # mulhi over a bucket count that is not a power of two, one for
+        # every shard; grow 15% while any key overflows both its buckets
+        h2_nb = max(64, int(math.ceil(kmax / (h2_slots * 0.85))))
         while True:
-            h2, ov = native.build_hash2_table(mi.keys, rel, h2_nb, h2_slots,
-                                              key32, mulhi=True)
-            if ov == 0:
+            ov_tot = 0
+            for i, (lo, hi) in enumerate(spans):
+                tables[i], ov = native.build_hash2_table(
+                    mi.keys[lo:hi], (mi.starts[lo:hi + 1] - p0_of(lo))
+                    .astype(np.int64), h2_nb, h2_slots, key32, mulhi=True)
+                ov_tot += ov
+            if ov_tot == 0:
                 break
             h2_nb = int(h2_nb * 1.15) + 1
-    if use_h2r or use_h2:
-        keys2 = np.full((1, 2), 0xFFFFFFFF, np.uint32)
-        sc2 = np.zeros((1, 2), np.int32)
-        bstart = np.zeros(2, np.int32)
-        n_probe, probe_win = 1, 0
-    else:
-        keys = np.full(kpad, UMAX64, np.uint64)
-        keys[:K] = mi.keys
-        keys2 = np.empty((kpad, 2), np.uint32)
-        keys2[:, 0] = (keys >> np.uint64(32)).astype(np.uint32)
-        keys2[:, 1] = keys.astype(np.uint32)
-        nb = 1 << min(bb, key_bits)
-        bstart = np.searchsorted(
-            mi.keys.astype(np.uint64) >> np.uint64(shift),
-            np.arange(nb + 1, dtype=np.uint64)).astype(np.int32)
-        sc2 = np.zeros((kpad, 2), np.int32)
-        sc2[:K, 0] = (mi.starts[:K] - p0).astype(np.int32)
-        sc2[:K, 1] = cnts
-        bmax = int(np.diff(bstart).max()) if len(bstart) > 1 else 1
-        n_probe = max(1, int(math.ceil(math.log2(bmax + 1))))
-        probe_win = 2 if (bmax <= 25 and kpad >= 128) else 0
-        if probe_win:       # (kpad, 2) row-major = [hi0, lo0, hi1, ...]
-            krows = keys2.reshape(-1, 128)
-    pos = mi.pos[p0:p1]
     total_len = (int(seq_off64[-1]) + int(seq_len[-1]) if len(S) else 0)
     if total_len < (1 << 31):
         pos_fmt = 1
@@ -470,40 +512,73 @@ def host_layout(mi, force_pos_fmt: int | None = None,
         pos_fmt = 0
     if force_pos_fmt is not None:
         pos_fmt = force_pos_fmt
-    pstrand = None
-    if pos_fmt:
-        rid_h = (pos >> np.uint64(32)).astype(np.int64)
-        rp_h = (pos & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-        goff = seq_off64.astype(np.uint32)[
-            np.clip(rid_h, 0, len(seq_off64) - 1)]
-        pos2 = np.zeros(ppad, np.uint32)
-        if pos_fmt == 1:
-            pos2[:len(pos)] = rp_h + (goff << np.uint32(1))
-        else:
-            pos2[:len(pos)] = (rp_h >> np.uint32(1)) + goff
-            sbits = np.zeros(((ppad + 7) // 8) * 8, np.uint8)
-            sbits[:len(pos)] = (rp_h & np.uint32(1)).astype(np.uint8)
-            pstrand = np.packbits(sbits.reshape(-1, 8), axis=-1,
-                                  bitorder="little")[:, 0]
-    else:
-        # two planes: rid, and rpos << 1 | strand
-        pos2 = np.zeros((ppad, 2), np.int32)
-        pos2[:len(pos), 0] = (pos >> np.uint64(32)).astype(np.int32)
-        pos2[:len(pos), 1] = (pos & np.uint64(0xFFFFFFFF)).astype(np.int32)
     s_fmt = 1 if (len(S) >= int(1.6e9) or pos_fmt == 2
                   or os.environ.get("MM2TPU_PACK_S") == "1") else 0
     if force_s_fmt is not None:
         s_fmt = force_s_fmt
+    S_out = _pack_s4(S) if s_fmt else S
     rtab = build_rtab_np(seq_off64, total_len) if pos_fmt else None
-    leaves = {"keys2": keys2, "sc2": sc2, "pos2": pos2,
-              "S": _pack_s4(S) if s_fmt else S, "seq_off": seq_off,
-              "seq_len": seq_len, "bucket_start": bstart, "h2": h2,
-              "pstrand": pstrand, "krows": krows, "h2r": h2r, "rtab": rtab}
-    aux = {"key_shift": shift, "n_probe": n_probe, "h2_bits": 0,
-           "h2_slots": h2_slots, "pos_fmt": pos_fmt, "h2_nb": h2_nb,
-           "s_fmt": s_fmt, "probe_win": probe_win, "h2r_nb": h2r_nb,
-           "key_bits": key_bits, "rtab_on": 0 if rtab is None else 1}
-    return leaves, aux
+    out = []
+    for i, (lo, hi) in enumerate(spans):
+        p0, p1 = p0_of(lo), (int(mi.starts[hi]) if K else 0)
+        krows = None
+        if use_h2r or use_h2:
+            keys2 = np.full((1, 2), 0xFFFFFFFF, np.uint32)
+            sc2 = np.zeros((1, 2), np.int32)
+            bstart = np.zeros(2, np.int32)
+            n_probe, probe_win = 1, 0
+        else:
+            keys = np.full(kpad, UMAX64, np.uint64)
+            keys[:hi - lo] = mi.keys[lo:hi]
+            keys2 = np.empty((kpad, 2), np.uint32)
+            keys2[:, 0] = (keys >> np.uint64(32)).astype(np.uint32)
+            keys2[:, 1] = keys.astype(np.uint32)
+            nb = 1 << min(bb, key_bits)
+            bstart = np.searchsorted(
+                mi.keys[lo:hi].astype(np.uint64) >> np.uint64(shift),
+                np.arange(nb + 1, dtype=np.uint64)).astype(np.int32)
+            sc2 = np.zeros((kpad, 2), np.int32)
+            sc2[:hi - lo, 0] = (mi.starts[lo:hi] - p0).astype(np.int32)
+            sc2[:hi - lo, 1] = cnts[lo:hi]
+            bmax = int(np.diff(bstart).max()) if len(bstart) > 1 else 1
+            n_probe = max(1, int(math.ceil(math.log2(bmax + 1))))
+            probe_win = 2 if (bmax <= 25 and kpad >= 128) else 0
+            if probe_win:   # (kpad, 2) row-major = [hi0, lo0, hi1, ...]
+                krows = keys2.reshape(-1, 128)
+        pos = mi.pos[p0:p1]
+        pstrand = None
+        if pos_fmt:
+            rid_h = (pos >> np.uint64(32)).astype(np.int64)
+            rp_h = (pos & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            goff = seq_off64.astype(np.uint32)[
+                np.clip(rid_h, 0, len(seq_off64) - 1)]
+            pos2 = np.zeros(ppad, np.uint32)
+            if pos_fmt == 1:
+                pos2[:len(pos)] = rp_h + (goff << np.uint32(1))
+            else:
+                pos2[:len(pos)] = (rp_h >> np.uint32(1)) + goff
+                sbits = np.zeros(((ppad + 7) // 8) * 8, np.uint8)
+                sbits[:len(pos)] = (rp_h & np.uint32(1)).astype(np.uint8)
+                pstrand = np.packbits(sbits.reshape(-1, 8), axis=-1,
+                                      bitorder="little")[:, 0]
+        else:
+            # two planes: rid, and rpos << 1 | strand
+            pos2 = np.zeros((ppad, 2), np.int32)
+            pos2[:len(pos), 0] = (pos >> np.uint64(32)).astype(np.int32)
+            pos2[:len(pos), 1] = (pos
+                                  & np.uint64(0xFFFFFFFF)).astype(np.int32)
+        leaves = {"keys2": keys2, "sc2": sc2, "pos2": pos2, "S": S_out,
+                  "seq_off": seq_off, "seq_len": seq_len,
+                  "bucket_start": bstart,
+                  "h2": tables[i] if use_h2 else None, "pstrand": pstrand,
+                  "krows": krows, "h2r": tables[i] if use_h2r else None,
+                  "rtab": rtab}
+        aux = {"key_shift": shift, "n_probe": n_probe, "h2_bits": 0,
+               "h2_slots": h2_slots, "pos_fmt": pos_fmt, "h2_nb": h2_nb,
+               "s_fmt": s_fmt, "probe_win": probe_win, "h2r_nb": h2r_nb,
+               "key_bits": key_bits, "rtab_on": 0 if rtab is None else 1}
+        out.append((leaves, aux))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -853,20 +928,48 @@ def _expand_anchors(di: DeviceIndex, start, cnt, flt, mz, mpos, mspan, qlen,
     key1 = torch.where(a_valid, (rev << 30) | rid, M32)
     key3 = (torch.clamp(span, 1, 255).to(torch.int64) << 20) \
         | torch.clamp(qpos_out, min=0).to(torch.int64)
-    keys = [i32(key1), i32(rpos_u), i32(key3)]
-    Ap = 1 << (A - 1).bit_length()
-    if Ap > A:      # pad to a power of two with the all-ones sentinel
-        keys = [torch.cat([x, x.new_full((B, Ap - A), -1)], dim=1)
+    return sort_anchor_keys([i32(key1), i32(rpos_u), i32(key3)], A) \
+        + (rep_len,)
+
+
+def sort_keys(keys, counter: str = "sort3"):
+    """Anchor sort keys (three (B, W) int32 planes) padded to a power of
+    two with the all-ones sentinel and sorted by one sort3 launch (counted
+    under ``counter``)."""
+    B, W = keys[0].shape
+    Wp = 1 << (W - 1).bit_length()
+    if Wp > W:
+        keys = [torch.cat([x, x.new_full((B, Wp - W), -1)], dim=1)
                 for x in keys]
-    key1, key2, key3 = (x[:, :A] for x in sort3_rows(*keys))
-    av = key1 != -1
+    return sort3_rows(*keys, counter=counter)
+
+
+def sort_anchor_keys(keys, keep: int, counter: str = "sort3"):
+    """``sort_keys``, the first ``keep`` lanes unpacked by
+    anchors_of_keys."""
+    k1, k2, k3 = (x[:, :keep] for x in sort_keys(keys, counter))
+    return anchors_of_keys(k1, k2, k3)
+
+
+def anchor_keys(rev, rid, rpos, qpos, span, av):
+    """The anchors' sort keys (rev << 30 | rid, rpos, span << 20 | qpos)
+    as int32 bit patterns, the all-ones sentinel on every plane of an
+    invalid lane: what _expand_anchors sorts, rebuilt from its planes."""
+    def key(x):
+        return torch.where(av, x, torch.full_like(x, -1))
+    return (key((rev << 30) | rid), key(rpos), key((span << 20) | qpos))
+
+
+def anchors_of_keys(key1, key2, key3):
+    """Sorted anchor keys -> the planes rev, rid, rpos, qpos, span and the
+    valid mask (key1 not the sentinel)."""
     k1u = u32(key1)
     return ((k1u >> 30).to(torch.int32) & 1,
             (k1u & 0x3FFFFFFF).to(torch.int32),
             key2.contiguous(),
             (key3 & 0xFFFFF).contiguous(),
             (u32(key3) >> 20).to(torch.int32),
-            av.contiguous(), rep_len)
+            (key1 != -1).contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -96,3 +96,82 @@ def test_cal_max_occ_matches_jax():
     tmi = MiniIndex.build_codes(names, seqs, w=10, k=15)
     for f in (2e-4, 0.01, 0.1):
         assert tmi.cal_max_occ(f) == jmi.cal_max_occ(f)
+
+
+# -- the host library's index build: batched sketch + stable radix sort --
+
+def _codes_with_ns(rng, n):
+    """Random codes with N runs and homopolymer runs (HPC has work)."""
+    c = rng.integers(0, 4, n).astype(np.uint8)
+    for st in rng.integers(0, n - 50, 6):
+        c[st:st + int(rng.integers(1, 30))] = 4
+    for st in rng.integers(0, n - 50, 40):
+        c[st:st + int(rng.integers(2, 12))] = c[st]
+    return c
+
+
+@pytest.mark.parametrize("k", [15, 21])
+@pytest.mark.parametrize("hpc", [False, True])
+def test_native_sketch_many_and_radix_sort_match_jax(k, hpc):
+    import minimap2_tpu.native as jax_native
+    from minimap2_tpu_torch import native
+    assert jax_native.available() and native.available()
+    rng = np.random.default_rng(100 + k + hpc)
+    lens = [30000, 7, 12000, k, 5000]          # two contigs of < k + w
+    S = np.concatenate([_codes_with_ns(rng, n) if n > 50
+                        else rng.integers(0, 4, n).astype(np.uint8)
+                        for n in lens])
+    offs = np.cumsum([0] + lens[:-1]).astype(np.int64)
+    lens = np.array(lens, np.int64)
+    x, y = native.sketch_many(S, offs, lens, 10, k, hpc)
+    jx, jy = jax_native.sketch_many(S, offs, lens, 10, k, hpc)
+    assert len(x) > 1000
+    np.testing.assert_array_equal(x, jx)
+    np.testing.assert_array_equal(y, jy)
+    # stable: within a key the payloads keep their order, here y order
+    # reversed, so a sort by (key, y) would differ
+    h = np.ascontiguousarray(x >> np.uint64(8))
+    h = np.concatenate([h, h[:500]])
+    yr = np.ascontiguousarray(np.concatenate([y, y[:500]])[::-1])
+    hr = np.ascontiguousarray(h[::-1])
+    jh, jyr = hr.copy(), yr.copy()
+    native.radix_sort_pair(hr, yr, 2 * k)
+    jax_native.radix_sort_pair(jh, jyr, 2 * k)
+    np.testing.assert_array_equal(hr, jh)
+    np.testing.assert_array_equal(yr, jyr)
+    order = np.argsort(h[::-1], kind="stable")
+    np.testing.assert_array_equal(yr, np.concatenate([y, y[:500]])[::-1]
+                                  [order])
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_build_codes_routes_match_jax(route, monkeypatch):
+    """MiniIndex.build_codes through the host library and through NumPy
+    (native.available monkeypatched false) give the JAX build's keys,
+    starts and positions, on contigs with Ns and repeats, HPC off and
+    on."""
+    from minimap2_tpu_torch import native
+    calls = []
+    if route == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+    else:
+        for fn in ("sketch_many", "radix_sort_pair"):
+            orig = getattr(native, fn)
+            monkeypatch.setattr(native, fn, lambda *a, _f=orig, _n=fn:
+                                calls.append(_n) or _f(*a))
+    rng = np.random.default_rng(77)
+    rep = _codes_with_ns(rng, 3000)
+    seqs = [np.concatenate([rep, _codes_with_ns(rng, 20000), rep]),
+            rng.integers(0, 4, 9).astype(np.uint8),
+            np.concatenate([rep[::-1], rep])]
+    names = ["a", "b", "c"]
+    for k, flag in ((15, 0), (19, 1)):
+        jmi = JaxMiniIndex.build_codes(names, seqs, w=10, k=k, flag=flag)
+        tmi = MiniIndex.build_codes(names, seqs, w=10, k=k, flag=flag)
+        assert len(tmi.keys) > 1000
+        for name in ("keys", "starts", "pos", "S"):
+            a, b = getattr(tmi, name), getattr(jmi, name)
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert calls == (["sketch_many", "radix_sort_pair"] * 2
+                     if route == "native" else [])
