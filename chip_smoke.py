@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; nothing is caught; each prints its
 seconds):
   1. the card: nvidia-smi name and power limit; no CUDA device -> exit;
   2. build the CUDA kernels from minimap2_tpu_torch/ops/csrc, and the
-     host library from minimap2_tpu_torch/native/host_map.cpp (g++);
+     host library from minimap2_tpu_torch/native/host_map.cpp (g++); every
+     CLI phase reads FASTA/FASTQ through the native scanner
+     (native.fastx_scan in native/host_scans.cpp), checked after phase 3
+     and at the end;
   3. the PAF path: a 100 Mb, 8-contig repeat-bearing genome and 1024
      ONT-like 8-11 kb reads through ``minimap2_tpu_torch.cli.main(
      ["--batch", "-x", "map-ont", "-d", "main.mmi", ...])``; every kernel
@@ -171,7 +174,17 @@ seconds):
      and the chain on the anchor planes (256 x 8192); sort1's chunked
      route in the compaction of a seeded 256 x 65536 batch, launches
      counted, bit-equal to sort1_rows_plain at full width, beside
-     torch.sort),
+     torch.sort; the modes no CLI path runs, each through its entry
+     point with the launch counts of that run, bit-equal p and ez and
+     its own row: extd2 on 64 ONT-like jobs at QP = TP 2048, W 640, RB
+     128 (half with a target that turns random, zdrop 400) in exact-max
+     right-aligned with p, exact-max score-only, and approx-drop
+     right-aligned with p; exts2 on 32 cDNA-like jobs at QP 1024, TP 4096
+     (half with a 500-base random query tail, zdrop 200) in exact-max with p and
+     approx-drop right-aligned without p; at least one z-drop each, the
+     count logged; and the wide route past one sort3 row (three stable
+     torch.sort passes): the anchor sort at 64 x 32768 and a two-shard
+     merge at A 16384, against the plain sort),
      timed with CUDA events;
      extd2's DP cell-updates/s as bench.py defines them;
      blocks per SM of every kernel, and the sketch's, sort3's and sort1's
@@ -200,7 +213,13 @@ seconds):
      read's primary hits equal its tp:A:P records in 9b's PAF (contig,
      reference and query interval, strand, mapq, CIGAR); no kernel may
      launch;
- 10. a ``kernels`` JSON line, then the ``ok`` line.
+ 10. the deferred checks: phase 7's plain versions that pay per
+     anti-diagonal (the -a, sr, splice:sr and lr:hqae extd2 and traceback
+     launches, the splice phase's whole exts2 launch and splice traceback,
+     and the whole mode part) run in two child processes
+     (``chip_smoke.py --checks``, stopped if the run fails) beside phases
+     9-9c, whose load is the host's; any mismatch there fails the run
+     before the ``kernels`` JSON line, then the ``ok`` line.
 """
 import contextlib
 import dataclasses
@@ -210,6 +229,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from collections import Counter
@@ -224,6 +244,10 @@ SR_PAIRS, SR_LEN = 2048, 150
 SSR_PAIRS = 2048
 MB_READS, HOST_CUT, HOST_READS = 512, 10_000_000, 128
 OFFDIST_READS, MAPPY_READS = 256, 16
+# the kernels line's rows of phase 7's mode part (no CLI path runs them)
+MODE_ROWS = ("extd2_exact_right", "extd2_exact", "extd2_approx_right_adrop",
+             "exts2_exact", "exts2_approx_right_adrop_nocigar", "sort3_wide",
+             "sort3_shard_merge_wide")
 
 
 def log(msg):
@@ -273,14 +297,19 @@ def timed_once(fn):
     return out, s.elapsed_time(e)
 
 
-def band_cells(lens, w):
-    """Cells the approx-max extd2 updates: per job, the band width
-    en0 - st0 + 1 of every diagonal until the job's band ends."""
+def band_cells(lens, w, nr=None):
+    """Cells the extd2 updates: per job, the band width en0 - st0 + 1 of
+    every diagonal until the job's band ends or, given each job's EZ_NR,
+    before that diagonal (a z-drop ends a job early); w None is exts2's
+    unbanded DP."""
     tot = 0
-    for ql, tl in lens:
-        r = np.arange(ql + tl - 1)
-        st0 = np.maximum(np.maximum(0, r - ql + 1), (r - w + 1) >> 1)
-        en0 = np.minimum(np.minimum(tl - 1, r), (r + w) >> 1)
+    for i, (ql, tl) in enumerate(lens):
+        r = np.arange(ql + tl - 1 if nr is None else int(nr[i]))
+        st0 = np.maximum(0, r - ql + 1)
+        en0 = np.minimum(tl - 1, r)
+        if w is not None:
+            st0 = np.maximum(st0, (r - w + 1) >> 1)
+            en0 = np.minimum(en0, (r + w) >> 1)
         width = en0 - st0 + 1
         dead = np.flatnonzero(width <= 0)
         tot += int(width[:dead[0] if len(dead) else len(width)].sum())
@@ -302,6 +331,36 @@ def bound(nbytes, nops):
     integer/float ops over the non-tensor rate, whichever is larger."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / NONTENSOR_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _extd2_bound(lens_t, w, nr=None, ops=40, with_p=True):
+    """(band cells, bound ms, bound_by) of an extd2 launch on these jobs:
+    what this run's data needs, one p byte a band cell (not the padded
+    (N, RT, W) plane), the live query and target bytes, lens and ez; ops
+    integer ops a cell (40; the exact mode's H row 8 more: its add, the
+    maximum's compare and selects).  nr: each job's EZ_NR, where a
+    z-drop ended it."""
+    from minimap2_tpu_torch.ops import extend
+    lh = lens_t.cpu().numpy().astype(np.int64)
+    n, cells = len(lh), band_cells(lh, w, nr)
+    nb = (cells if with_p else 0) + int(lh.sum()) + n * 8 \
+        + n * extend.EZ_N * 4
+    return (cells,) + bound(nb, ops * cells)
+
+
+def _exts2_bound(lens_t, nr=None, ops=45, with_p=True):
+    """(DP cells, bound ms, bound_by) of an exts2 launch on these jobs:
+    what this run's data needs, one p byte a DP cell (not the padded
+    (N, RT, W) plane the wrapper zero-fills, timed apart as memset_ms),
+    each job's live query bytes and target, donor and acceptor bytes,
+    lens and ez; ops integer ops a cell (45; the exact mode 8 more); nr
+    as _extd2_bound's."""
+    from minimap2_tpu_torch.ops import extend
+    lh = lens_t.cpu().numpy().astype(np.int64)
+    n, cells = len(lh), band_cells(lh, None, nr)
+    live = int(lh[:, 0].sum()) + 3 * int(lh[:, 1].sum())
+    nb = (cells if with_p else 0) + live + n * 8 + n * extend.EZ_N * 4
+    return (cells,) + bound(nb, ops * cells)
 
 
 def sketch_ops(w):
@@ -329,6 +388,144 @@ def library_sort3(k1, k2, k3):
         order = torch.sort(key, dim=1, stable=True).indices
         idx = order if idx is None else torch.gather(idx, 1, order)
     return tuple(torch.gather(x, 1, idx) for x in planes)
+
+
+class Deferred:
+    """Plain-version checks of phase 7 that pay per anti-diagonal (the -a,
+    sr and lr:hqae extd2 + traceback launches, the splice phase's whole
+    exts2 launch, the mode part) run in two child processes
+    (``chip_smoke.py --checks``) beside the card-vs-CPU phases, which load
+    the host, not the card: each job's inputs go to a file, a child runs
+    the kernel and the plain version on them and compares, and the results
+    fill the kernel rows before the kernels line (a mismatch fails the run
+    there), each row's max_abs_err then the largest of its parts'.  A
+    dict of a row that waits for a result carries ``deferred: key:part``
+    until then.  The kernels are launched, counted and timed in this
+    process before the children start; the children take one thread
+    each and end before phases 9b-9c time the host."""
+
+    def __init__(self, tmp):
+        self.tmp, self.jobs, self.procs = tmp, [], []
+
+    def add(self, kind, cost, **spec):
+        """A job of about ``cost`` plain diagonals; returns its key."""
+        key = f"{kind}{len(self.jobs)}"
+        path = os.path.join(self.tmp, f"check_{key}.pt")
+        torch.save(dict(spec, kind=kind, key=key), path)
+        self.jobs.append((cost, path))
+        return key
+
+    def start(self, n_proc=2):
+        """The jobs, largest first, each to the child with less so far."""
+        lists = [[0, []] for _ in range(n_proc)]
+        for cost, path in sorted(self.jobs, reverse=True):
+            lst = min(lists, key=lambda x: x[0])
+            lst[0] += cost
+            lst[1].append(path)
+        for i, (_, paths) in enumerate(lists):
+            out, lg = (os.path.join(self.tmp, f"checks{i}.{x}")
+                       for x in ("json", "log"))
+            with open(lg, "w") as f:
+                self.procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--checks",
+                     out, *paths], stdout=f, stderr=subprocess.STDOUT),
+                    out, lg))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):       # a failed run stops its children
+        for proc, _, _ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def finish(self, rows):
+        results = []
+        for proc, out, lg in self.procs:
+            rc = proc.wait(timeout=1200)
+            with open(lg) as f:
+                for ln in f:
+                    log(ln.rstrip("\n"))
+            require(rc == 0, f"a deferred checks' child exited with {rc}")
+            with open(out) as f:
+                results += json.load(f)
+        require(len(results) == len(self.jobs), "a deferred check is missing")
+        done = {}
+        for r in results:
+            for part, vals in r.items():
+                if isinstance(vals, dict):
+                    require(vals["max_abs_err"] == 0, f"{r['key']} {part} "
+                            f"differs from its plain version ({vals})")
+                    done[f"{r['key']}:{part}"] = vals
+
+        def fill(d):
+            if isinstance(d, dict):
+                if "deferred" in d:
+                    d.update(done[d.pop("deferred")])
+                for v in d.values():
+                    fill(v)
+        for row in rows:
+            fill(row)
+            row["max_abs_err"] = worst_err(row)
+
+
+def worst_err(d):
+    """The largest max_abs_err of d and of every part of it."""
+    return max([d.get("max_abs_err", 0)] + [
+        worst_err(v) for v in d.values() if isinstance(v, dict)])
+
+
+DEFER = None        # main's Deferred; phase functions check inline without
+
+
+def plain_note(x):
+    """A plain version's time for a log line, or where it went."""
+    if x.get("plain_ms") is None:
+        return "plain version in the deferred checks"
+    return f"plain {x['plain_ms']:.0f} ms on {x.get('plain_jobs', '')} jobs"
+
+
+def run_checks(out, jobs):
+    """The child of Deferred: each job's check, its results to out (the
+    kernels load from the build the parent made; one thread: the plain
+    versions run on the card, and the host phases beside them want the
+    cores)."""
+    torch.set_num_threads(1)
+    results = []
+    for path in jobs:
+        spec = torch.load(path)
+        t = time.time()
+        if spec["kind"] == "extd2_tb":
+            ext, tb = _extd2_tb_plain(spec["args"], spec["kw"], spec["n_p"])
+            r = dict(ext=ext, tb=tb)
+        elif spec["kind"] == "exts2_launch":
+            ext, tb = _exts2_launch_plain(spec["args"], spec["kw"])
+            r = dict(launch_ext=ext, launch_tb=tb)
+        else:
+            r = dict(dp=_mode_plain(spec["dp"], spec["args"], spec["kw"],
+                                    spec["m"], ez_main=spec["ez"]))
+        results.append(dict(r, key=spec["key"]))
+        log(f"[deferred] {spec['key']}: {time.time() - t:.1f}s "
+            + ", ".join(f"{k} {v}" for k, v in r.items()))
+        del spec
+        torch.cuda.empty_cache()
+    with open(out, "w") as f:
+        json.dump(results, f)
+
+
+def reader_check(tag):
+    """The CLI phases read FASTA/FASTQ through the native scanner
+    (native.fastx_scan), never the Python parser: the host library must
+    have loaded."""
+    from minimap2_tpu_torch import native
+    from minimap2_tpu_torch.io import fastx
+    require(native.available(), "the native host library did not load")
+    log(f"[reader] {tag}: native.fastx_scan calls {fastx.routes['native']}, "
+        f"records parsed in Python {fastx.routes['python']}")
+    require(fastx.routes["native"] > 0 and fastx.routes["python"] == 0,
+            f"{tag} did not read through native.fastx_scan only "
+            f"({dict(fastx.routes)})")
 
 
 def phase_card():
@@ -2107,16 +2304,26 @@ def _exts2_plain(args, kw, RT):
     return pp, exts._ez_dead(ezp, args[4], kw["G"], kw["RB"], RT)
 
 
-def _exts2_bound(lens_t):
-    """(DP cells, bound ms, bound_by) of an exts2 launch on these jobs:
-    what this run's data needs, one p byte a DP cell (not the padded
-    (N, RT, W) plane the wrapper zero-fills, timed apart as memset_ms),
-    each job's live query bytes and target, donor and acceptor bytes,
-    lens and ez; 45 ops a cell."""
-    lh = lens_t.cpu().numpy().astype(np.int64)
-    n, cells = len(lh), int((lh[:, 0] * lh[:, 1]).sum())
-    live = int(lh[:, 0].sum()) + 3 * int(lh[:, 1].sum())
-    return (cells,) + bound(cells + live + n * 8 + n * 16 * 4, 45 * cells)
+def _exts2_launch_plain(args, kw, p=None, ez=None):
+    """exts2 and the splice traceback against their plain versions on one
+    whole launch (args: qr, sf, dn, ac, lens; the kernel runs here unless
+    its outputs are given), compared 16 jobs at a time: ({max_abs_err,
+    plain_ms} of exts2, of the traceback)."""
+    from minimap2_tpu_torch.ops import exts, traceback
+    if p is None:
+        p, ez = exts.exts2_batch(*args, **kw)
+    N, RT = p.shape[:2]
+    (pp, ezp), ms = timed_once(lambda: _exts2_plain(args, kw, RT))
+    err = max([max_abs_err_u8([p[i:i + 16]], [pp[i:i + 16]])
+               for i in range(0, N, 16)] + [max_abs_err([ez], [ezp])])
+    del pp
+    tkw = dict(RB=kw["RB"], w=0, splice=True, QP=args[0].shape[1])
+    ops, fin = traceback.traceback_batch(p, args[4], **tkw)
+    (ops2, fin2), tb_ms = timed_once(
+        lambda: traceback.traceback_batch_plain(p, args[4], **tkw))
+    err_t = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
+    return (dict(max_abs_err=err, plain_ms=ms),
+            dict(max_abs_err=err_t, plain_ms=tb_ms))
 
 
 def _exts2_traceback_splice(tag, first, n=32):
@@ -2194,9 +2401,10 @@ def ptxas_usage(src):
             if n:
                 start = ns.end() + int(ns[1]) + n.end()
                 end = start + int(n[0])
-                args = re.match(r"I((?:Li\d+E)+)E", name[end:])
+                args = re.match(r"I((?:L[ib]\d+E)+)E", name[end:])
                 name = name[start:end] + ("<" + ", ".join(
-                    re.findall(r"Li(\d+)E", args[1])) + ">" if args else "")
+                    re.findall(r"L[ib](\d+)E", args[1])) + ">" if args
+                    else "")
             out.append(name)
         elif on and out and ("registers" in ln or "spill" in ln):
             out[-1] += "; " + ln.split(":")[-1].strip()
@@ -2413,12 +2621,47 @@ def phase_kernels(main, hpc, spl, dvb, g38):
     return rows
 
 
+def _extd2_tb_plain(args, ext_kw, n_p, p=None, ez=None, ops=None, fin=None):
+    """extd2 and the traceback against their plain versions on the first
+    n_p jobs of one launch (args: qr, sf, lens; ext_kw the launch's; the
+    kernels run here unless their outputs are given): bit-equal.  Returns
+    ({max_abs_err, plain_ms, plain_jobs} of extd2, of the traceback)."""
+    from minimap2_tpu_torch.ops import extend, traceback
+    qr, sf, lens = args
+    k = ext_kw
+    W, RB, w, G = k["W"], k["RB"], k["w"], k["G"]
+    if p is None:
+        p, ez = extend.extd2_batch2(qr, sf, lens, **k)
+    RT = p.shape[1]
+
+    def extd2_plain():
+        pp, ezp = extend.extd2_batch2_plain(
+            qr[:n_p], sf[:n_p], lens[:n_p], W=W, RB=RB, RT=RT, q=k["q"],
+            e=k["e"], q2=k["q2"], e2=k["e2"], w=w, sc_mch=k["sc_mch"],
+            sc_mis=k["sc_mis"], sc_N=k["sc_N"])
+        return pp, extend._ez_dead(ezp, lens[:n_p], G, RB, RT)
+    (pp, ezp), ext_ms = timed_once(extd2_plain)
+    err = max([max_abs_err_u8([p[i:i + 16]], [pp[i:i + 16]])
+               for i in range(0, n_p, 16)] + [max_abs_err([ez[:n_p]], [ezp])])
+    del pp
+    if ops is None:
+        ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
+    (ops2, fin2), tb_ms = timed_once(
+        lambda: traceback.traceback_batch_plain(p[:n_p], lens[:n_p], RB=RB,
+                                                w=w))
+    err_t = max(max_abs_err_u8([ops[:n_p]], [ops2]),
+                max_abs_err([fin[:n_p]], [fin2]))
+    return (dict(max_abs_err=err, plain_ms=ext_ms, plain_jobs=n_p),
+            dict(max_abs_err=err_t, plain_ms=tb_ms, plain_jobs=n_p))
+
+
 def _extd2_traceback(job, n_first=64, n_plain=None):
     """extd2 against its plain version on one captured align launch (the
     whole launch, or its first n_plain jobs: n_plain a multiple of G, so
     that EZ_DEAD's group rule is the launch's), timed on the whole launch
     and on its first n_first jobs, and the traceback likewise on that
-    launch's p: bit-equal, timed with CUDA events, each beside its bound.
+    launch's p: bit-equal, timed with CUDA events, each beside its bound;
+    the plain versions in the deferred checks when main runs them.
     Returns (extd2 dict, traceback dict, the ext_kw of the launch)."""
     from minimap2_tpu_torch.ops import _build, extend, traceback
     qr, sf, lens = job["args"]
@@ -2437,50 +2680,33 @@ def _extd2_traceback(job, n_first=64, n_plain=None):
             f"G {G}")
     held = "the whole first launch" if n_p == N else (
         f"the first launch's first {n_p} jobs")
+    ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
+    if DEFER is not None:
+        key = DEFER.add("extd2_tb", int((lens[:n_p].sum(1) - 1).max()),
+                        args=[qr, sf, lens], kw=ext_kw, n_p=n_p)
+        ext_res, tb_res = (dict(max_abs_err=None, plain_ms=None,
+                                plain_jobs=n_p, deferred=f"{key}:{part}")
+                           for part in ("ext", "tb"))
+    else:
+        ext_res, tb_res = _extd2_tb_plain((qr, sf, lens), ext_kw, n_p, p, ez,
+                                          ops, fin)
+        require(ext_res["max_abs_err"] == 0, f"extd2 differs from its plain "
+                f"version on {held} ({ext_res}; W={W}, QP={QP}, TP={TP})")
+        require(tb_res["max_abs_err"] == 0, f"traceback differs from its "
+                f"plain version on {held} ({tb_res}; W={W})")
 
-    def extd2_plain():
-        pp, ezp = extend.extd2_batch2_plain(
-            qr[:n_p], sf[:n_p], lens[:n_p], W=W, RB=RB, RT=RT, q=kw["q"],
-            e=kw["e"], q2=kw["q2"], e2=kw["e2"], w=w, sc_mch=kw["sc_mch"],
-            sc_mis=kw["sc_mis"], sc_N=0)
-        return pp, extend._ez_dead(ezp, lens[:n_p], G, RB, RT)
-    (pp, ezp), ext_plain_ms = timed_once(extd2_plain)
-    err = max([max_abs_err_u8([p[i:i + 16]], [pp[i:i + 16]])
-               for i in range(0, n_p, 16)] + [max_abs_err([ez[:n_p]], [ezp])])
-    require(err == 0, f"extd2 differs from its plain version on {held} "
-            f"({err}; W={W}, QP={QP}, TP={TP})")
-    del pp
-
-    def extd2_bound(lens_t):
-        # what this run's data needs: one p byte a band cell (not the
-        # padded (N, RT, W) plane), the live query and target bytes, lens
-        # and ez; 40 ops a cell
-        lh = lens_t.cpu().numpy().astype(np.int64)
-        n, cells = len(lh), band_cells(lh, w)
-        return (cells,) + bound(cells + int(lh.sum()) + n * 8
-                                + n * extend.EZ_N * 4, 40 * cells)
-    cells, bms, by = extd2_bound(lens)
+    cells, bms, by = _extd2_bound(lens, w)
     ext_ms = cuda_ms(lambda: extend.extd2_batch2(qr, sf, lens, **ext_kw),
                      reps=3)
     f_n = [x[:n_first] for x in (qr, sf, lens)]
-    cells_n, bms_n, by_n = extd2_bound(f_n[2])
+    cells_n, bms_n, by_n = _extd2_bound(f_n[2], w)
     ms_n = cuda_ms(lambda: extend.extd2_batch2(*f_n, **ext_kw), reps=5)
-    per_sm = _build.blocks_per_sm("extd2", W, QP, TP)
-    ext = dict(max_abs_err=err, ms=ext_ms, plain_ms=ext_plain_ms,
-               plain_jobs=n_p, bound_ms=bms, bound_by=by,
+    per_sm = _build.blocks_per_sm("extd2", W, QP, TP, 0)
+    ext = dict(**ext_res, ms=ext_ms, bound_ms=bms, bound_by=by,
                shape=[N, QP, TP, W, RT],
                band_cells=cells, blocks_per_sm=per_sm,
                first64=dict(ms=ms_n, bound_ms=bms_n, bound_by=by_n,
                             band_cells=cells_n))
-
-    ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
-    (ops2, fin2), tb_plain_ms = timed_once(
-        lambda: traceback.traceback_batch_plain(p[:n_p], lens[:n_p], RB=RB,
-                                                w=w))
-    err = max(max_abs_err_u8([ops[:n_p]], [ops2]),
-              max_abs_err([fin[:n_p]], [fin2]))
-    require(err == 0, f"traceback differs from its plain version on {held}"
-            f" ({err}; W={W})")
 
     def tb_bound(ops_t):     # one p byte per visited diagonal, ops, lens, fin
         n, visited = ops_t.shape[0], int((ops_t != 0).sum())
@@ -2493,8 +2719,7 @@ def _extd2_traceback(job, n_first=64, n_plain=None):
     tb_ms_n = cuda_ms(lambda: traceback.traceback_batch(p_n, f_n[2], RB=RB,
                                                         w=w), reps=5)
     walk = longest_walk(ops)
-    tb = dict(max_abs_err=err, ms=tb_ms, plain_ms=tb_plain_ms,
-              plain_jobs=n_p, bound_ms=tbms,
+    tb = dict(**tb_res, ms=tb_ms, bound_ms=tbms,
               bound_by=tby, shape=[N, RT, W], visited=visited,
               longest_walk=walk, ns_per_diagonal=1e6 * tb_ms / max(walk, 1),
               blocks_per_sm=_build.blocks_per_sm("traceback", 0),
@@ -2551,9 +2776,8 @@ def _log_extd2_traceback(tag, x, y, k):
         f"(QP={QP}, TP={TP}, W={W}, w={k['w']}, R={RT}, scores "
         f"a{k['sc_mch']} b{-k['sc_mis']} q{k['q']} e{k['e']} q{k['q2']} "
         f"e{k['e2']}, {x['band_cells']} band cells, "
-        f"{x['blocks_per_sm']} blocks per SM): {x['ms']:.3f} ms, plain "
-        f"{x['plain_ms']:.0f} ms on {x['plain_jobs']} jobs, bound "
-        f"{x['bound_ms']:.4f} ms "
+        f"{x['blocks_per_sm']} blocks per SM): {x['ms']:.3f} ms, "
+        f"{plain_note(x)}, bound {x['bound_ms']:.4f} ms "
         f"({x['bound_by']}); on its first 64 jobs "
         f"({x['first64']['band_cells']} band cells): "
         f"{x['first64']['ms']:.3f} ms, bound "
@@ -2562,8 +2786,7 @@ def _log_extd2_traceback(tag, x, y, k):
         f"jobs, {y['visited']} diagonals visited, the longest walk "
         f"{y['longest_walk']} diagonals, {y['blocks_per_sm']} blocks per "
         f"SM): {y['ms']:.3f} ms = {y['ns_per_diagonal']:.1f} ns a "
-        f"diagonal of the longest walk, plain {y['plain_ms']:.0f} ms on "
-        f"{y['plain_jobs']} jobs, "
+        f"diagonal of the longest walk, {plain_note(y)}, "
         f"bound {y['bound_ms']:.6f} ms ({y['bound_by']}); on its first "
         f"64 jobs: {y['first64']['ms']:.3f} ms, bound "
         f"{y['first64']['bound_ms']:.6f} ms ({y['first64']['bound_by']})")
@@ -2653,9 +2876,7 @@ def phase_sr_kernels(srp, rows, path="sr"):
     ext, tb, ext_kw = _extd2_traceback(srp["first_job"])
     _log_extd2_traceback(path, ext, tb, ext_kw)
     for name, x in (("extd2", ext), ("traceback", tb)):
-        by[name][path] = x
-        by[name]["max_abs_err"] = max(by[name]["max_abs_err"],
-                                      x["max_abs_err"])
+        by[name][path] = x      # its error joins the row's in finish
 
 
 def phase_offdist_kernels(od, rows):
@@ -2910,9 +3131,7 @@ def phase_rmq_kernels(lrq, mb, rows):
     ext, tb, ext_kw = _extd2_traceback(lrq["first_job"], n_plain=32)
     _log_extd2_traceback("lr:hqae", ext, tb, ext_kw)
     for name, x in (("extd2", ext), ("traceback", tb)):
-        by[name]["lr:hqae"] = x
-        by[name]["max_abs_err"] = max(by[name]["max_abs_err"],
-                                      x["max_abs_err"])
+        by[name]["lr:hqae"] = x      # its error joins the row's in finish
 
     # map_batch's launch: score only (no p), zdrop 400, G 16, RB 128
     (qr, sf, lens), kw = mb["first_job"]["args"], mb["first_job"]["kw"]
@@ -2934,8 +3153,7 @@ def phase_rmq_kernels(lrq, mb, rows):
     err = max_abs_err([ez], [ezp])
     require(err == 0, f"score-only extd2 differs from its plain version on "
             f"map_batch's launch ({err})")
-    cells = band_cells(lens.cpu().numpy(), w)
-    bms, bby = bound(N * (QP + TP) + N * 8 + N * extend.EZ_N * 4, 40 * cells)
+    cells, bms, bby = _extd2_bound(lens, w, with_p=False)
     ms = cuda_ms(lambda: extend.extd2_batch2(qr, sf, lens, **kw), reps=5)
     row = dict(
         name="extd2_score_only", route="cuda",
@@ -2945,7 +3163,7 @@ def phase_rmq_kernels(lrq, mb, rows):
         plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
         shape=[N, QP, TP, W], w=w, zdrop=kw["zdrop"], band_cells=cells,
         dp_cells_per_s=cells / (ms / 1e3),
-        blocks_per_sm=_build.blocks_per_sm("extd2", W, QP, TP))
+        blocks_per_sm=_build.blocks_per_sm("extd2", W, QP, TP, 0))
     log(f"[kernels] extd2 score-only (map_batch's launch: {N} jobs, QP={QP},"
         f" TP={TP}, W={W}, w={w}, zdrop {kw['zdrop']}, {cells} band cells, "
         f"{row['blocks_per_sm']} blocks per SM): bit-equal ez, {ms:.3f} ms "
@@ -3010,48 +3228,44 @@ def phase_new_kernels(hpc, spl):
                                          spl["first"])
     _, QP, _, _, RT = ext["shape"]
     del p
-    # the whole first launch, compared 16 jobs at a time
+    # the whole first launch, compared 16 jobs at a time, and the splice
+    # traceback on its p (in the deferred checks when main runs them)
     pl, ezl = exts.exts2_batch(*launch, **kw)
-    (ppl, ezpl), launch_plain_ms = timed_once(
-        lambda: _exts2_plain(launch, kw, RT))
-    err_l = max([max_abs_err_u8([pl[i:i + 16]], [ppl[i:i + 16]])
-                 for i in range(0, NL, 16)] + [max_abs_err([ezl], [ezpl])])
-    require(err_l == 0, f"exts2 differs from its plain version on the "
-            f"whole first launch ({err_l})")
-    del ppl
+    if DEFER is not None:
+        key = DEFER.add("exts2_launch", RT, args=list(launch), kw=kw)
+        res_l, res_tl = (dict(max_abs_err=None, plain_ms=None,
+                              deferred=f"{key}:{part}")
+                         for part in ("launch_ext", "launch_tb"))
+    else:
+        res_l, res_tl = _exts2_launch_plain(launch, kw, pl, ezl)
+        require(res_l["max_abs_err"] == 0 and res_tl["max_abs_err"] == 0,
+                f"exts2 or the splice traceback differs from its plain "
+                f"version on the whole first launch ({res_l}, {res_tl})")
     l_cells, l_bms, l_by = _exts2_bound(launch[4])
     launch_ms = cuda_ms(lambda: exts.exts2_batch(*launch, **kw), reps=3)
     memset_ms = cuda_ms(lambda: torch.zeros((NL, RT, W), dtype=torch.uint8,
                                             device="cuda"), reps=3)
-    per_sm = _build.blocks_per_sm("exts2", W, QP, kw["TP"])
+    per_sm = _build.blocks_per_sm("exts2", W, QP, kw["TP"], 0)
     log(f"[kernels] exts2 on the splice phase's first launch, {NL} jobs "
         f"(both strand rounds), {l_cells} DP cells: {launch_ms:.3f} ms "
-        f"(of it {memset_ms:.3f} ms zeroing p), plain "
-        f"{launch_plain_ms:.0f} ms, bound {l_bms:.4f} ms ({l_by}); "
-        f"{per_sm} blocks per SM")
+        f"(of it {memset_ms:.3f} ms zeroing p), {plain_note(res_l)}, "
+        f"bound {l_bms:.4f} ms ({l_by}); {per_sm} blocks per SM")
     rows.append(dict(
         name="exts2", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/exts2.cu",
         replaces="minimap2_tpu/ops/exts_pallas.py:525",
         launches=spl["launches"].get("exts2", 0),
-        max_abs_err=max(ext["max_abs_err"], err_l), library_ms=None,
+        max_abs_err=ext["max_abs_err"],     # the launch's joins in finish
+        library_ms=None,
         **{k: v for k, v in ext.items() if k != "max_abs_err"},
         launch=dict(jobs=NL, blocks_per_sm=per_sm, dp_cells=l_cells,
-                    max_abs_err=err_l, ms=launch_ms, memset_ms=memset_ms,
-                    plain_ms=launch_plain_ms, bound_ms=l_bms,
-                    bound_by=l_by)))
+                    ms=launch_ms, memset_ms=memset_ms, bound_ms=l_bms,
+                    bound_by=l_by, **res_l)))
 
     tkw = dict(RB=RB, w=0, splice=True, QP=QP)
     # the whole first launch (both strand rounds of a sub-batch)
     lens_l = launch[4]
     opsl, finl = traceback.traceback_batch(pl, lens_l, **tkw)
-    (opsl2, finl2), tbl_plain_ms = timed_once(
-        lambda: traceback.traceback_batch_plain(pl, lens_l, **tkw))
-    err_tl = max(max_abs_err_u8([opsl], [opsl2]),
-                 max_abs_err([finl], [finl2]))
-    require(err_tl == 0, f"splice traceback differs from its plain version "
-            f"on the whole first launch ({err_tl})")
-    del opsl2
     visited_l = int((opsl != 0).sum())
     walk = longest_walk(opsl)
     tl_bms, tl_by = bound(visited_l + NL * RT + NL * 8 + NL * 8, 0)
@@ -3063,20 +3277,317 @@ def phase_new_kernels(hpc, spl):
         f"{visited_l} diagonals visited, the longest walk {walk} diagonals, "
         f"{tb_sm} blocks per SM): {tbl_ms:.3f} ms = "
         f"{1e6 * tbl_ms / max(walk, 1):.1f} ns a diagonal of the longest "
-        f"walk, plain {tbl_plain_ms:.0f} ms, bound {tl_bms:.6f} ms ({tl_by})")
+        f"walk, {plain_note(res_tl)}, bound {tl_bms:.6f} ms ({tl_by})")
     rows.append(dict(
         name="traceback_splice", route="cuda",
         source="minimap2_tpu_torch/ops/csrc/traceback.cu",
         replaces="minimap2_tpu/ops/traceback_pallas.py:155",
         launches=spl["launches"].get("traceback_splice", 0),
-        max_abs_err=max(tb["max_abs_err"], err_tl), library_ms=None,
+        max_abs_err=tb["max_abs_err"],      # the launch's joins in finish
+        library_ms=None,
         **{k: v for k, v in tb.items() if k != "max_abs_err"},
-        launch=dict(jobs=NL, max_abs_err=err_tl, ms=tbl_ms,
-                    plain_ms=tbl_plain_ms, bound_ms=tl_bms, bound_by=tl_by,
+        launch=dict(jobs=NL, ms=tbl_ms, **res_tl,
+                    bound_ms=tl_bms, bound_by=tl_by,
                     visited=visited_l, longest_walk=walk,
                     ns_per_diagonal=1e6 * tbl_ms / max(walk, 1),
                     blocks_per_sm=tb_sm)))
     return rows
+
+
+def _mode_ont_jobs(rng, n, QP, TP):
+    """n ONT-like extension jobs of 900-1400 query bases (5%
+    substitutions, 2.5% insertions and deletions each); in every other job
+    the target turns random after 30-60% of its length, so the exact and
+    approx-drop modes z-drop there."""
+    qr = np.zeros((n, QP), np.uint8)
+    sf = np.zeros((n, TP), np.uint8)
+    lens = np.zeros((n, 2), np.int32)
+    for i in range(n):
+        ql = int(rng.integers(900, min(QP, 1400) + 1))
+        q = rng.integers(0, 4, ql).astype(np.uint8)
+        t = np.where(rng.random(ql) < 0.05, (q + rng.integers(1, 4, ql)) % 4,
+                     q)[rng.random(ql) >= 0.025]
+        ins = rng.random(len(t)) < 0.025
+        out = rng.integers(0, 4, len(t) + int(ins.sum()))
+        out[np.arange(len(t)) + np.cumsum(ins) - ins] = t
+        t = out[:TP].astype(np.uint8)
+        if i % 2 == 0:
+            k = int(len(t) * rng.uniform(0.3, 0.6))
+            t[k:] = rng.integers(0, 4, len(t) - k)
+        qr[i, :ql] = q[::-1]
+        sf[i, :len(t)] = t
+        lens[i] = (ql, len(t))
+    return qr, sf, lens
+
+
+def _mode_cdna_jobs(rng, n, QP, TP):
+    """n cDNA-like splice jobs: a query of 2-3 exons (300-1000 bases, 1%
+    substitutions) against its genomic span, GT..AG introns of 80-600
+    bases; in every other job the query goes on past its span for 500
+    random bases (after 300-500 spliced ones), so the exact and
+    approx-drop modes z-drop there."""
+    qr = np.zeros((n, QP), np.uint8)
+    sf = np.zeros((n, TP), np.uint8)
+    lens = np.zeros((n, 2), np.int32)
+    for i in range(n):
+        tail = 500 if i % 2 == 0 else 0
+        ql = int(rng.integers(300, 501) if tail else rng.integers(600, 1001))
+        q = rng.integers(0, 4, ql).astype(np.uint8)
+        cuts = np.sort(rng.choice(np.arange(80, ql - 80),
+                                  int(rng.integers(1, 3)), replace=False))
+        parts, prev = [], 0
+        for c in list(cuts) + [ql]:
+            parts.append(q[prev:c])
+            if c < ql:
+                iv = rng.integers(0, 4, int(rng.integers(80, 601)))
+                iv[:2], iv[-2:] = (2, 3), (0, 2)
+                parts.append(iv.astype(np.uint8))
+            prev = c
+        t = np.concatenate(parts)[:TP]
+        mm = rng.random(ql) < 0.01
+        q[mm] = (q[mm] + 1) % 4
+        q = np.concatenate([q, rng.integers(0, 4, tail).astype(np.uint8)])
+        qr[i, :len(q)] = q[::-1]
+        sf[i, :len(t)] = t
+        lens[i] = (len(q), len(t))
+    return qr, sf, lens
+
+
+def _zdropped(ez, lens, w):
+    """Jobs that z-dropped: EZ_ZDROP set while the band at the diagonal
+    after EZ_NR is still alive (a band that dies sets it too)."""
+    from minimap2_tpu_torch.ops import extend
+    ez, lens = ez.cpu().numpy(), lens.cpu().numpy().astype(np.int64)
+    r = ez[:, extend.EZ_NR].astype(np.int64)
+    ql, tl = lens[:, 0], lens[:, 1]
+    st0 = np.maximum(0, r - ql + 1)
+    en0 = np.minimum(tl - 1, r)
+    if w is not None:
+        st0 = np.maximum(st0, (r - w + 1) >> 1)
+        en0 = np.minimum(en0, (r + w) >> 1)
+    return int(((ez[:, extend.EZ_ZDROP] == 1) & (r < ql + tl - 1)
+                & (st0 <= en0)).sum())
+
+
+def _mode_plain(kind, args, kw, m, outs=None, ez_main=None):
+    """One extd2 or exts2 mode launch against its plain version on the
+    same inputs: p (where the mode writes it) and ez bit-equal.  The
+    kernel runs here unless its outputs are given; ez_main, the ez of the
+    launch that main counted and timed, must equal this launch's.
+    Returns {max_abs_err, plain_ms}."""
+    from minimap2_tpu_torch.ops import extend, exts
+    fn, plain_fn = ((extend.extd2_batch2, extend.extd2_batch2_plain)
+                    if kind == "extd2"
+                    else (exts.exts2_batch, exts.exts2_batch_plain))
+    p, ez = fn(*args, **kw, **m) if outs is None else outs
+    if ez_main is not None:
+        require(torch.equal(ez.cpu(), ez_main), f"{kind} {m}: the check's "
+                f"launch differs from the timed one")
+    RB = kw["RB"]
+    RT = (kw["R"] + RB - 1) // RB * RB
+    pk = {k: kw[k] for k in ("W", "q", "e", "q2", "sc_mch", "sc_mis",
+                             "sc_N", "zdrop")}
+    pk.update(m, RT=RT)
+    if kind == "extd2":
+        pk.update(RB=RB, e2=kw["e2"], w=kw["w"])
+        lens_t = args[2]
+    else:
+        # exts2's blocks take the jobs longest first; its plain version in
+        # job order gives the same rows
+        pk.update(QP=kw["QP"])
+        lens_t = args[4]
+    (pp, ezp), plain_ms = timed_once(lambda: plain_fn(*args, **pk))
+    ezp = extend._ez_dead(ezp, lens_t, kw["G"], RB, RT)
+    err = max_abs_err([ez], [ezp])
+    if m["with_cigar"]:
+        err = max(err, max_abs_err_u8([p], [pp]))
+    else:
+        require(p is None and pp is None, f"{kind} {m} returned p")
+    return dict(max_abs_err=err, plain_ms=plain_ms,
+                plain_jobs=len(lens_t))
+
+
+def phase_mode_kernels(rows, n_ext=64, n_spl=32, n_rows=64):
+    """Phase 7's mode part: each extd2 and exts2 mode off the CLI paths
+    through its entry point (extend.extd2_batch2, exts.exts2_batch), and
+    the anchor sort and the two-shard merge past one sort3 row (the wide
+    route); the launch counts of that run; each timed beside its bound,
+    its own row of the kernels line, and held against its plain version
+    on the same inputs (bit-equal p and ez; the DP modes' plain versions
+    in the deferred checks when main runs them).  (A rehearsal on the CPU
+    may pass fewer jobs and sort rows.)"""
+    from minimap2_tpu_torch.ops import _build, exts, extend, sort
+    from minimap2_tpu_torch.parallel import batch, sharded
+    for src in ("extd2.cu", "exts2.cu"):
+        for ln in ptxas_usage(src):
+            log(f"[kernels] {src}: {ln}")
+    rng = np.random.default_rng(18)
+    # extd2 at map_batch's score-only shape (QP = TP 2048, W 640, RB 128,
+    # G 16, band 500), map-ont scoring, zdrop 400
+    QP = TP = 2048
+    d_in = [torch.from_numpy(x).cuda()
+            for x in _mode_ont_jobs(rng, n_ext, QP, TP)]
+    dkw = dict(G=16, W=640, RB=128, R=QP + TP, QP=QP, TP=TP, q=4, e=2,
+               q2=24, e2=1, w=500, zdrop=400, sc_mch=2, sc_mis=-4, sc_N=-1)
+    d_modes = [("extd2_exact_right", dict(approx_max=False, right_mode=True,
+                                          approx_drop=False,
+                                          with_cigar=True)),
+               ("extd2_exact", dict(approx_max=False, right_mode=False,
+                                    approx_drop=False, with_cigar=False)),
+               ("extd2_approx_right_adrop", dict(
+                   approx_max=True, right_mode=True, approx_drop=True,
+                   with_cigar=True))]
+    # exts2 on 32 cDNA-like jobs at QP 1024 (W 1152, TP 4096), splice
+    # scoring, zdrop 200
+    SQ, ST = 1024, 4096
+    qr, sf, lens = _mode_cdna_jobs(rng, n_spl, SQ, ST)
+    dn, ac = exts.splice_site_arrays(sf, lens[:, 1], True, 9, True, False)
+    s_in = [torch.from_numpy(x).cuda() for x in (qr, sf, dn, ac, lens)]
+    skw = dict(G=8, W=1152, RB=64, R=SQ + ST, QP=SQ, TP=ST, q=2, e=1,
+               q2=32, zdrop=200, sc_mch=1, sc_mis=-2, sc_N=-1)
+    s_modes = [("exts2_exact", dict(approx_max=False, right_mode=False,
+                                    approx_drop=False, with_cigar=True)),
+               ("exts2_approx_right_adrop_nocigar", dict(
+                   approx_max=True, right_mode=True, approx_drop=True,
+                   with_cigar=False))]
+    # the anchor sort at 64 x 32768 and a two-shard merge at A 16384
+    keys = [torch.from_numpy(rng.integers(0, 1 << 32, (n_rows, 32768),
+                                          dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).cuda()
+            for _ in range(3)]
+    keys[0] = torch.where(torch.from_numpy(rng.random(keys[0].shape) < 0.25)
+                          .cuda(), -1, keys[0] & 0x3FF)
+    A = 16384
+
+    def part():
+        av = torch.from_numpy(rng.random((n_rows, A)) < 0.7).cuda()
+        rnd = [torch.from_numpy(rng.integers(0, hi, (n_rows, A))
+                                .astype(np.int32)).cuda()
+               for hi in (2, 195, 1 << 28, 1 << 15)]
+        return batch.anchor_keys(*rnd, torch.full_like(rnd[0], 15), av)
+    parts = [part(), part()]
+    torch.cuda.synchronize()
+
+    _build.launches.clear()
+    outs = {}
+    for name, m in d_modes:
+        outs[name] = extend.extd2_batch2(*d_in, **dkw, **m)
+    for name, m in s_modes:
+        outs[name] = exts.exts2_batch(*s_in, **skw, **m)
+    outs["sort3_wide"] = batch.sort_keys(keys)
+    outs["sort3_shard_merge_wide"] = sharded.merge_anchors(parts, A)
+    torch.cuda.synchronize()
+    counts = Counter(_build.launches)
+    log(f"[kernels] mode run launches: {dict(counts)}")
+    for name, _ in d_modes + s_modes:
+        require(counts.get(name, 0) == 1, f"{name} did not launch "
+                f"({dict(counts)})")
+    require(counts.get("sort3_wide", 0) == 1
+            and counts.get("sort3_shard_merge_wide", 0) == 1
+            and counts.get("sort3", 0) == 0
+            and counts.get("sort3_shard_merge", 0) == 0,
+            f"the sorts past one row did not take the wide route only "
+            f"({dict(counts)})")
+
+    def dp_row(name, kind, args, kw, m):
+        p, ez = outs.pop(name)
+        lens_t = args[2] if kind == "extd2" else args[4]
+        N, W = lens_t.shape[0], kw["W"]
+        if DEFER is not None:
+            key = DEFER.add("mode", int((lens_t.sum(1) - 1).max()),
+                            dp=kind, args=list(args), kw=kw, m=m,
+                            ez=ez.cpu())
+            res = dict(max_abs_err=None, plain_ms=None, plain_jobs=N,
+                       deferred=f"{key}:dp")
+        else:
+            res = _mode_plain(kind, args, kw, m, (p, ez))
+            require(res["max_abs_err"] == 0, f"{name} differs from its "
+                    f"plain version ({res['max_abs_err']})")
+        del p
+        exact = not m["approx_max"]
+        nr = ez[:, extend.EZ_NR].cpu().numpy()
+        if kind == "extd2":
+            w, fn = kw["w"], extend.extd2_batch2
+            cells, bms, bby = _extd2_bound(lens_t, w, nr, 40 + 8 * exact,
+                                           m["with_cigar"])
+        else:
+            w, fn = None, exts.exts2_batch
+            cells, bms, bby = _exts2_bound(lens_t, nr, 45 + 8 * exact,
+                                           m["with_cigar"])
+        nz = _zdropped(ez, lens_t, w)
+        ms = cuda_ms(lambda: fn(*args, **kw, **m), reps=3)
+        mode = (int(exact) | int(m["right_mode"]) << 1
+                | int(m["approx_drop"]) << 2)
+        row = dict(
+            name=name, route="cuda",
+            source=f"minimap2_tpu_torch/ops/csrc/{kind}.cu",
+            replaces=("minimap2_tpu/ops/extend_pallas2.py:658"
+                      if kind == "extd2"
+                      else "minimap2_tpu/ops/exts_pallas.py:525"),
+            launches=counts[name], **res, ms=ms, bound_ms=bms, bound_by=bby,
+            library_ms=None, shape=[N, kw["QP"], kw["TP"], W],
+            zdrop=kw["zdrop"], z_dropped=nz, dp_cells=cells,
+            dp_cells_per_s=cells / (ms / 1e3),
+            blocks_per_sm=_build.blocks_per_sm(kind, W, kw["QP"], kw["TP"],
+                                               mode))
+        log(f"[kernels] {name} ({N} jobs, QP={kw['QP']}, TP={kw['TP']}, "
+            f"W={W}, zdrop {kw['zdrop']}: {nz} jobs z-dropped, {cells} DP "
+            f"cells, {row['blocks_per_sm']} blocks per SM): {ms:.3f} ms = "
+            f"{row['dp_cells_per_s']:.4g} cell-updates/s, {plain_note(row)}"
+            f", bound {bms:.4f} ms ({bby})")
+        rows.append(row)
+        return nz
+    nz_d = sum([dp_row(nm, "extd2", d_in, dkw, m) for nm, m in d_modes])
+    nz_s = sum([dp_row(nm, "exts2", s_in, skw, m) for nm, m in s_modes])
+    require(nz_d > 0 and nz_s > 0, f"no z-drop in the extd2 ({nz_d}) or "
+            f"exts2 ({nz_s}) mode runs")
+
+    # the wide route: three stable torch.sort passes (XLA's lax.sort in
+    # the JAX step, not a Pallas kernel), against the plain network
+    B, W = keys[0].shape
+    err = max_abs_err(outs["sort3_wide"], sort.sort3_rows_plain(*keys))
+    require(err == 0, f"the wide sort differs from its plain version "
+            f"({err})")
+    bms, bby = bound(B * W * 24, B * (W // 2) * sort_stages(W) * 8)
+    rows.append(dict(
+        name="sort3_wide", route="cuda",
+        source="minimap2_tpu_torch/ops/sort.py",
+        replaces="minimap2_tpu/parallel/batch.py:1221 (lax.sort)",
+        launches=counts["sort3_wide"], max_abs_err=err,
+        ms=cuda_ms(lambda: batch.sort_keys(keys), reps=5),
+        plain_ms=cuda_ms(lambda: sort.sort3_rows_plain(*keys), reps=3),
+        bound_ms=bms, bound_by=bby,
+        library_ms=cuda_ms(lambda: library_sort3(*keys), reps=5),
+        shape=[B, W]))
+    r = rows[-1]
+    log(f"[kernels] the wide sort at {B} x {W} (three stable torch.sort "
+        f"passes): bit-equal, {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} "
+        f"ms, bound {bms:.4f} ms ({bby}), library_sort3 "
+        f"{r['library_ms']:.4f} ms")
+    cat = [torch.cat([pt[j] for pt in parts], dim=1) for j in range(3)]
+    want = batch.anchors_of_keys(
+        *(x[:, :A] for x in sort.sort3_rows_plain(*cat)))
+    err = max_abs_err(outs["sort3_shard_merge_wide"], want)
+    require(err == 0, f"the two-shard merge at A {A} differs from one "
+            f"plain sort ({err})")
+    W2 = 2 * A
+    bms, bby = bound(B * W2 * 12 + B * A * 21,
+                     B * (W2 // 2) * sort_stages(W2) * 8)
+    rows.append(dict(
+        name="sort3_shard_merge_wide", route="cuda",
+        source="minimap2_tpu_torch/ops/sort.py",
+        replaces="minimap2_tpu/parallel/batch.py:1567 (lax.sort)",
+        launches=counts["sort3_shard_merge_wide"], max_abs_err=err,
+        ms=cuda_ms(lambda: sharded.merge_anchors(parts, A), reps=5),
+        plain_ms=cuda_ms(lambda: batch.anchors_of_keys(
+            *(x[:, :A] for x in sort.sort3_rows_plain(*cat))), reps=3),
+        bound_ms=bms, bound_by=bby,
+        library_ms=cuda_ms(lambda: library_sort3(*cat), reps=5),
+        shape=[B, W2], keep=A))
+    r = rows[-1]
+    log(f"[kernels] the two-shard merge at A {A} ({B} x {W2} lanes, the "
+        f"wide route): bit-equal to one plain sort, {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.2f} ms, bound {bms:.4f} ms ({bby})")
 
 
 def _records(path, n):
@@ -3486,8 +3997,9 @@ def phase_breakdown(main, tag="PAF"):
     engine.map_batch_paf(mi, step, names, seqs, step.p, io.StringIO(),
                          pending=rec)
     t4 = time.time()
-    log(f"[breakdown] 512-read {tag} batch: host read (1024 reads) "
-        f"{t1 - t0:.3f}s, encode+pack {t2 - t1:.3f}s, device step "
+    log(f"[breakdown] 512-read {tag} batch: host read (1024 reads, "
+        f"native.fastx_scan) {t1 - t0:.3f}s, encode+pack {t2 - t1:.3f}s, "
+        f"device step "
         f"{step_ms:.2f} ms ({dev_ms:.2f} ms of it in kernels, profiler), "
         f"PAF emit {t4 - t3:.3f}s")
     for k, t in top:
@@ -3527,8 +4039,10 @@ def main():
         return out
     card = timed("card", phase_card)
     timed("build", phase_build)
-    with tempfile.TemporaryDirectory() as tmp:
+    global DEFER
+    with tempfile.TemporaryDirectory() as tmp, Deferred(tmp) as DEFER:
         main_ = timed("paf", phase_main_path, tmp)
+        reader_check("the PAF phase")
         long_ = timed("long", phase_long_reads, main_, tmp)
         dvb = timed("devbuild", phase_devbuild, main_, tmp)
         lay = timed("layouts", phase_layouts, main_, dvb, tmp)
@@ -3551,9 +4065,12 @@ def main():
         timed("rmq kernels", phase_rmq_kernels, lrq, mb, rows)
         timed("splice:sr kernels", phase_splice_sr_kernels, ssr, rows)
         timed("sharded kernels", phase_sharded_kernels, shd, rows)
+        timed("mode kernels", phase_mode_kernels, rows)
         for r in rows:          # the PAF kernels also run on the other paths
-            if r["name"] in ("extd2_score_only", "sort3_shard_merge"):
-                continue        # map_batch's mode, the sharded step's merge
+            if r["name"] in ("extd2_score_only", "sort3_shard_merge") \
+                    or r["name"] in MODE_ROWS:
+                continue        # map_batch's mode, the sharded step's
+                                # merge, the modes off the CLI paths
             r["launches_sharded"] = sum(
                 kernel_launches(c, r["name"])
                 + (c.get("sort3_shard_merge", 0) if r["name"] == "sort3"
@@ -3584,6 +4101,8 @@ def main():
         timed("align breakdown", phase_align_breakdown, aln)
         timed("splice breakdown", phase_align_breakdown, spl, True)
         timed("sr breakdown", phase_align_breakdown, srp, False, True)
+        torch.cuda.empty_cache()     # the child's room on the card
+        DEFER.start()                # beside the card-vs-CPU phases
         timed("cross PAF", phase_cross_check, main_)
         timed("cross HPC", phase_cross_check, hpc, "HPC")
         timed("cross -a", phase_align_cross_check, aln, tmp, 4)
@@ -3595,8 +4114,10 @@ def main():
         timed("cross lr:hqae", phase_align_cross_check, lrq, tmp, 4, False,
               "lr:hqae")
         timed("cross map_batch", phase_map_batch_cross_check, mb)
-        host = timed("host", phase_host_route, main_, tmp)
+        timed("deferred checks", DEFER.finish, rows)   # before the host
+        host = timed("host", phase_host_route, main_, tmp)     # rates
         mpy = timed("mappy", phase_mappy, main_, tmp)
+        reader_check("the whole run")
     for ok, msg in (aln["gates"] + spl["gates"] + srp["gates"]
                     + lrq["gates"] + ssr["gates"]):
         require(ok, msg)
@@ -3646,4 +4167,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--checks"]:
+        run_checks(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -1,14 +1,23 @@
-"""FASTA/FASTQ streaming reader: the pure-Python path of
-minimap2_tpu.io.fastx (bseq.c + kseq.h semantics: plain or gzip input,
-U->T conversion), without the native scanner, and the pairing helpers
-qname_same and revcomp_record.  As with the JAX package's native scanner
-(its default reader), a non-blank line where a record should start raises
-ValueError: a binary file is not read as an empty FASTA."""
+"""FASTA/FASTQ streaming reader (bseq.c + kseq.h semantics), the port of
+minimap2_tpu.io.fastx: plain or gzip input, mini-batch reading by total
+bp (mm_bseq_read3 bseq.c:80-119, with frag mode), U->T conversion
+(bseq.c:72-74), and the pairing helpers qname_same and revcomp_record.
+
+Records come from the native buffer scanner (``native.fastx_scan``,
+native/host_scans.cpp) over streamed chunks whenever ``native.available()``,
+as in the JAX package; otherwise from the Python line parser, which gives
+the same records.  Both raise ValueError on a non-blank line where a record
+should start: a binary file is not read as an empty FASTA.  ``routes``
+counts the scanner's calls ("native") and the records the Python parser
+read ("python")."""
 from __future__ import annotations
 
 import gzip
 import io
+from collections import Counter
 from dataclasses import dataclass
+
+routes: Counter = Counter()
 
 
 @dataclass
@@ -17,6 +26,7 @@ class SeqRecord:
     seq: bytes
     qual: bytes | None = None
     comment: str | None = None
+    rid: int = 0
 
 
 _U2T = bytes.maketrans(b"Uu", b"Tt")
@@ -32,12 +42,22 @@ def _open(path: str):
 
 
 class FastxReader:
-    """Record-at-a-time FASTA/FASTQ parser."""
+    """Record-at-a-time FASTA/FASTQ parser: the native buffer scanner over
+    ``_CHUNK``-byte reads, each carrying the unparsed tail of the last,
+    or the Python line parser."""
+
+    _CHUNK = 8 << 20
 
     def __init__(self, path: str):
         self._fp = _open(path)
         self._pending: bytes | None = None
         self.eof = False
+        self._q: list[SeqRecord] = []
+        self._carry = b""
+        self._native = None
+        from .. import native
+        if native.available():
+            self._native = native
 
     def close(self):
         self._fp.close()
@@ -48,7 +68,41 @@ class FastxReader:
             return line
         return self._fp.readline()
 
+    def _fill_native(self) -> None:
+        nat = self._native
+        while not self._q and not self.eof:
+            chunk = self._fp.read(self._CHUNK)
+            if not chunk:
+                if not self._carry:
+                    self.eof = True
+                    return
+                buf, final = self._carry, True
+            else:
+                buf, final = self._carry + chunk, False
+            n, out_seq, meta, qmeta, consumed = nat.fastx_scan(buf, final)
+            routes["native"] += 1
+            sview = out_seq.tobytes()
+            for i in range(n):
+                no, nl, co, cl, so, sl = meta[i]
+                qo, qlq = qmeta[i]
+                self._q.append(SeqRecord(
+                    name=buf[no:no + nl].decode(),
+                    seq=sview[so:so + sl],
+                    qual=sview[qo:qo + qlq] if qlq else None,
+                    comment=buf[co:co + cl].decode() if cl else None))
+            self._carry = b"" if final else buf[consumed:]
+            if final:
+                self.eof = True
+                return
+
     def read1(self) -> SeqRecord | None:
+        if self._native is not None and self._pending is None:
+            if not self._q:
+                self._fill_native()
+            return self._q.pop(0) if self._q else None
+        return self._read1_py()
+
+    def _read1_py(self) -> SeqRecord | None:
         # find header
         while True:
             line = self._readline()
@@ -58,8 +112,9 @@ class FastxReader:
             if line[:1] in (b">", b"@"):
                 line = line.rstrip()
                 break
-            if line.strip(b"\r\n"):   # as the JAX package's native scanner
+            if line.strip(b"\r\n"):   # as the native scanner
                 raise ValueError("malformed FASTA/FASTQ input")
+        routes["python"] += 1
         is_fq = line[:1] == b"@"
         head = line[1:].decode()
         parts = head.split(None, 1)
@@ -92,6 +147,67 @@ class FastxReader:
             seq_parts.append(s)
         seq = b"".join(seq_parts).translate(_U2T)
         return SeqRecord(name=name, seq=seq, qual=qual, comment=comment)
+
+    def read_batch(self, chunk_bp: int,
+                   frag_mode: bool = False) -> list[SeqRecord]:
+        """mm_bseq_read3: read records until >= chunk_bp total bases; in
+        frag mode keep reading while consecutive names pair up (bseq.c:
+        100-112)."""
+        out: list[SeqRecord] = []
+        total = 0
+        while True:
+            rec = self.read1()
+            if rec is None:
+                break
+            out.append(rec)
+            total += len(rec.seq)
+            if total >= chunk_bp:
+                if not frag_mode:
+                    break
+                # keep reading if the next record pairs with the last
+                nxt = self.read1()
+                if nxt is None:
+                    break
+                if qname_same(out[-1].name, nxt.name):
+                    out.append(nxt)
+                    continue
+                self._push_back_record(nxt)
+                break
+        return out
+
+    def _push_back_record(self, rec: SeqRecord):
+        if self._native is not None:
+            self._q.insert(0, rec)
+            return
+        # reconstruct minimal header + body and prepend (rare path, batch
+        # edge)
+        hdr = (b"@" if rec.qual is not None else b">") + rec.name.encode()
+        if rec.comment:
+            hdr += b" " + rec.comment.encode()
+        body = hdr + b"\n" + rec.seq + b"\n"
+        if rec.qual is not None:
+            body += b"+\n" + rec.qual + b"\n"
+        if self._pending is not None:   # the header read past rec's end
+            body += self._pending
+            self._pending = None
+        self._fp = io.BufferedReader(_ConcatStream(io.BytesIO(body),
+                                                   self._fp))
+
+
+class _ConcatStream(io.RawIOBase):
+    """One stream read to its end, then another."""
+
+    def __init__(self, first, second):
+        self.first, self.second = first, second
+
+    def readable(self):
+        return True
+
+    def readinto(self, b):
+        n = self.first.readinto(b)
+        if n:
+            return n
+        return self.second.readinto(b)
 
 
 def qname_same(a: str, b: str) -> bool:
@@ -127,4 +243,4 @@ def revcomp_record(rec: SeqRecord) -> SeqRecord:
                            b"TGCAAtgcaaYRSWMKVHDByrswmkvhdb")
     return SeqRecord(name=rec.name, seq=rec.seq[::-1].translate(comp),
                      qual=rec.qual[::-1] if rec.qual else None,
-                     comment=rec.comment)
+                     comment=rec.comment, rid=rec.rid)

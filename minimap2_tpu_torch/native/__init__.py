@@ -7,7 +7,8 @@ compute the same floats) and the CPU's feature flags (-march=native):
 
 - ``host_scans.cpp``: the scans the --batch -c/-a path runs per alignment
   (the Kadane trim of a forced global CIGAR, the z-drop scan and the
-  mm_update_extra statistics);
+  mm_update_extra statistics) and the FASTA/FASTQ buffer scanner that
+  ``io.fastx.FastxReader`` reads through;
 - ``host_map.cpp``: the host mapping path's sketch, anchor collection,
   chaining DPs (mg_lchain_dp, mg_lchain_rmq) and ksw2 extensions (extd2,
   extz2, exts2, ll), the device index's h2 table build, and the host
@@ -91,6 +92,8 @@ def lib():
     for fn in (lb.mm_zdrop_scan, lb.mm_update_extra_scan,
                lb.mm_cigar_kadane_trim):
         fn.restype = None
+    lb.mm_fastx_scan.argtypes = [P, I64, I, P, I64, P, P, I64, P]
+    lb.mm_fastx_scan.restype = I64
     _libs["scans"] = lb
     return lb
 
@@ -137,6 +140,34 @@ def available() -> bool:
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(C.c_void_p)
+
+
+def fastx_scan(buf: bytes, is_final: bool):
+    """Parse a FASTA/FASTQ text buffer (the kseq.h analogue of
+    minimap2_tpu.native.fastx_scan).  Returns (n_records, seq_bytes
+    ndarray, meta (n, 6) int64, qmeta (n, 2) int64, consumed).  meta
+    columns: name_off, name_len, comment_off, comment_len, seq_off,
+    seq_len; offsets of names into ``buf``, of seq/qual into seq_bytes.
+    Raises ValueError on malformed input."""
+    lb = lib()
+    bufa = np.frombuffer(buf, np.uint8)
+    rec_cap = max(64, len(buf) // 32)
+    seq_cap = len(buf) + 64
+    while True:
+        out_seq = np.empty(seq_cap, np.uint8)
+        meta = np.empty((rec_cap, 6), np.int64)
+        qmeta = np.empty((rec_cap, 2), np.int64)
+        consumed = np.zeros(1, np.int64)
+        n = lb.mm_fastx_scan(_ptr(bufa), len(bufa), int(is_final),
+                             _ptr(out_seq), seq_cap, _ptr(meta), _ptr(qmeta),
+                             rec_cap, _ptr(consumed))
+        if n == -1:             # a cap was exceeded: double both
+            rec_cap *= 2
+            seq_cap *= 2
+            continue
+        if n == -2:
+            raise ValueError("malformed FASTA/FASTQ input")
+        return int(n), out_seq, meta[:n], qmeta[:n], int(consumed[0])
 
 
 def _args(qseq, tseq, cigar, mat):

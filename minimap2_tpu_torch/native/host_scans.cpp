@@ -1,6 +1,7 @@
-// Host scans of the --batch -c/-a path (copied from
-// minimap2_tpu/native/mmtpu.cpp: mm_zdrop_scan :1707, mm_update_extra_scan
-// :1755, mm_cigar_kadane_trim :1982 and the mg_log2f helper :1202).
+// Host scans of the --batch -c/-a path and the FASTA/FASTQ reader (copied
+// from minimap2_tpu/native/mmtpu.cpp: mm_zdrop_scan :1707,
+// mm_update_extra_scan :1755, mm_fastx_scan :1856, mm_cigar_kadane_trim
+// :1982 and the mg_log2f helper :1202).
 // Built with g++ into build/minimap2_tpu_torch/ at first use and bound with
 // ctypes by minimap2_tpu_torch/native/__init__.py.
 #include <cstdint>
@@ -223,6 +224,134 @@ void mm_cigar_kadane_trim(const uint8_t* qseq, const uint8_t* tseq,
             cigar_out[no++] = (uint32_t)keep << 4 | op;
     }
     out8[5] = no;
+}
+
+// ---------------------------------------------------------------------
+// FASTA/FASTQ buffer parser (bseq.c + kseq.h as a C++ host extension):
+// scans a decompressed text buffer and emits, per record,
+//   meta[6*i+0] name offset   (into buf)
+//   meta[6*i+1] name length   (to the first blank)
+//   meta[6*i+2] comment offset (0-length if none)
+//   meta[6*i+3] comment length
+//   meta[6*i+4] seq offset    (into out_seq, newline-stripped copy)
+//   meta[6*i+5] seq length
+// plus qual offsets (into out_seq) in qmeta[2*i] / qmeta[2*i+1]
+// (length 0 = FASTA).  U/u -> T/t happens here (bseq.c:72-74).
+// Returns #records; -1 if caps were exceeded; *consumed = bytes of buf
+// fully parsed (callers stream chunks and carry the remainder).
+// ---------------------------------------------------------------------
+int64_t mm_fastx_scan(const uint8_t* buf, int64_t n, int is_final,
+                      uint8_t* out_seq, int64_t seq_cap,
+                      int64_t* meta, int64_t* qmeta, int64_t rec_cap,
+                      int64_t* consumed)
+{
+    int64_t i = 0, nrec = 0, so = 0;
+    *consumed = 0;
+    while (i < n) {
+        // skip blank lines
+        while (i < n && (buf[i] == '\n' || buf[i] == '\r')) ++i;
+        if (i >= n) break;
+        if (buf[i] != '>' && buf[i] != '@') return -2;  // malformed
+        int is_fq = buf[i] == '@';
+        int64_t rec_start = i;
+        ++i;
+        int64_t name_off = i;
+        while (i < n && buf[i] != '\n' && buf[i] != '\r'
+               && buf[i] != ' ' && buf[i] != '\t') ++i;
+        int64_t name_len = i - name_off;
+        int64_t com_off = 0, com_len = 0;
+        while (i < n && (buf[i] == ' ' || buf[i] == '\t')) ++i;
+        if (i < n && buf[i] != '\n' && buf[i] != '\r') {
+            com_off = i;
+            while (i < n && buf[i] != '\n' && buf[i] != '\r') ++i;
+            com_len = i - com_off;
+        } else {
+            while (i < n && buf[i] != '\n') ++i;
+        }
+        if (i >= n && !is_final) { i = rec_start; break; }
+        while (i < n && (buf[i] == '\n' || buf[i] == '\r')) ++i;
+        int64_t seq_off = so;
+        if (!is_fq) {
+            // FASTA: sequence lines until the next record or EOF
+            // (kseq treats both '>' and '@' as record starts)
+            int64_t j = i;
+            while (j < n && buf[j] != '>' && buf[j] != '@') {
+                while (j < n && buf[j] != '\n') {
+                    uint8_t c = buf[j];
+                    if (c != '\r') {
+                        if (c == 'U') c = 'T';
+                        else if (c == 'u') c = 't';
+                        if (so >= seq_cap) return -1;
+                        out_seq[so++] = c;
+                    }
+                    ++j;
+                }
+                while (j < n && (buf[j] == '\n' || buf[j] == '\r')) ++j;
+            }
+            if (j >= n && !is_final) { so = seq_off; i = rec_start; break; }
+            i = j;
+            if (nrec >= rec_cap) return -1;
+            meta[6 * nrec + 0] = name_off;
+            meta[6 * nrec + 1] = name_len;
+            meta[6 * nrec + 2] = com_off;
+            meta[6 * nrec + 3] = com_len;
+            meta[6 * nrec + 4] = seq_off;
+            meta[6 * nrec + 5] = so - seq_off;
+            qmeta[2 * nrec] = 0;
+            qmeta[2 * nrec + 1] = 0;
+            ++nrec;
+            *consumed = i;
+        } else {
+            // FASTQ: one seq line, '+' line, one qual line of equal length
+            int64_t j = i;
+            while (j < n && buf[j] != '\n') {
+                uint8_t c = buf[j];
+                if (c != '\r') {
+                    if (c == 'U') c = 'T';
+                    else if (c == 'u') c = 't';
+                    if (so >= seq_cap) return -1;
+                    out_seq[so++] = c;
+                }
+                ++j;
+            }
+            int64_t slen = so - seq_off;
+            if (j >= n && !is_final) { so = seq_off; i = rec_start; break; }
+            ++j;                                    // past '\n'
+            if (j >= n || buf[j] != '+') {
+                if (!is_final) { so = seq_off; i = rec_start; break; }
+                return -2;
+            }
+            while (j < n && buf[j] != '\n') ++j;
+            ++j;
+            int64_t qual_off = so;
+            int64_t got = 0;
+            while (j < n && got < slen) {
+                uint8_t c = buf[j];
+                if (c != '\n' && c != '\r') {
+                    if (so >= seq_cap) return -1;
+                    out_seq[so++] = c;
+                    ++got;
+                }
+                ++j;
+            }
+            if (got < slen && !is_final) { so = seq_off; i = rec_start;
+                                           break; }
+            while (j < n && (buf[j] == '\n' || buf[j] == '\r')) ++j;
+            i = j;
+            if (nrec >= rec_cap) return -1;
+            meta[6 * nrec + 0] = name_off;
+            meta[6 * nrec + 1] = name_len;
+            meta[6 * nrec + 2] = com_off;
+            meta[6 * nrec + 3] = com_len;
+            meta[6 * nrec + 4] = seq_off;
+            meta[6 * nrec + 5] = slen;
+            qmeta[2 * nrec] = qual_off;
+            qmeta[2 * nrec + 1] = got;
+            ++nrec;
+            *consumed = i;
+        }
+    }
+    return nrec;
 }
 
 }  // extern "C"

@@ -40,10 +40,10 @@ SIGNATURES = {
     "mm2_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "mm2_chain_occupancy": [_P],
-    "mm2_extd2": [_P] * 6 + [_I] * 17 + [_P],
-    "mm2_extd2_occupancy": [_I, _I, _I, _P],
-    "mm2_exts2": [_P] * 8 + [_I] * 13 + [_P],
-    "mm2_exts2_occupancy": [_I, _I, _I, _P],
+    "mm2_extd2": [_P] * 6 + [_I] * 21 + [_P],
+    "mm2_extd2_occupancy": [_I, _I, _I, _I, _P],
+    "mm2_exts2": [_P] * 8 + [_I] * 18 + [_P],
+    "mm2_exts2_occupancy": [_I, _I, _I, _I, _P],
     "mm2_traceback": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "mm2_traceback_occupancy": [_I, _P],
 }
@@ -134,7 +134,8 @@ def require_cuda(name: str, *tensors) -> None:
 def blocks_per_sm(kernel: str, *args: int) -> int:
     """Blocks of a kernel one SM holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the kernel's
-    ``mm2_<kernel>_occupancy``): extd2 and exts2 at widths (W, QP, TP),
+    ``mm2_<kernel>_occupancy``): extd2 and exts2 at widths (W, QP, TP)
+    and a mode (exact | right << 1 | adrop << 2, 0 for the paths' own),
     the traceback in a mode (splice 0 or 1), sort3 and sort1 at a row
     width, the sketch at (L, w), the chain without arguments."""
     name = f"mm2_{kernel}_occupancy"

@@ -1,19 +1,39 @@
-// Banded dual-affine extension with direction bytes (ksw_extd2, approx-max
-// mode) on Hopper.
+// Banded dual-affine extension with direction bytes (ksw_extd2) on Hopper.
 //
 // Replaces minimap2_tpu/ops/extend_pallas2.py: extd2_batch2 ->
 // _extd2_kernel_v2 (the Pallas kernel at extend_pallas2.py:102-541, called
-// at :658) in the mode of the -c/-a path: approx_max, no zdrop, left-align,
-// with or without the direction matrix.  Per anti-diagonal r the
+// at :658) in each of its modes, one template instantiation a mode:
+// approx-max (the -c/-a path's, with or without approx-drop) or exact-max,
+// left- or right-aligned, with or without the direction matrix (a runtime
+// flag).  Per anti-diagonal r the
 // Suzuki-Kasahara difference rows u, v, x, y, x2, y2 and the score row s
 // advance over W lanes; lane l is target position wstart_chunk(r) + l, the
 // window origin shared by the RB diagonals of a chunk, and the rows shift
 // left by dsh lanes (fill -q-e, -q2-e2 or 0) at each chunk boundary, as in
 // the Pallas kernel, because stale lanes of s and the boundary values at
 // st-1 depend on that layout.  The score comes from the greedy H0 walk
-// along the main diagonal.  Outputs p (N, RT, W) u8 direction bytes and
-// ez (N, 16) i32; EZ_DEAD is set by the wrapper (ops/extend.py), which also
-// passes the block -> job order.
+// along the main diagonal, or in the exact mode from the H row.  Outputs p
+// (N, RT, W) u8 direction bytes and ez (N, 16) i32; EZ_DEAD is set by the
+// wrapper (ops/extend.py), which also passes the block -> job order.
+//
+// The exact mode (EXACT, :398-448) keeps H in GL more registers a thread
+// (circular like the other rows: the lanes that wrap at a chunk shift
+// take NEG_INF32, chunk_shift's fill).  The owner of lane en0 computes
+// h_en0 from its own u, v and H, and H at en0 - 1, which is its previous
+// register or, in lane 0, the previous group's last H, published in the
+// edge int4's fourth field; lane en0 - 1 left of the window reads 0, as the
+// Pallas kernel's one-hot sum does.  The row's maximum over [st0, en0] and
+// its key (-t for a body lane, so that the lowest lane wins a tie, and
+// INT_MAX for en0, which wins a tie with the body: the Pallas kernel's
+// strict body_max > h_en0) go through two __reduce_max_sync a warp into
+// shared memory; the owners of en0 and st0 export h_en0 and H[st0].  Every
+// thread reads them after the diagonal's one barrier, at the start of the
+// next diagonal, as it runs the H0 walk in the approx mode, and updates
+// mqe/mte, the score and ksw_apply_zdrop (ksw2.h:171-187) alike, so no
+// second barrier is needed.  approx_drop (ADROP, :476-489) runs the same
+// z-drop test on the H0 walk.  A z-drop stops the job after its diagonal
+// and is reported in ez lane 14 for the wrapper.  RIGHT takes the >= forms
+// of the direction-byte compares (:333-390).
 //
 // What bounds it: not the N*RT*W bytes of p (9.2 GB for a 576-job launch
 // at QP=12288, TP=12800, W=640, RT=25088: 2.7 ms at 3.35 TB/s) nor the ~40
@@ -60,12 +80,17 @@
 // stops at its first dead diagonal.  (8 and 16 lanes a thread were
 // slower on the card: fewer warps, each with a longer serial path.)
 // Resources (`nvcc -Xptxas -v` for sm_90a, printed by chip_smoke.py's
-// build phase): at GL = 4, 64 registers a thread, no spills; 30,336 bytes
+// build phase), the -c/-a path's instantiation <false, false, false>: at
+// GL = 4, 64 registers a thread, no spills; 30,336 bytes
 // of dynamic shared memory a block at QP=12288, TP=12800, W=640 (2 W/GL
 // int4 + 64 + TP + QP + 64), so 6 blocks of 160 threads fit on an SM
 // (register-bound; cudaOccupancyMaxActiveBlocksPerMultiprocessor through
-// mm2_extd2_occupancy).
+// mm2_extd2_occupancy).  The exact instantiations add 2 x 8 x 2 ints of
+// shared memory for the warps' maxima; PERF.md lists every
+// instantiation's registers.
+#include <climits>
 #include <cstdint>
+#include <cstdlib>
 #include <cuda_runtime.h>
 
 namespace {
@@ -76,8 +101,10 @@ constexpr int GL = 4;           // lanes a thread
 constexpr int MAX_T = 256;      // threads a block: W <= 1024
 constexpr int QM = 16;          // zero bytes before the query in shared memory
 constexpr int QTAIL = 48;       // and after it
-constexpr int NX = 8;           // exported scalars a diagonal: 5 used, 8
+constexpr int NX = 8;           // exported scalars a diagonal: 7 used, 8
                                 // keep the planes after them 16-byte aligned
+constexpr int NWARP = MAX_T / 32;
+constexpr int NRED = 2 * NWARP * 2;   // [2][warp] (max, key) of the H row
 
 __device__ __forceinline__ int sext8(int v) {
   return (int)(signed char)(v & 255);
@@ -122,17 +149,38 @@ __device__ __forceinline__ void h0_walk(int hv, int hu, int W, int pr,
   if (pfin) score = H0;
 }
 
-__global__ void __launch_bounds__(MAX_T) extd2_kernel(
+// ksw_apply_zdrop (ksw2.h:171-187) on diagonal r's maximum H at t: true
+// when the job z-drops
+__device__ __forceinline__ bool apply_zdrop(int H, int t, int r, int zdrop,
+                                            int e2, int& mx, int& mxt,
+                                            int& mxq) {
+  if (H > mx) {
+    mx = H;
+    mxt = t;
+    mxq = r - t;
+    return false;
+  }
+  if (zdrop < 0 || t < mxt || r - t < mxq) return false;
+  const int l = abs((t - mxt) - (r - t - mxq));
+  return mx - H > zdrop + l * e2;
+}
+
+// (the approx instantiations at most 64 registers, 4 blocks of MAX_T: the
+// -c/-a path's keeps its occupancy)
+template <bool EXACT, bool RIGHT, bool ADROP>
+__global__ void __launch_bounds__(MAX_T, EXACT ? 1 : 4) extd2_kernel(
     const uint8_t* __restrict__ qr, const uint8_t* __restrict__ sf,
     const int* __restrict__ lens, const int* __restrict__ order,
     uint8_t* __restrict__ p, int* __restrict__ ez, int QP, int TP, int W,
     int RB, int RT, int w, int q, int e, int q2, int e2, int long_thres,
-    int long_diff, int sc_mch, int sc_mis, int sc_N, int with_cigar) {
+    int long_diff, int sc_mch, int sc_mis, int sc_N, int with_cigar,
+    int zdrop) {
   extern __shared__ uint4 smem[];
-  const int NG = W / GL, TPP = (TP + 15) & ~15;
-  int4* edge = reinterpret_cast<int4*>(smem);           // [2][NG] x, v, x2
+  const int NG = W / GL, TPP = (TP + 15) & ~15, NW = NG / 32;
+  int4* edge = reinterpret_cast<int4*>(smem);           // [2][NG] x, v, x2, H
   int* xs = reinterpret_cast<int*>(edge + 2 * NG);      // [2][NX]
-  uint8_t* ts = reinterpret_cast<uint8_t*>(xs + 2 * NX);  // target, TPP
+  int* red = xs + 2 * NX;                               // [2][NW][2], EXACT
+  uint8_t* ts = reinterpret_cast<uint8_t*>(red + (EXACT ? NRED : 0));
   uint8_t* qs = ts + TPP;                               // QM + QP + QTAIL
 
   const int g = threadIdx.x;
@@ -148,18 +196,60 @@ __global__ void __launch_bounds__(MAX_T) extd2_kernel(
   uint8_t* prow = p + (size_t)n * RT * W;
 
   const int qe = q + e, qe2 = q2 + e2;
-  int U[GL], V[GL], X[GL], Y[GL], X2[GL], Y2[GL], S[GL];
+  int U[GL], V[GL], X[GL], Y[GL], X2[GL], Y2[GL], S[GL], H[GL];
 #pragma unroll
   for (int i = 0; i < GL; ++i) {
     U[i] = V[i] = X[i] = Y[i] = -qe;
     X2[i] = Y2[i] = -qe2;
     S[i] = 0;
+    H[i] = NEG_INF32;
   }
-  edge[NG + g] = make_int4(-qe, -qe, -qe2, 0);   // "before" r = 0
+  edge[NG + g] = make_int4(-qe, -qe, -qe2, NEG_INF32);   // "before" r = 0
   int zdr = 0, last_st = 0, nr = 0, H0 = 0, h0t = 0, score = NEG_INF32;
-  // the H0 walk of the previous diagonal, run after the next barrier
+  // ez lanes of the exact and approx-drop modes, and the z-drop flag
+  int mx = 0, mxq = -1, mxt = -1, mqe = NEG_INF32, mqet = -1;
+  int mte = NEG_INF32, mteq = -1, zflag = 0;
+  // the per-job step of the previous diagonal (the H0 walk, or the H row's
+  // maximum and lanes), run after the next barrier; true on a z-drop
   int pw_r = -1, pw_ws = 0, pw_st0 = 0, pw_en0 = 0;
   bool pw_fin = false;
+  auto step = [&](const int* xp, const int* rp) -> bool {
+    int mH, mt;
+    if constexpr (EXACT) {
+      mH = INT_MIN;
+      int k = INT_MIN;
+      for (int i = 0; i < NW; ++i) {
+        const int vm = rp[2 * i], vk = rp[2 * i + 1];
+        if (vm > mH || (vm == mH && vk > k)) {
+          mH = vm;
+          k = vk;
+        }
+      }
+      mt = k == INT_MAX ? pw_en0 : -k;
+      const int hen0 = xp[5], hst0 = xp[6];
+      if (pw_en0 == tlen - 1 && hen0 > mte) {
+        mte = hen0;
+        mteq = pw_r - pw_en0;
+      }
+      if (pw_r - pw_st0 == qlen - 1 && hst0 > mqe) {
+        mqe = hst0;
+        mqet = pw_st0;
+      }
+      if (pw_fin) score = hen0;
+    } else {
+      h0_walk(xp[3], xp[4], W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
+              h0t, score);
+      mH = H0;
+      mt = h0t;
+    }
+    if constexpr (EXACT || ADROP) {
+      if (apply_zdrop(mH, mt, pw_r, zdrop, e2, mx, mxt, mxq)) {
+        zdr = zflag = 1;
+        return true;
+      }
+    }
+    return false;
+  };
   int ws = 0, off = 0;        // window start and its physical slot
   int rc = 0;                 // r % RB
   int l0 = g * GL, t0 = l0;   // this thread's first logical lane, position
@@ -170,9 +260,9 @@ __global__ void __launch_bounds__(MAX_T) extd2_kernel(
     const int cur = r & 1, prv = cur ^ 1;
     const int* xp = xs + NX * prv;
     if (pw_r >= 0) {
-      h0_walk(xp[3], xp[4], W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
-              h0t, score);
+      const bool dropped = step(xp, red + 2 * NWARP * prv);
       pw_r = -1;
+      if (dropped) break;
     }
     // band of diagonal r (the same in every thread: uniform break)
     const int st0 = max(max(0, r - qlen + 1), (r - w + 1) >> 1);
@@ -202,6 +292,7 @@ __global__ void __launch_bounds__(MAX_T) extd2_kernel(
           U[i] = V[i] = X[i] = Y[i] = -qe;
           X2[i] = Y2[i] = -qe2;
           S[i] = 0;
+          H[i] = NEG_INF32;
         }
       }
     }
@@ -246,17 +337,22 @@ __global__ void __launch_bounds__(MAX_T) extd2_kernel(
       }
     }
     uint32_t P = 0u;               // direction bytes: 0 off the band
+    int hb = INT_MIN, hk = INT_MIN;  // EXACT: best H of [st0, en0], its key
+    int* xc = xs + NX * cur;
     if (t0 >= st && t0 <= en) {
       // the left neighbour of lane l0: the boundary values at st, else the
       // previous group's last lane (lane 0 in the band is lane st - ws, so
       // l0 >= GL there)
+      // (the exact mode reads the previous group's H in either case)
+      int4 E;
+      if constexpr (EXACT) E = edge[NG * prv + (g == 0 ? NG - 1 : g - 1)];
       int xl, vl, x2l;
       if (t0 == st) {
         xl = use_prev ? (pre_ok ? xp[0] : 0) : -qe;
         vl = use_prev ? (pre_ok ? xp[1] : 0) : (st > 0 ? -qe : v1_edge);
         x2l = use_prev ? (pre_ok ? xp[2] : 0) : -qe2;
       } else {
-        const int4 E = edge[NG * prv + (g == 0 ? NG - 1 : g - 1)];
+        if constexpr (!EXACT) E = edge[NG * prv + (g == 0 ? NG - 1 : g - 1)];
         xl = E.x; vl = E.y; x2l = E.z;
       }
       // y, y2 and u reset at lane r (which lies in [st, en] when en >= r)
@@ -280,33 +376,95 @@ __global__ void __launch_bounds__(MAX_T) extd2_kernel(
         const int a = xt1 + vt1, b = y_p + u_p, a2 = x2t1 + vt1,
                   b2 = y2_p + u_p;
         int z = S[i], d = 0;
-        if (a > z) d = 1;
-        z = max(z, a);
-        if (b > z) d = 2;
-        z = max(z, b);
-        if (a2 > z) d = 3;
-        z = max(z, a2);
-        if (b2 > z) d = 4;
+        if constexpr (RIGHT) {
+          d = z > a ? 0 : 1;
+          z = max(z, a);
+          d = z > b ? d : 2;
+          z = max(z, b);
+          d = z > a2 ? d : 3;
+          z = max(z, a2);
+          d = z > b2 ? d : 4;
+        } else {
+          if (a > z) d = 1;
+          z = max(z, a);
+          if (b > z) d = 2;
+          z = max(z, b);
+          if (a2 > z) d = 3;
+          z = max(z, a2);
+          if (b2 > z) d = 4;
+        }
         z = min(max(z, b2), sc_mch);
         U[i] = z - vt1;
         V[i] = z - u_p;
         // max(a - (z - q), 0) - q - e = max(a - z - e, -q - e), and the
-        // continuation bit a - (z - q) > 0 is x > -q - e
+        // continuation bit a - (z - q) > 0 is x > -q - e (>= 0 under
+        // RIGHT: a - z - e >= -q - e before the max)
         const int ze = -(z + e), ze2 = -(z + e2);
+        if constexpr (RIGHT) {
+          d |= (a + ze >= -qe ? 0x08 : 0) | (b + ze >= -qe ? 0x10 : 0)
+               | (a2 + ze2 >= -qe2 ? 0x20 : 0)
+               | (b2 + ze2 >= -qe2 ? 0x40 : 0);
+        }
         X[i] = __viaddmax_s32(a, ze, -qe);
         Y[i] = __viaddmax_s32(b, ze, -qe);
         X2[i] = __viaddmax_s32(a2, ze2, -qe2);
         Y2[i] = __viaddmax_s32(b2, ze2, -qe2);
-        d |= (X[i] > -qe ? 0x08 : 0) | (Y[i] > -qe ? 0x10 : 0)
-             | (X2[i] > -qe2 ? 0x20 : 0) | (Y2[i] > -qe2 ? 0x40 : 0);
+        if constexpr (!RIGHT)
+          d |= (X[i] > -qe ? 0x08 : 0) | (Y[i] > -qe ? 0x10 : 0)
+               | (X2[i] > -qe2 ? 0x20 : 0) | (Y2[i] > -qe2 ? 0x40 : 0);
         P |= (uint32_t)d << (8 * i);
+      }
+      if constexpr (EXACT) {
+        // H row (:398-420): the body [st0, en0) adds v, en0 takes h_en0
+        if (t0 + GL - 1 >= st0 && t0 <= en0) {
+          int Hp[GL];
+#pragma unroll
+          for (int i = 0; i < GL; ++i) Hp[i] = H[i];
+#pragma unroll
+          for (int i = 0; i < GL; ++i) {
+            const int t = t0 + i;
+            if (t == en0) {
+              int h;
+              if (r == 0) {
+                h = V[i] - qe;
+              } else if (en0 > 0) {
+                const int hm1 = i ? Hp[i ? i - 1 : 0]
+                                  : (en0 - 1 - ws >= 0 ? E.w : 0);
+                h = hm1 + sext8(U[i]);
+              } else {
+                h = Hp[i] + sext8(V[i]);
+              }
+              H[i] = h;
+              xc[5] = h;
+            } else if (t >= st0 && t < en0) {
+              H[i] = Hp[i] + V[i];
+            }
+            if (t == st0) xc[6] = H[i];
+            if (t >= st0 && t <= en0) {
+              const int k = t == en0 ? INT_MAX : -t;
+              if (H[i] > hb || (H[i] == hb && k > hk)) {
+                hb = H[i];
+                hk = k;
+              }
+            }
+          }
+        }
+      }
+    }
+    if constexpr (EXACT) {
+      // each warp's (max, key); the block's at the next diagonal's start
+      const int m = __reduce_max_sync(0xFFFFFFFFu, hb);
+      const int k = __reduce_max_sync(0xFFFFFFFFu, hb == m ? hk : INT_MIN);
+      if ((g & 31) == 0) {
+        red[2 * (NWARP * cur + (g >> 5))] = m;
+        red[2 * (NWARP * cur + (g >> 5)) + 1] = k;
       }
     }
     if (with_cigar) *reinterpret_cast<uint32_t*>(prow + l0) = P;
-    edge[NG * cur + g] = make_int4(X[GL - 1], V[GL - 1], X2[GL - 1], 0);
+    edge[NG * cur + g] =
+        make_int4(X[GL - 1], V[GL - 1], X2[GL - 1], EXACT ? H[GL - 1] : 0);
     // exports for the next diagonal: x, v, x2 at st(r + 1) - 1 (in this
     // diagonal's window) and the H0 walk's v[t0], u[t0 + 1] of this one
-    int* xc = xs + NX * cur;
     const int st0n = max(max(0, r + 2 - qlen), (r + 2 - w) >> 1);
     // (a thread's lanes are the logical lanes l0 .. l0 + GL - 1)
     const unsigned ib = ((st0n >> 4) << 4) - 1 - t0;
@@ -315,11 +473,13 @@ __global__ void __launch_bounds__(MAX_T) extd2_kernel(
       xc[1] = sext8(lane_of(V, ib));
       xc[2] = sext8(lane_of(X2, ib));
     }
-    const int lx = r == 0 ? 1 : h0t + 1 - ws;
-    if (lx >= 0 && lx < W) {
-      const unsigned iv = (lx == 0 ? W - 1 : lx - 1) - l0, iu = lx - l0;
-      if (iv < GL) xc[3] = sext8(lane_of(V, iv));
-      if (iu < GL && r > 0) xc[4] = sext8(lane_of(U, iu));
+    if constexpr (!EXACT) {
+      const int lx = r == 0 ? 1 : h0t + 1 - ws;
+      if (lx >= 0 && lx < W) {
+        const unsigned iv = (lx == 0 ? W - 1 : lx - 1) - l0, iu = lx - l0;
+        if (iv < GL) xc[3] = sext8(lane_of(V, iv));
+        if (iu < GL && r > 0) xc[4] = sext8(lane_of(U, iu));
+      }
     }
     prow += W;
     pw_r = r; pw_ws = ws; pw_st0 = st0; pw_en0 = en0;
@@ -333,30 +493,46 @@ __global__ void __launch_bounds__(MAX_T) extd2_kernel(
     const size_t n16 = (size_t)(RT - r) * W / 16;
     for (size_t i = g; i < n16; i += NG) z4[i] = make_uint4(0, 0, 0, 0);
   }
-  if (pw_r >= 0) {           // every diagonal was live: walk the last one
-    const int* xp = xs + NX * ((r - 1) & 1);
-    h0_walk(xp[3], xp[4], W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
-            h0t, score);
-  }
+  if (pw_r >= 0)             // every diagonal was live: the last one's step
+    step(xs + NX * ((r - 1) & 1), red + 2 * NWARP * ((r - 1) & 1));
   if (g == 0) {
     int* o = ez + (size_t)n * EZ_N;
-    const int vals[EZ_N] = {0, zdr, -1, -1, NEG_INF32, -1, NEG_INF32, -1,
-                            score, last_st, 0, nr, H0, h0t, 0, 0};
+    const int vals[EZ_N] = {mx, zdr, mxq, mxt, mqe, mqet, mte, mteq,
+                            score, last_st, 0, nr, H0, h0t, zflag, 0};
     for (int i = 0; i < EZ_N; ++i) o[i] = vals[i];
   }
+}
+
+using Extd2Fn = void (*)(const uint8_t*, const uint8_t*, const int*,
+                         const int*, uint8_t*, int*, int, int, int, int, int,
+                         int, int, int, int, int, int, int, int, int, int,
+                         int, int);
+
+// the instantiation of a mode (approx_drop counts only in the approx mode)
+inline Extd2Fn extd2_variant(int exact, int right, int adrop) {
+  if (exact)
+    return right ? extd2_kernel<true, true, false>
+                 : extd2_kernel<true, false, false>;
+  if (adrop)
+    return right ? extd2_kernel<false, true, true>
+                 : extd2_kernel<false, false, true>;
+  return right ? extd2_kernel<false, true, false>
+               : extd2_kernel<false, false, false>;
 }
 
 }  // namespace
 
 // threads and dynamic shared memory of a launch at these widths (W % 128
 // == 0 keeps the shared planes 16-byte aligned)
-static int launch_shape(int W, int QP, int TP, int* threads, size_t* smem) {
+static int launch_shape(Extd2Fn fn, int exact, int W, int QP, int TP,
+                        int* threads, size_t* smem) {
   if (W % 128 || W / GL > MAX_T) return (int)cudaErrorInvalidValue;
   *threads = W / GL;
   *smem = (size_t)2 * *threads * sizeof(int4) + 2 * NX * 4
+          + (exact ? NRED * 4 : 0)
           + (size_t)((TP + 15) & ~15) + QP + QM + QTAIL;
   return (int)cudaFuncSetAttribute(
-      extd2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
 extern "C" int mm2_extd2(const void* qr, const void* sf, const void* lens,
@@ -364,25 +540,30 @@ extern "C" int mm2_extd2(const void* qr, const void* sf, const void* lens,
                          int TP, int W, int RB, int RT, int w, int q, int e,
                          int q2, int e2, int long_thres, int long_diff,
                          int sc_mch, int sc_mis, int sc_N, int with_cigar,
+                         int exact, int right, int adrop, int zdrop,
                          void* stream) {
   if (N == 0) return 0;
+  const Extd2Fn fn = extd2_variant(exact, right, adrop);
   int threads;
   size_t smem;
-  const int err = launch_shape(W, QP, TP, &threads, &smem);
+  const int err = launch_shape(fn, exact, W, QP, TP, &threads, &smem);
   if (err) return err;
-  extd2_kernel<<<N, threads, smem, (cudaStream_t)stream>>>(
+  fn<<<N, threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)qr, (const uint8_t*)sf, (const int*)lens,
       (const int*)order, (uint8_t*)p, (int*)ez, QP, TP, W, RB, RT, w, q, e,
-      q2, e2, long_thres, long_diff, sc_mch, sc_mis, sc_N, with_cigar);
+      q2, e2, long_thres, long_diff, sc_mch, sc_mis, sc_N, with_cigar, zdrop);
   return (int)cudaGetLastError();
 }
 
-// blocks of the kernel one SM holds at once at these widths
-extern "C" int mm2_extd2_occupancy(int W, int QP, int TP, int* blocks) {
+// blocks of a mode's kernel one SM holds at once at these widths (mode =
+// exact | right << 1 | adrop << 2)
+extern "C" int mm2_extd2_occupancy(int W, int QP, int TP, int mode,
+                                   int* blocks) {
+  const Extd2Fn fn = extd2_variant(mode & 1, mode >> 1 & 1, mode >> 2 & 1);
   int threads;
   size_t smem;
-  const int err = launch_shape(W, QP, TP, &threads, &smem);
+  const int err = launch_shape(fn, mode & 1, W, QP, TP, &threads, &smem);
   if (err) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, extd2_kernel, threads, smem);
+      blocks, fn, threads, smem);
 }

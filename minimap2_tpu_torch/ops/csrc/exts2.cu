@@ -1,19 +1,36 @@
-// Splice-aware extension with direction bytes (ksw_exts2, approx-max mode)
-// on Hopper.
+// Splice-aware extension with direction bytes (ksw_exts2) on Hopper.
 //
 // Replaces minimap2_tpu/ops/exts_pallas.py: exts2_batch -> _exts2_call ->
 // _exts2_kernel (the Pallas kernel at exts_pallas.py:111-425, called at
-// :525) in the mode of the --batch -x splice path: approx_max, no zdrop,
-// left-align, with the direction matrix.  Per anti-diagonal r the
+// :525) in each of its modes, one template instantiation a mode: approx-max
+// (the --batch -x splice path's, with or without approx-drop) or
+// exact-max, left- or right-aligned, with or without the direction matrix
+// (a runtime flag).  Per anti-diagonal r the
 // Suzuki-Kasahara difference rows u, v, x, y, the intron row x2 and the
 // score row s advance over W lanes with int8 wrap arithmetic; the intron
 // opens at q2 plus the target's acceptor value and closes against its donor
 // value.  The DP is unbanded and lane l is target position wstart_q(r) + l:
 // the window follows the query edge and steps by 16 lanes (the carried rows
 // shift left with the fills -q-e, -q2, 0), so r - ws(r) is a sawtooth.  The
-// score comes from the greedy H0 walk.  Outputs p (N, RT, W) u8 and ez (N,
-// 16) i32; EZ_DEAD is set by the wrapper (ops/extend.py), which also zeroes
-// p and passes the block -> job order.
+// score comes from the greedy H0 walk, or in the exact mode from the H
+// row.  Outputs p (N, RT, W) u8 and ez (N, 16) i32; EZ_DEAD is set by the
+// wrapper (ops/extend.py), which also zeroes p and passes the block -> job
+// order.
+//
+// The exact mode (EXACT, :297-345): H is int32 and does not fit the packed
+// byte words, so each thread keeps its 16 lanes of H in 16 more registers
+// (circular like the rows; the wrapped slots take NEG_INF32, the roll's
+// fill), exported and reduced as in extd2.cu: the owner of en0 computes
+// h_en0 from its own u, v, H and H at en0 - 1 (its previous register, or
+// the previous group's last H from a double-buffered shared int, 0 left of
+// the window), the row's maximum and first argmax go through two
+// __reduce_max_sync a warp into shared memory, the owners of en0 and st0
+// export h_en0 and H[st0], and every thread applies them, mqe/mte, the
+// score and ksw_apply_zdrop with e = 0 (introns are free) after the next
+// barrier.  approx_drop (ADROP, :371-376) runs that z-drop test on the H0
+// walk.  A z-drop stops the job after its diagonal and is reported in ez
+// lane 14 for the wrapper.  RIGHT takes the >= forms of the byte compares
+// (:245-292): the complements of the reversed > compares.
 //
 // What bounds it: the N*RT*W bytes of p (11.4 GB for a 512-job launch at
 // QP=2048, TP=8192, W=2176, RT=10240) against ~45 integer operations per DP
@@ -51,12 +68,17 @@
 // planes (zero past TP) and its reversed query (zero outside [0, qlen))
 // sit in shared memory.  A job stops at its first dead diagonal.
 // Resources (`nvcc -Xptxas -v` for sm_90a, printed by chip_smoke.py's
-// build phase): 64 registers a thread, no spills (a 64-byte stack frame);
+// build phase), the splice path's instantiation <false, false, false>: 64
+// registers a thread, no spills (a 64-byte stack frame);
 // 27,840 bytes of dynamic shared memory a block at QP=2048, TP=8192,
 // W=2176 (8 W/16 + 64 + 3 TP + QP + 64), so 6 blocks of 160 threads fit
 // on an SM (register-bound; cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// through mm2_exts2_occupancy).
+// through mm2_exts2_occupancy).  The exact instantiations add the shared
+// ints of H's edge and the warps' maxima (2 W/16 + 32); PERF.md lists every
+// instantiation's registers.
+#include <climits>
 #include <cstdint>
+#include <cstdlib>
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,8 +89,10 @@ constexpr int GL = 16;          // lanes a thread: four packed words
 constexpr int MAX_T = 256;      // threads a block: W <= 4096
 constexpr int QM = 16;          // zero bytes before the query in shared memory
 constexpr int QTAIL = 48;       // and after it
-constexpr int NX = 8;           // exported scalars a diagonal: 5 used, 8
+constexpr int NX = 8;           // exported scalars a diagonal: 7 used, 8
                                 // keep the planes after them 16-byte aligned
+constexpr int NWARP = MAX_T / 32;
+constexpr int NRED = 2 * NWARP * 2;   // [2][warp] (max, key) of the H row
 
 __device__ __forceinline__ uint32_t bc(int v) {     // v's low byte, 4 times
   return (uint32_t)(v & 255) * 0x01010101u;
@@ -131,23 +155,41 @@ __device__ __forceinline__ uint32_t edge_word(uint32_t x, uint32_t v,
   return (x >> 24) | ((v >> 24) << 8) | ((x2 >> 24) << 16);
 }
 
-__global__ void __launch_bounds__(MAX_T) exts2_kernel(
+// ksw_apply_zdrop with e = 0 (exts_pallas.py:335-345) on diagonal r's
+// maximum H at t: true when the job z-drops
+__device__ __forceinline__ bool apply_zdrop(int H, int t, int r, int zdrop,
+                                            int& mx, int& mxt, int& mxq) {
+  if (H > mx) {
+    mx = H;
+    mxt = t;
+    mxq = r - t;
+    return false;
+  }
+  return zdrop >= 0 && t >= mxt && r - t >= mxq && mx - H > zdrop;
+}
+
+// (the approx instantiations at most 64 registers, 4 blocks of MAX_T: the
+// splice path's keeps its occupancy)
+template <bool EXACT, bool RIGHT, bool ADROP>
+__global__ void __launch_bounds__(MAX_T, EXACT ? 1 : 4) exts2_kernel(
     const uint8_t* __restrict__ qr, const uint8_t* __restrict__ sf,
     const int8_t* __restrict__ dn, const int8_t* __restrict__ ac,
     const int* __restrict__ lens, const int* __restrict__ order,
     uint8_t* __restrict__ p, int* __restrict__ ez, int QP, int TP, int W,
     int RT, int q, int e, int q2, int long_thres, int long_diff, int sc_mch,
-    int sc_mis, int sc_N) {
+    int sc_mis, int sc_N, int with_cigar, int zdrop) {
   extern __shared__ uint4 smem[];
   const int NG = W / GL, TPP = (TP + 15) & ~15;
   uint32_t* edge = reinterpret_cast<uint32_t*>(smem);   // [2][NG]
   int* xs = reinterpret_cast<int*>(edge + 2 * NG);      // [2][NX]
-  uint8_t* ts = reinterpret_cast<uint8_t*>(xs + 2 * NX);  // target, TPP
+  int* edgeH = xs + 2 * NX;                             // [2][NG], EXACT
+  int* red = edgeH + (EXACT ? 2 * NG : 0);              // [2][NWARP][2]
+  uint8_t* ts = reinterpret_cast<uint8_t*>(red + (EXACT ? NRED : 0));
   uint8_t* ds = ts + TPP;                               // donor (i8 bits)
   uint8_t* as = ds + TPP;                               // acceptor
   uint8_t* qs = as + TPP;                               // QM + QP + QTAIL
 
-  const int tid = threadIdx.x, T = blockDim.x;
+  const int tid = threadIdx.x, T = blockDim.x, NW = T / 32;
   const int n = order[blockIdx.x];
   const int qlen = lens[2 * n], tlen = lens[2 * n + 1];
   const int rstar = qlen + tlen - 1;
@@ -171,17 +213,64 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
   const int g = tid;
   const bool owner = g < NG;
   uint32_t U[4], V[4], X[4], Y[4], X2[4], S[4];
+  int H[GL];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     U[k] = V[k] = X[k] = Y[k] = QEf;
     X2[k] = Q2f;
     S[k] = 0;
   }
-  if (owner) edge[NG + g] = edge_word(QEf, QEf, Q2f);   // "before" r = 0
+#pragma unroll
+  for (int j = 0; j < GL; ++j) H[j] = NEG_INF32;
+  if (owner) {                                          // "before" r = 0
+    edge[NG + g] = edge_word(QEf, QEf, Q2f);
+    if constexpr (EXACT) edgeH[NG + g] = NEG_INF32;
+  }
   int zdr = 0, last_st = 0, nr = 0, H0 = 0, h0t = 0, score = NEG_INF32;
-  // the H0 walk of the previous diagonal, run after the next barrier
+  // ez lanes of the exact and approx-drop modes, and the z-drop flag
+  int mx = 0, mxq = -1, mxt = -1, mqe = NEG_INF32, mqet = -1;
+  int mte = NEG_INF32, mteq = -1, zflag = 0;
+  // the per-job step of the previous diagonal (the H0 walk, or the H row's
+  // maximum and lanes), run after the next barrier; true on a z-drop
   int pw_r = -1, pw_ws = 0, pw_st0 = 0, pw_en0 = 0;
   bool pw_fin = false;
+  auto step = [&](const int* xp, const int* rp) -> bool {
+    int mH, mt;
+    if constexpr (EXACT) {
+      mH = INT_MIN;
+      int k = INT_MIN;
+      for (int i = 0; i < NW; ++i) {
+        const int vm = rp[2 * i], vk = rp[2 * i + 1];
+        if (vm > mH || (vm == mH && vk > k)) {
+          mH = vm;
+          k = vk;
+        }
+      }
+      mt = k == INT_MAX ? pw_en0 : -k;
+      const int hen0 = xp[5], hst0 = xp[6];
+      if (pw_en0 == tlen - 1 && hen0 > mte) {
+        mte = hen0;
+        mteq = pw_r - pw_en0;
+      }
+      if (pw_r - pw_st0 == qlen - 1 && hst0 > mqe) {
+        mqe = hst0;
+        mqet = pw_st0;
+      }
+      if (pw_fin) score = hen0;
+    } else {
+      h0_walk(xp[3], xp[4], W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
+              h0t, score);
+      mH = H0;
+      mt = h0t;
+    }
+    if constexpr (EXACT || ADROP) {
+      if (apply_zdrop(mH, mt, pw_r, zdrop, mx, mxt, mxq)) {
+        zdr = zflag = 1;
+        return true;
+      }
+    }
+    return false;
+  };
   int ws = 0, off = 0;        // window start and its physical slot
   __syncthreads();
 
@@ -190,9 +279,9 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
     const int cur = r & 1, prv = cur ^ 1;
     const int* xp = xs + NX * prv;
     if (pw_r >= 0) {
-      h0_walk(xp[3], xp[4], W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
-              h0t, score);
+      const bool dropped = step(xp, red + 2 * NWARP * prv);
       pw_r = -1;
+      if (dropped) break;
     }
     // the whole valid diagonal (the same in every thread: uniform break)
     const int st0 = max(0, r - qlen + 1);
@@ -224,6 +313,8 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
     const int s_hi = st0 + (((en0 - st0) >> 4) << 4) + 15;
     const int stl = st - ws;
     const bool at_r_on = en >= r;
+    int hb = INT_MIN, hk = INT_MIN;  // EXACT: best H of [st0, en0], its key
+    int* xc = xs + NX * cur;
 
     if (owner) {
       int l0 = g * GL - off;
@@ -240,6 +331,8 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
             X2[k] = Q2f;
             S[k] = 0;
           }
+#pragma unroll
+          for (int j = 0; j < GL; ++j) H[j] = NEG_INF32;
         }
         // y, x2 and u reset at lane r, before the neighbour reads
         const int ir = r - t0;
@@ -294,10 +387,11 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
           // (lane 0 in the band is lane stl) nor lane r (a group that
           // starts at r + 1 lies past en)
           uint32_t ex, ev, ex2;
+          const int gp = g == 0 ? NG - 1 : g - 1;
           if (l0 == stl) {
             ex = (uint32_t)x1; ev = (uint32_t)v1; ex2 = (uint32_t)x21;
           } else {
-            const uint32_t E = edge[NG * prv + (g == 0 ? NG - 1 : g - 1)];
+            const uint32_t E = edge[NG * prv + gp];
             ex = E; ev = E >> 8; ex2 = E >> 16;
           }
           uint32_t XN[4], VN[4], X2N[4];
@@ -318,11 +412,20 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
             uint32_t a2 = __vadd4(X2N[k], VN[k]);
             const uint32_t a2a = __vadd4(a2, Aw[k]);
             uint32_t z = S[k];
-            const uint32_t c1 = __vcmpgts4(a, z);
-            z = __vmaxs4(z, a);
-            const uint32_t c2 = __vcmpgts4(b, z);
-            z = __vmaxs4(z, b);
-            const uint32_t c3 = __vcmpgts4(a2a, z);
+            uint32_t c1, c2, c3;
+            if constexpr (RIGHT) {      // d = z > a ? 0 : 1, and so on
+              c1 = ~__vcmpgts4(z, a);
+              z = __vmaxs4(z, a);
+              c2 = ~__vcmpgts4(z, b);
+              z = __vmaxs4(z, b);
+              c3 = ~__vcmpgts4(z, a2a);
+            } else {
+              c1 = __vcmpgts4(a, z);
+              z = __vmaxs4(z, a);
+              c2 = __vcmpgts4(b, z);
+              z = __vmaxs4(z, b);
+              c3 = __vcmpgts4(a2a, z);
+            }
             z = __vmaxs4(z, a2a);
             const uint32_t d = sel(c3, 0x03030303u,
                                    sel(c2, 0x02020202u, c1 & 0x01010101u));
@@ -332,16 +435,62 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
             a = __vsub4(a, t1);
             b = __vsub4(b, t1);
             a2 = __vsub4(a2, __vsub4(z, Q2b));
-            const uint32_t ga = __vcmpgts4(a, 0u), gb = __vcmpgts4(b, 0u);
-            const uint32_t g2 = __vcmpgts4(a2, Dw[k]);
+            uint32_t ga, gb, g2;
+            if constexpr (RIGHT) {      // a >= 0, b >= 0, a2 >= dn
+              ga = ~__vcmpgts4(0u, a);
+              gb = ~__vcmpgts4(0u, b);
+              g2 = ~__vcmpgts4(Dw[k], a2);
+            } else {
+              ga = __vcmpgts4(a, 0u);
+              gb = __vcmpgts4(b, 0u);
+              g2 = __vcmpgts4(a2, Dw[k]);
+            }
             X[k] = __vsub4(a & ga, bc(qe));
             Y[k] = __vsub4(b & gb, bc(qe));
             X2[k] = __vsub4(sel(g2, a2, Dw[k]), Q2b);
             P[k] = d | (ga & 0x08080808u) | (gb & 0x10101010u)
                    | (g2 & 0x20202020u);
           }
-          *reinterpret_cast<uint4*>(prow + (size_t)r * W + l0) =
-              make_uint4(P[0], P[1], P[2], P[3]);
+          if (with_cigar)
+            *reinterpret_cast<uint4*>(prow + (size_t)r * W + l0) =
+                make_uint4(P[0], P[1], P[2], P[3]);
+          if constexpr (EXACT) {
+            // H row (:297-320): the body [st0, en0) adds v, en0 takes h_en0
+            if (t0 + GL - 1 >= st0 && t0 <= en0) {
+              const int hprev = en0 - 1 - ws >= 0 ? edgeH[NG * prv + gp] : 0;
+              int Hp[GL];
+#pragma unroll
+              for (int j = 0; j < GL; ++j) Hp[j] = H[j];
+#pragma unroll
+              for (int j = 0; j < GL; ++j) {
+                const int t = t0 + j;
+                const int vj = sext8(V[j >> 2] >> (8 * (j & 3)));
+                if (t == en0) {
+                  int h;
+                  if (r == 0) {
+                    h = vj - qe;
+                  } else if (en0 > 0) {
+                    h = (j ? Hp[j ? j - 1 : 0] : hprev)
+                        + sext8(U[j >> 2] >> (8 * (j & 3)));
+                  } else {
+                    h = Hp[j] + vj;
+                  }
+                  H[j] = h;
+                  xc[5] = h;
+                } else if (t >= st0 && t < en0) {
+                  H[j] = Hp[j] + vj;
+                }
+                if (t == st0) xc[6] = H[j];
+                if (t >= st0 && t <= en0) {
+                  const int k = t == en0 ? INT_MAX : -t;
+                  if (H[j] > hb || (H[j] == hb && k > hk)) {
+                    hb = H[j];
+                    hk = k;
+                  }
+                }
+              }
+            }
+          }
         } else {
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
@@ -352,9 +501,9 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
         }
       }
       edge[NG * cur + g] = edge_word(X[3], V[3], X2[3]);
+      if constexpr (EXACT) edgeH[NG * cur + g] = H[GL - 1];
       // exports for the next diagonal: x, v, x2 at st(r + 1) - 1 and the H0
       // walk's v[t0], u[t0 + 1] of this one
-      int* xc = xs + NX * cur;
       const int lb = ((max(0, r + 2 - qlen) >> 4) << 4) - 1 - ws;
       if (lb >= 0 && lb < W) {
         const int ph = slot_of(lb, off, W);
@@ -364,23 +513,34 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
           xc[2] = sext8(byte_of(X2, ph & 15));
         }
       }
-      int lv = -1, lu = -1;
-      if (r == 0) {
-        lv = 0;
-      } else {
-        const int lx = h0t + 1 - ws;
-        if (lx >= 0 && lx < W) {
-          lv = lx == 0 ? W - 1 : lx - 1;
-          lu = lx;
+      if constexpr (!EXACT) {
+        int lv = -1, lu = -1;
+        if (r == 0) {
+          lv = 0;
+        } else {
+          const int lx = h0t + 1 - ws;
+          if (lx >= 0 && lx < W) {
+            lv = lx == 0 ? W - 1 : lx - 1;
+            lu = lx;
+          }
+        }
+        if (lv >= 0) {
+          const int ph = slot_of(lv, off, W);
+          if ((ph >> 4) == g) xc[3] = sext8(byte_of(V, ph & 15));
+        }
+        if (lu >= 0) {
+          const int ph = slot_of(lu, off, W);
+          if ((ph >> 4) == g) xc[4] = sext8(byte_of(U, ph & 15));
         }
       }
-      if (lv >= 0) {
-        const int ph = slot_of(lv, off, W);
-        if ((ph >> 4) == g) xc[3] = sext8(byte_of(V, ph & 15));
-      }
-      if (lu >= 0) {
-        const int ph = slot_of(lu, off, W);
-        if ((ph >> 4) == g) xc[4] = sext8(byte_of(U, ph & 15));
+    }
+    if constexpr (EXACT) {
+      // each warp's (max, key); the block's at the next diagonal's start
+      const int m = __reduce_max_sync(0xFFFFFFFFu, hb);
+      const int k = __reduce_max_sync(0xFFFFFFFFu, hb == m ? hk : INT_MIN);
+      if ((g & 31) == 0) {
+        red[2 * (NWARP * cur + (g >> 5))] = m;
+        red[2 * (NWARP * cur + (g >> 5)) + 1] = k;
       }
     }
     pw_r = r; pw_ws = ws; pw_st0 = st0; pw_en0 = en0;
@@ -389,30 +549,46 @@ __global__ void __launch_bounds__(MAX_T) exts2_kernel(
     nr = r + 1;
     __syncthreads();
   }
-  if (pw_r >= 0) {           // every diagonal was live: walk the last one
-    const int* xp = xs + NX * ((r - 1) & 1);
-    h0_walk(xp[3], xp[4], W, pw_r, pw_ws, pw_st0, pw_en0, pw_fin, qe, H0,
-            h0t, score);
-  }
+  if (pw_r >= 0)             // every diagonal was live: the last one's step
+    step(xs + NX * ((r - 1) & 1), red + 2 * NWARP * ((r - 1) & 1));
   if (tid == 0) {
     int* o = ez + (size_t)n * EZ_N;
-    const int vals[EZ_N] = {0, zdr, -1, -1, NEG_INF32, -1, NEG_INF32, -1,
-                            score, last_st, 0, nr, H0, h0t, 0, 0};
+    const int vals[EZ_N] = {mx, zdr, mxq, mxt, mqe, mqet, mte, mteq,
+                            score, last_st, 0, nr, H0, h0t, zflag, 0};
     for (int i = 0; i < EZ_N; ++i) o[i] = vals[i];
   }
+}
+
+using Exts2Fn = void (*)(const uint8_t*, const uint8_t*, const int8_t*,
+                         const int8_t*, const int*, const int*, uint8_t*,
+                         int*, int, int, int, int, int, int, int, int, int,
+                         int, int, int, int, int);
+
+// the instantiation of a mode (approx_drop counts only in the approx mode)
+inline Exts2Fn exts2_variant(int exact, int right, int adrop) {
+  if (exact)
+    return right ? exts2_kernel<true, true, false>
+                 : exts2_kernel<true, false, false>;
+  if (adrop)
+    return right ? exts2_kernel<false, true, true>
+                 : exts2_kernel<false, false, true>;
+  return right ? exts2_kernel<false, true, false>
+               : exts2_kernel<false, false, false>;
 }
 
 }  // namespace
 
 // threads and dynamic shared memory of a launch at these widths (W % 128
 // == 0 keeps the shared planes 16-byte aligned)
-static int launch_shape(int W, int QP, int TP, int* threads, size_t* smem) {
+static int launch_shape(Exts2Fn fn, int exact, int W, int QP, int TP,
+                        int* threads, size_t* smem) {
   if (W % 128 || W / GL > MAX_T) return (int)cudaErrorInvalidValue;
   *threads = (W / GL + 31) / 32 * 32;
   *smem = (size_t)2 * (W / GL) * 4 + 2 * NX * 4
+          + (exact ? (size_t)2 * (W / GL) * 4 + NRED * 4 : 0)
           + 3 * (size_t)((TP + 15) & ~15) + QP + QM + QTAIL;
   return (int)cudaFuncSetAttribute(
-      exts2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
 extern "C" int mm2_exts2(const void* qr, const void* sf, const void* dn,
@@ -420,26 +596,31 @@ extern "C" int mm2_exts2(const void* qr, const void* sf, const void* dn,
                          void* p, void* ez, int N, int QP, int TP, int W,
                          int RT, int q, int e, int q2, int long_thres,
                          int long_diff, int sc_mch, int sc_mis, int sc_N,
-                         void* stream) {
+                         int with_cigar, int exact, int right, int adrop,
+                         int zdrop, void* stream) {
   if (N == 0) return 0;
+  const Exts2Fn fn = exts2_variant(exact, right, adrop);
   int threads;
   size_t smem;
-  const int err = launch_shape(W, QP, TP, &threads, &smem);
+  const int err = launch_shape(fn, exact, W, QP, TP, &threads, &smem);
   if (err) return err;
-  exts2_kernel<<<N, threads, smem, (cudaStream_t)stream>>>(
+  fn<<<N, threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)qr, (const uint8_t*)sf, (const int8_t*)dn,
       (const int8_t*)ac, (const int*)lens, (const int*)order, (uint8_t*)p,
       (int*)ez, QP, TP, W, RT, q, e, q2, long_thres, long_diff, sc_mch,
-      sc_mis, sc_N);
+      sc_mis, sc_N, with_cigar, zdrop);
   return (int)cudaGetLastError();
 }
 
-// blocks of the kernel one SM holds at once at these widths
-extern "C" int mm2_exts2_occupancy(int W, int QP, int TP, int* blocks) {
+// blocks of a mode's kernel one SM holds at once at these widths (mode =
+// exact | right << 1 | adrop << 2)
+extern "C" int mm2_exts2_occupancy(int W, int QP, int TP, int mode,
+                                   int* blocks) {
+  const Exts2Fn fn = exts2_variant(mode & 1, mode >> 1 & 1, mode >> 2 & 1);
   int threads;
   size_t smem;
-  const int err = launch_shape(W, QP, TP, &threads, &smem);
+  const int err = launch_shape(fn, mode & 1, W, QP, TP, &threads, &smem);
   if (err) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, exts2_kernel, threads, smem);
+      blocks, fn, threads, smem);
 }

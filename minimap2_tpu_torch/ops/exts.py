@@ -1,11 +1,16 @@
-"""Splice-aware extension with direction bytes (ksw_exts2, approx-max mode):
-CUDA kernel, plain version and the host splice-site planes.
+"""Splice-aware extension with direction bytes (ksw_exts2): CUDA kernel,
+plain version and the host splice-site planes, in every mode of the JAX
+kernel.
 
 Counterpart of minimap2_tpu.ops.exts_pallas.exts2_batch (exts_pallas.py:
 536-556 -> ``_exts2_call`` :488 -> the Pallas kernel ``_exts2_kernel``
-:111-425), in the mode of the ``--batch -x splice`` path
-(align_batch.py:189-196 of the JAX package): approx-max, no zdrop,
-left-align, with direction bytes.  The Suzuki-Kasahara difference
+:111-425).  The ``--batch -x splice`` path (align_batch.py:189-196 of the
+JAX package) runs approx-max, no zdrop, left-align, with direction bytes;
+the kernel's other modes are exact-max (the H row, its maximum, mqe/mte
+and ksw_apply_zdrop with e = 0: introns are free, :297-345), approx-drop
+(the z-drop test on the H0 walk, :371-376), right-align (the ``>=`` forms
+of the compares, :245-292) and no-cigar (no p: ``None``, where the JAX
+kernel returns a (1, 1, 1, 1, 128) placeholder).  The Suzuki-Kasahara difference
 recurrence of ksw_exts2_sse runs over anti-diagonals r on int32 lanes with
 int8 wrap arithmetic (``_wrap8``); the second gap state is the intron x2
 (open cost q2, no extension cost) with per-target donor / acceptor
@@ -26,13 +31,12 @@ the JAX package's layout, because the result depends on it:
   updated lanes (:293).
 
 ``EZ_DEAD`` depends on the Pallas grid's group skip (:392-394), exactly
-as in extd2; ``extend._ez_dead`` applies that rule.  Outputs: ``p`` (N,
+as in extd2; ``extend._ez_dead`` applies that rule (a z-dropped job, which
+stops after that diagonal, is reported in lane ``EZ_ZFLAG``).  Outputs: ``p`` (N,
 RC*RB, W) uint8 (JAX's (NG, RC, RB, G, W) block after a transpose), ``ez``
 (N, 16) int32.  ``exts2_batch`` launches the kernel (csrc/exts2.cu) for
 CUDA tensors and runs ``exts2_batch_plain`` for CPU tensors; either way
 the jobs run in ``job_order`` (longest first) and come back in job order.
-Exact-max, zdrop, approx-drop, right-align and the no-cigar mode raise
-NotImplementedError.
 """
 from __future__ import annotations
 
@@ -41,9 +45,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .extend import (EZ_H0, EZ_H0T, EZ_LASTST, EZ_MAXQ, EZ_MAXT, EZ_MQE,
-                     EZ_MQET, EZ_MTE, EZ_MTEQ, EZ_N, EZ_NR, EZ_SCORE,
-                     EZ_ZDROP, NEG_INF32, _ez_dead, _sext8, job_order)
+from .extend import (EZ_N, NEG_INF32, _ez_dead, _ez_out, _h_row, _sext8,
+                     _zdrop_step, job_order)
 
 MAX_W = 4096          # 16 lanes a thread, 256 threads (csrc/exts2.cu)
 
@@ -116,25 +119,22 @@ def splice_site_arrays(tseqs: np.ndarray, tlens: np.ndarray, flag_for: bool,
     return donor.astype(np.int8), acceptor.astype(np.int8)
 
 
-def _check(W, QP, right_mode, approx_max, approx_drop, zdrop, with_cigar):
-    if right_mode or not approx_max or approx_drop or zdrop >= 0 \
-            or not with_cigar:
-        raise NotImplementedError(
-            "exts2: only the splice path's mode is ported (approx_max=True, "
-            "approx_drop=False, zdrop=-1, right_mode=False, with_cigar); "
-            "exact-max, zdrop, approx-drop, right-align and no-cigar modes "
-            "are a later slice")
+def _check(W, QP):
+    """The shapes the kernel takes: the JAX kernel's (W % 128, W >= QP +
+    32), and W <= MAX_W, the port kernel's own limit (ROADMAP Queue 3)."""
     if W % 128 or W < QP + 32 or W > MAX_W:
         raise ValueError(f"exts2: need W % 128 == 0, W >= QP + 32 and "
                          f"W <= {MAX_W} (W={W}, QP={QP})")
 
 
 def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
-                      sc_mis, sc_N):
+                      sc_mis, sc_N, with_cigar=True, approx_max=True,
+                      approx_drop=False, right_mode=False, zdrop=-1):
     """Plain version on (N, W) lanes with a loop over anti-diagonals.
     qr: (N, QP) uint8 REVERSED queries; sf: (N, TP) uint8 targets; dn / ac:
-    (N, TP) int8 donor / acceptor; lens (N, 2) int32.  Returns (p, ez)
-    before the EZ_DEAD rule."""
+    (N, TP) int8 donor / acceptor; lens (N, 2) int32.  Returns (p or None,
+    ez) before the EZ_DEAD rule."""
+    exact = not approx_max
     N = qr.shape[0]
     TP = sf.shape[1]
     dev = qr.device
@@ -163,12 +163,18 @@ def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
         return torch.full((N, W), v, dtype=i32, device=dev)
     u, v, x, y, x2, s = full(-qe), full(-qe), full(-qe), full(-qe), \
         full(-q2), full(0)
+    H = full(NEG_INF32) if exact else None
     zeros = torch.zeros(N, dtype=i64, device=dev)
+    zflag = zeros.clone()
+    best = (zeros, zeros - 1, zeros - 1)                 # mx, mxt, mxq
+    # mte, mteq, mqe, mqet, score
+    ends = (zeros + NEG_INF32, zeros - 1, zeros + NEG_INF32, zeros - 1,
+            zeros + NEG_INF32)
     dead, zdr, last_st, nr = (zeros.bool(), zeros.clone(), zeros.clone(),
                               zeros.clone())
     H0, h0t = zeros.clone(), zeros.clone()
-    score = torch.full((N,), NEG_INF32, dtype=i64, device=dev)
-    p = torch.zeros((N, RT, W), dtype=torch.uint8, device=dev)
+    p = torch.zeros((N, RT, W), dtype=torch.uint8, device=dev) \
+        if with_cigar else None
     lane = torch.arange(W, device=dev)[None, :]
     rows = torch.arange(N, device=dev)
     fills = (-qe, -qe, -qe, -qe, -q2, 0)
@@ -203,6 +209,9 @@ def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
                 torch.cat([a[:, 16:], torch.full((N, 16), f, dtype=i32,
                                                  device=dev)], 1)
                 for a, f in zip((u, v, x, y, x2, s), fills))
+            if exact:
+                H = torch.cat([H[:, 16:], torch.full(
+                    (N, 16), NEG_INF32, dtype=i32, device=dev)], 1)
         t_abs = lane + ws
         at_r = (t_abs == r) & (en >= r)[:, None]
         y = torch.where(at_r, -qe, y)
@@ -226,19 +235,30 @@ def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
         a2 = _wrap8(x2t1 + vt1)
         a2a = _wrap8(a2 + acr)
         z = s
-        d = (a > z).to(torch.uint8)
-        z = torch.maximum(z, a)
-        d = torch.where(b > z, 2, d)
-        z = torch.maximum(z, b)
-        d = torch.where(a2a > z, 3, d)
-        z = torch.maximum(z, a2a)
+        if right_mode:
+            d = (z <= a).to(torch.uint8)
+            z = torch.maximum(z, a)
+            d = torch.where(z > b, d, 2)
+            z = torch.maximum(z, b)
+            d = torch.where(z > a2a, d, 3)
+            z = torch.maximum(z, a2a)
+        else:
+            d = (a > z).to(torch.uint8)
+            z = torch.maximum(z, a)
+            d = torch.where(b > z, 2, d)
+            z = torch.maximum(z, b)
+            d = torch.where(a2a > z, 3, d)
+            z = torch.maximum(z, a2a)
         u_new = _wrap8(z - vt1)
         v_new = _wrap8(z - u_p)
         t1 = _wrap8(z - q)
         a = _wrap8(a - t1)
         b = _wrap8(b - t1)
         a2 = _wrap8(a2 - _wrap8(z - q2))
-        ga, gb, g2 = a > 0, b > 0, a2 > dnr
+        if right_mode:
+            ga, gb, g2 = a >= 0, b >= 0, a2 >= dnr
+        else:
+            ga, gb, g2 = a > 0, b > 0, a2 > dnr
         m_upd = live[:, None] & (t_abs >= st[:, None]) \
             & (t_abs <= en[:, None])
         u = torch.where(m_upd, u_new, u_p)
@@ -246,41 +266,45 @@ def exts2_batch_plain(qr, sf, dn, ac, lens, *, W, RT, QP, q, e, q2, sc_mch,
         x = torch.where(m_upd, _wrap8(torch.where(ga, a, 0) - qe), x)
         y = torch.where(m_upd, _wrap8(torch.where(gb, b, 0) - qe), y)
         x2 = torch.where(m_upd, _wrap8(torch.where(g2, a2, dnr) - q2), x2)
-        d = d | (ga.to(torch.uint8) << 3) | (gb.to(torch.uint8) << 4) \
-            | (g2.to(torch.uint8) << 5)
-        p[:, r] = torch.where(m_upd, d, 0)
+        if with_cigar:
+            d = d | (ga.to(torch.uint8) << 3) | (gb.to(torch.uint8) << 4) \
+                | (g2.to(torch.uint8) << 5)
+            p[:, r] = torch.where(m_upd, d, 0)
         fin = live & (r == rstar - 1) & (en0 == tlen - 1)
-        # greedy H0 walk: lane lx = h0t + 1 - ws holds (v[t0], u[t0 + 1])
-        lx = h0t + 1 - ws
-        okx = (lx >= 0) & (lx < W)
-        d0 = torch.where(okx, _sext8(v[rows, (lx - 1) % W]), 0)
-        d1 = torch.where(okx, _sext8(u[rows, lx.clamp(0, W - 1)]), 0)
-        in0 = (st0 <= h0t) & (h0t <= en0)
-        in1 = (st0 <= h0t + 1) & (h0t + 1 <= en0)
-        case12 = in0 & in1
-        step_t = case12 & (d1 >= d0)
-        delta = torch.where(case12, torch.where(step_t, d1, d0),
-                            torch.where(in0, d0, d1))
-        if r == 0:
-            H0_new, h0t_new = v[:, 0].to(i64) - qe, zeros
+        if exact:
+            H, max_H, max_t, ends = _h_row(
+                H, u, v, r, ws, st0, en0, qlen, tlen, live, fin, qe, lane,
+                t_abs, ends)
         else:
-            H0_new, h0t_new = H0 + delta, h0t + (step_t | ~in0).to(i64)
-        H0 = torch.where(live, H0_new, H0)
-        h0t = torch.where(live, h0t_new, h0t)
-        score = torch.where(fin, H0, score)
-        zdr = torch.where(~dead & band_dead, 1, zdr)
-        dead = dead | band_dead
+            # greedy H0 walk: lane lx = h0t + 1 - ws holds (v[t0], u[t0 + 1])
+            lx = h0t + 1 - ws
+            okx = (lx >= 0) & (lx < W)
+            d0 = torch.where(okx, _sext8(v[rows, (lx - 1) % W]), 0)
+            d1 = torch.where(okx, _sext8(u[rows, lx.clamp(0, W - 1)]), 0)
+            in0 = (st0 <= h0t) & (h0t <= en0)
+            in1 = (st0 <= h0t + 1) & (h0t + 1 <= en0)
+            case12 = in0 & in1
+            step_t = case12 & (d1 >= d0)
+            delta = torch.where(case12, torch.where(step_t, d1, d0),
+                                torch.where(in0, d0, d1))
+            if r == 0:
+                H0_new, h0t_new = v[:, 0].to(i64) - qe, zeros
+            else:
+                H0_new, h0t_new = H0 + delta, h0t + (step_t | ~in0).to(i64)
+            H0 = torch.where(live, H0_new, H0)
+            h0t = torch.where(live, h0t_new, h0t)
+            ends = ends[:4] + (torch.where(fin, H0, ends[4]),)
+            max_H, max_t = H0, h0t
+        zdropped = zeros.bool()
+        if exact or approx_drop:      # e = 0: introns are free
+            zdropped, best = _zdrop_step(max_H, max_t, r, live, zdrop, 0,
+                                         best)
+        zdr = torch.where((~dead & band_dead) | zdropped, 1, zdr)
+        zflag = zflag | zdropped
+        dead = dead | band_dead | zdropped
         last_st = torch.where(live, st, last_st)
         nr = torch.where(live, r + 1, nr)
-    ez = torch.zeros((N, EZ_N), dtype=i64, device=dev)
-    for lane_i, val in ((EZ_MAXQ, -1), (EZ_MAXT, -1), (EZ_MQE, NEG_INF32),
-                        (EZ_MQET, -1), (EZ_MTE, NEG_INF32), (EZ_MTEQ, -1)):
-        ez[:, lane_i] = val
-    for lane_i, val in ((EZ_ZDROP, zdr), (EZ_SCORE, score),
-                        (EZ_LASTST, last_st), (EZ_NR, nr), (EZ_H0, H0),
-                        (EZ_H0T, h0t)):
-        ez[:, lane_i] = val
-    return p, ez.to(i32)
+    return p, _ez_out(best, ends, zdr, last_st, nr, H0, h0t, zflag)
 
 
 def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,
@@ -290,16 +314,21 @@ def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,
     QP) uint8 reversed queries; sf: (N, TP) uint8 targets; dn / ac: (N,
     TP) int8 donor / acceptor planes (splice_site_arrays); lens: (N, 2)
     int32 with 1 <= qlen <= QP, 1 <= tlen <= TP.  Returns (p (N, RC*RB, W)
-    uint8, ez (N, 16) int32).  G only fixes EZ_DEAD's group semantics."""
-    _check(W, QP, right_mode, approx_max, approx_drop, zdrop, with_cigar)
+    uint8, or None without with_cigar, ez (N, 16) int32).  G only fixes
+    EZ_DEAD's group semantics.  approx_drop matters only with approx_max,
+    as in the JAX kernel."""
+    _check(W, QP)
     N = qr.shape[0]
     if qr.shape != (N, QP) or sf.shape != (N, TP) or dn.shape != (N, TP) \
             or ac.shape != (N, TP) or lens.shape != (N, 2):
         raise ValueError("exts2: qr (N, QP), sf / dn / ac (N, TP), lens "
                          "(N, 2)")
     RT = (R + RB - 1) // RB * RB
+    approx_drop = bool(approx_drop and approx_max)
     kw = dict(W=W, RT=RT, QP=QP, q=q, e=e, q2=q2, sc_mch=sc_mch,
-              sc_mis=sc_mis, sc_N=sc_N)
+              sc_mis=sc_mis, sc_N=sc_N, with_cigar=with_cigar,
+              approx_max=approx_max, approx_drop=approx_drop,
+              right_mode=right_mode, zdrop=zdrop)
     order = job_order(lens)
     if qr.device.type == "cpu":
         # the kernel's block -> job mapping: run the jobs in that order,
@@ -307,8 +336,12 @@ def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,
         o = order.long()
         p_o, ez_o = exts2_batch_plain(qr[o], sf[o], dn[o], ac[o], lens[o],
                                       **kw)
-        p, ez = torch.empty_like(p_o), torch.empty_like(ez_o)
-        p[o], ez[o] = p_o, ez_o
+        ez = torch.empty_like(ez_o)
+        ez[o] = ez_o
+        p = None
+        if with_cigar:
+            p = torch.empty_like(p_o)
+            p[o] = p_o
         return p, _ez_dead(ez, lens, G, RB, RT)
     _build.require_cuda("exts2_batch", qr, sf, dn, ac, lens)
     if qr.dtype != torch.uint8 or sf.dtype != torch.uint8 \
@@ -316,13 +349,28 @@ def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,
             or lens.dtype != torch.int32:
         raise ValueError("exts2: uint8 qr/sf, int8 dn/ac and int32 lens")
     # the kernel stores band rows only: every other byte of p is 0
-    p = torch.zeros((N, RT, W), dtype=torch.uint8, device=qr.device)
+    p = torch.zeros((N, RT, W) if with_cigar else (0,), dtype=torch.uint8,
+                    device=qr.device)
     ez = torch.empty((N, EZ_N), dtype=torch.int32, device=qr.device)
     err = _build.lib().mm2_exts2(
         qr.data_ptr(), sf.data_ptr(), dn.data_ptr(), ac.data_ptr(),
         lens.data_ptr(), order.data_ptr(), p.data_ptr(), ez.data_ptr(), N,
         QP, TP, W, RT, q, e, q2, *long_thres_of(q, e, q2), sc_mch, sc_mis,
-        sc_N, _build.stream_ptr(qr))
+        sc_N, int(with_cigar), int(not approx_max), int(right_mode),
+        int(approx_drop), zdrop, _build.stream_ptr(qr))
     _build.check(err, "mm2_exts2")
-    _build.launches["exts2"] += 1
-    return p, _ez_dead(ez, lens, G, RB, RT)
+    _build.launches[launch_name(approx_max, right_mode, approx_drop,
+                                with_cigar)] += 1
+    return (p if with_cigar else None), _ez_dead(ez, lens, G, RB, RT)
+
+
+def launch_name(approx_max, right_mode, approx_drop, with_cigar):
+    """The launch counter of a mode's kernel instantiation: ``exts2`` for
+    the splice path's (approx-max, left-align, no approx-drop, with p),
+    else ``exts2_<exact|approx>[_right][_adrop][_nocigar]``."""
+    if approx_max and not right_mode and not approx_drop and with_cigar:
+        return "exts2"
+    return ("exts2_" + ("approx" if approx_max else "exact")
+            + ("_right" if right_mode else "")
+            + ("_adrop" if approx_drop else "")
+            + ("" if with_cigar else "_nocigar"))

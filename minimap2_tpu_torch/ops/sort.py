@@ -12,7 +12,10 @@ bitonic network (partner = i ^ j) in torch.
 (csrc/sort3.cu, csrc/sort1.cu) for CUDA tensors and run
 ``sort3_rows_plain`` / ``sort1_rows_plain`` for CPU tensors.
 ``sort1_ascending`` takes the compaction's keys past SORT1_MAX_WIDTH
-lanes: one sort1 launch over row chunks, then a scatter.
+lanes: one sort1 launch over row chunks, then a scatter.  ``sort3_wide``
+sorts three planes of any width by three stable ``torch.sort`` passes:
+the counterpart of the JAX step's ``lax.sort`` (XLA's sort, not a Pallas
+kernel), which takes the rows that sort3's shared memory cannot hold.
 """
 from __future__ import annotations
 
@@ -68,6 +71,25 @@ def sort3_rows_plain(k1, k2, k3):
 def sort1_rows_plain(k1):
     """Plain version of sort1_rows."""
     return _bitonic_rows_plain(k1)[0]
+
+
+def sort3_wide(k1, k2, k3, counter: str = "sort3_wide"):
+    """Row-wise ascending lexicographic sort of three u32 planes (int32
+    bit patterns, (B, A), any A): three stable sorts, last key first, each
+    key widened to int64 as its u32 value so that the all-ones sentinel
+    sorts last.  The same planes as sort3_rows_plain.  On the card the call
+    is counted under ``counter``; it launches PyTorch's sort, as the JAX
+    step leaves these rows to XLA's."""
+    perm = None
+    for k in (k3, k2, k1):
+        key = k.to(torch.int64) & 0xFFFFFFFF
+        if perm is not None:
+            key = key.gather(1, perm)
+        idx = torch.sort(key, dim=1, stable=True).indices
+        perm = idx if perm is None else perm.gather(1, idx)
+    if k1.device.type == "cuda":
+        _build.launches[counter] += 1
+    return tuple(k.gather(1, perm) for k in (k1, k2, k3))
 
 
 def sort1_rows(k1):

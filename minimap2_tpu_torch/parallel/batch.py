@@ -29,7 +29,7 @@ from ..ops.chain import NEG_INF, comput_sc, last_valid
 from ..ops.extend import EZ_SCORE, extd2_batch2
 from ..ops.sketch import hash64_t, sketch_batch
 from ..ops.sort import (KEY_NONE, MAX_WIDTH, sort1_ascending, sort3_chunked,
-                        sort3_rows)
+                        sort3_rows, sort3_wide)
 from ..utils.u32 import M32, i32, u32, umax_where
 
 
@@ -935,9 +935,15 @@ def _expand_anchors(di: DeviceIndex, start, cnt, flt, mz, mpos, mspan, qlen,
 def sort_keys(keys, counter: str = "sort3"):
     """Anchor sort keys (three (B, W) int32 planes) padded to a power of
     two with the all-ones sentinel and sorted by one sort3 launch (counted
-    under ``counter``)."""
+    under ``counter``).  Rows that pad past sort.MAX_WIDTH lanes take
+    ``sort3_wide`` unpadded (the JAX step's lax.sort route), counted as
+    ``sort3_wide`` for the anchor sort and ``<counter>_wide`` for another
+    caller: the width alone picks the route."""
     B, W = keys[0].shape
     Wp = 1 << (W - 1).bit_length()
+    if Wp > MAX_WIDTH:
+        return sort3_wide(*keys, counter="sort3_wide" if counter == "sort3"
+                          else f"{counter}_wide")
     if Wp > W:
         keys = [torch.cat([x, x.new_full((B, Wp - W), -1)], dim=1)
                 for x in keys]

@@ -8,7 +8,7 @@ key-range shards (``DeviceIndex.from_host(mi, n_shards=n_idx)``).  Rank
 ``devices.reshape(n_data, n_idx)``.  Each rank sketches its reads,
 compacts the minimizers and finds its shard's anchors; the anchors of a
 data row's shards are gathered in rank order (JAX's tiled all_gather over
-'idx') and merged by sort3 (``merge_anchors``) into the A first by (rev
+'idx') and merged by sort3, or past one row by the wide sort (``merge_anchors``), into the A first by (rev
 << 30 | rid, rpos, span << 20 | qpos): minimap2's merge_hits
 (map.c:476-539) as a collective.  The chain scan and the score-only extension then run on the
 merged anchors, and the mapped count is summed over the data column
@@ -76,16 +76,15 @@ def merge_anchors(parts, A: int, max_width: int = MAX_WIDTH):
     launch.  More are merged in groups of g (g * A lanes fit a row) as the
     rows of one launch, each row's first A kept, until one group is left:
     a group's first A hold every anchor of the whole first A that lies in
-    the group, so the result is the one sort's.  The valid lanes equal the
-    JAX merge's (lax.sort on the same three keys); invalid lanes hold the
-    sentinel's unpacking."""
+    the group, so the result is the one sort's.  When two parts exceed a
+    row (A past max_width / 2), the concatenation goes to ``sort_keys``,
+    whose width then picks the wide route (sort.sort3_wide).  The valid
+    lanes equal the JAX merge's (lax.sort on the same three keys); invalid
+    lanes hold the sentinel's unpacking."""
     parts = [tuple(p) for p in parts]
     B = parts[0][0].shape[0]
     g = max_width // (1 << (A - 1).bit_length())
-    if len(parts) > g and g < 2:
-        raise ValueError(f"merge_anchors: two parts of {A} anchors exceed "
-                         f"the {max_width}-lane sort")
-    while len(parts) > g:
+    while g >= 2 and len(parts) > g:
         blank = tuple(torch.full_like(x, -1) for x in parts[0])
         parts += [blank] * (-len(parts) % g)
         rows = [torch.cat([torch.cat([p[j] for p in parts[q:q + g]], dim=1)

@@ -102,7 +102,7 @@ def main():
         for lo in range(0, 576, sub):
             launch(lo, min(lo + sub, 576))
     print(f"bit-equal on 32 jobs {ok}; "
-          f"{_build.blocks_per_sm("extd2", W, QP, TP)} blocks per SM; "
+          f"{_build.blocks_per_sm("extd2", W, QP, TP, 0)} blocks per SM; "
           f"64 jobs {median_ms(lambda: launch(0, 64), 3):.3f} ms; "
           f"256 jobs {median_ms(lambda: launch(0, 256), 3):.3f} ms; "
           f"576 jobs as 256+256+64 {median_ms(lambda: batch(256), 2):.3f}"

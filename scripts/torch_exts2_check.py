@@ -78,7 +78,7 @@ def main():
             print("  ", ln.strip())
     W = (QP + 32 + 127) // 128 * 128
     R = (QP + TP + RB - 1) // RB * RB
-    print("blocks per SM", _build.blocks_per_sm("exts2", W, QP, TP))
+    print("blocks per SM", _build.blocks_per_sm("exts2", W, QP, TP, 0))
     qr, sf, lens = cdna_jobs(np.random.default_rng(1), 512)
     dn, ac = exts.splice_site_arrays(sf, lens[:, 1], True, 9, True, False)
     jobs = [torch.from_numpy(x).cuda() for x in (qr, sf, dn, ac, lens)]

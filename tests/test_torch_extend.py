@@ -98,17 +98,94 @@ def test_extd2_matches_jax(RB, G, with_cigar, sc_N):
 
 
 def test_extd2_other_modes_raise():
+    """Every mode of the JAX kernel runs (test_extd2_modes_match_jax);
+    what still raises is a shape the kernel does not take: W not a
+    multiple of 128, W < w + 48 + drift, W past 1024 (the port kernel's
+    own limit), RB past 128, and planes that are not (N, QP), (N, TP)."""
     z = torch.zeros((1, 128), dtype=torch.uint8)
     lens = torch.ones((1, 2), dtype=torch.int32)
     kw = dict(G=1, W=128, RB=32, R=256, QP=128, TP=128, q=Q, e=E, q2=Q2,
               e2=E2, w=40, zdrop=-1, right_mode=False, approx_max=True,
               approx_drop=False, sc_mch=2, sc_mis=-4, sc_N=0)
-    for bad in (dict(approx_max=False), dict(zdrop=400, approx_drop=True),
-                dict(approx_drop=True), dict(right_mode=True)):
-        with pytest.raises(NotImplementedError):
+    for mode in (dict(approx_max=False), dict(zdrop=400, approx_drop=True),
+                 dict(right_mode=True, with_cigar=False)):
+        extend.extd2_batch2(z, z, lens, **{**kw, **mode})
+    for bad in (dict(w=100), dict(W=192), dict(W=1152, w=40),
+                dict(RB=256, W=1024), dict(QP=64)):
+        with pytest.raises(ValueError):
             extend.extd2_batch2(z, z, lens, **{**kw, **bad})
-    with pytest.raises(ValueError):
-        extend.extd2_batch2(z, z, lens, **{**kw, "w": 100})
+
+
+# the mode grid: approx_max x right_mode x with_cigar x zdrop, and
+# approx_drop (with approx_max) x right_mode x with_cigar at zdrop 400
+MODES = [(am, rm, wc, zd, False) for am in (True, False)
+         for rm in (False, True) for wc in (True, False) for zd in (-1, 400)] \
+    + [(True, rm, wc, 400, True) for rm in (False, True) for wc in (True, False)]
+# sr scoring (a2 b8 q12 e2 q24 e1), under which a target that turns random
+# z-drops at 400 within 256 bases.  Group 0 (G = 4): four pairs that all
+# z-drop before the longest one's end; #7's band dies; #9, #10 end on a
+# chunk boundary (rstar 256), #11 too as the longest of its group (384)
+ZLENS = [(256, 256), (250, 240), (240, 256), (230, 250), (200, 230),
+         (40, 44), (150, 120), (230, 20), (1, 1), (156, 101), (160, 97),
+         (204, 181)]
+ZSC = dict(q=12, e=2, q2=24, e2=1, sc_mch=2, sc_mis=-8, sc_N=-1)
+
+
+def zdrop_pairs():
+    """ZLENS pairs; in #0-#4 and #11 the target turns random partway."""
+    qr, sf, lens = make_pairs(7, ZLENS, 256, 256)
+    rng = np.random.default_rng(8)
+    for n, g in ((0, 20), (1, 30), (2, 25), (3, 40), (4, 60), (11, 50)):
+        tl = ZLENS[n][1]
+        sf[n, g:tl] = rng.integers(0, 4, tl - g)
+    return qr, sf, lens
+
+
+def _mode_id(m):
+    am, rm, wc, zd, ad = m
+    return (("approx" if am else "exact") + ("-right" if rm else "-left")
+            + ("-cigar" if wc else "-score") + f"-z{zd}"
+            + ("-adrop" if ad else ""))
+
+
+@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+def test_extd2_modes_match_jax(mode):
+    """Each mode of the JAX kernel (exact-max with its H row, z-drop,
+    approx-drop, right-align, with and without p): p and ez bit-equal."""
+    am, rm, wc, zd, ad = mode
+    qr, sf, lens = zdrop_pairs()
+    G, RB, W, w, QP, TP = 4, 32, 256, 150, 256, 256
+    kw = dict(G=G, W=W, RB=RB, R=QP + TP, QP=QP, TP=TP, w=w, zdrop=zd,
+              right_mode=rm, approx_max=am, approx_drop=ad, with_cigar=wc,
+              **ZSC)
+    jp, jez = jax_extd2(jnp.asarray(qr), jnp.asarray(sf), jnp.asarray(lens),
+                        interpret=True, **kw)
+    p, ez = extend.extd2_batch2(torch.from_numpy(qr), torch.from_numpy(sf),
+                                torch.from_numpy(lens), **kw)
+    N = len(ZLENS)
+    np.testing.assert_array_equal(ez.numpy(), np.asarray(jez))
+    if wc:
+        NG, RC = jp.shape[:2]
+        want = np.asarray(jp).transpose(0, 3, 1, 2, 4).reshape(
+            NG * G, RC * RB, W)[:N]
+        np.testing.assert_array_equal(p.numpy(), want)
+    else:
+        assert p is None
+    ezn = ez.numpy()
+    rstar = lens.sum(1) - 1
+    dropped = (ezn[:, extend.EZ_ZDROP] == 1) & (ezn[:, extend.EZ_NR] < rstar)
+    band = np.array([7])
+    if zd >= 0 and (not am or ad):
+        # the whole of group 0 z-drops before its longest pair's end
+        assert dropped[:4].all() and (ezn[:4, extend.EZ_NR] < rstar[:4].max()
+                                      ).all()
+        assert (ezn[:4, extend.EZ_DEAD] == 1).all()
+    else:
+        assert list(np.flatnonzero(dropped)) == list(band)
+    assert ezn[11, extend.EZ_DEAD] == 0 and ezn[9, extend.EZ_DEAD] == 1
+    if not am:
+        assert (ezn[:, extend.EZ_MAX] > 0).sum() >= 10
+        assert (ezn[:, extend.EZ_MTE] > extend.NEG_INF32).sum() >= 6
 
 
 _EMU_RUNNER = r"""
@@ -116,12 +193,14 @@ extern "C" int emu_extd2(const void* qr, const void* sf, const void* lens,
                          const void* order, void* p, void* ez, int N, int QP,
                          int TP, int W, int RB, int RT, int w, int q, int e,
                          int q2, int e2, int long_thres, int long_diff,
-                         int sc_mch, int sc_mis, int sc_N, int with_cigar) {
+                         int sc_mch, int sc_mis, int sc_N, int with_cigar,
+                         int exact, int right, int adrop, int zdrop) {
+  const Extd2Fn fn = extd2_variant(exact, right, adrop);
   emu_launch(N, W / GL, [=] {
-    extd2_kernel((const uint8_t*)qr, (const uint8_t*)sf, (const int*)lens,
-                 (const int*)order, (uint8_t*)p, (int*)ez, QP, TP, W, RB, RT,
-                 w, q, e, q2, e2, long_thres, long_diff, sc_mch, sc_mis, sc_N,
-                 with_cigar);
+    fn((const uint8_t*)qr, (const uint8_t*)sf, (const int*)lens,
+       (const int*)order, (uint8_t*)p, (int*)ez, QP, TP, W, RB, RT, w, q, e,
+       q2, e2, long_thres, long_diff, sc_mch, sc_mis, sc_N, with_cigar,
+       zdrop);
   });
   return 0;
 }
@@ -134,7 +213,7 @@ def extd2_host(tmp_path_factory):
     points) on the host shim, as a ctypes function."""
     fn = build_on_host("extd2", _EMU_RUNNER,
                        tmp_path_factory.mktemp("extd2_host")).emu_extd2
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21
     fn.restype = ctypes.c_int
     return fn
 
@@ -206,7 +285,7 @@ def test_extd2_cuda_source_on_host_matches_plain(extd2_host, case):
     assert extd2_host(*[x.ctypes.data for x in ins], p.ctypes.data,
                       ez.ctypes.data, N, QP, TP, W, RB, RT, w, q, e, q2, e2,
                       *extend._long_gap(q, e, q2, e2), mch, mis, sc_n,
-                      int(cig)) == 0
+                      int(cig), 0, 0, 0, -1) == 0
     pp, ezp = extend.extd2_batch2_plain(
         *(torch.from_numpy(x) for x in (qr, sf, lens)), W=W, RB=RB, RT=RT,
         q=q, e=e, q2=q2, e2=e2, w=w, sc_mch=mch, sc_mis=mis, sc_N=sc_n,
@@ -216,3 +295,41 @@ def test_extd2_cuda_source_on_host_matches_plain(extd2_host, case):
         np.testing.assert_array_equal(p, pp.numpy())
     else:
         assert pp is None and p[0] == 0xA5
+
+
+@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+def test_extd2_modes_cuda_source_on_host_matches_plain(extd2_host, mode):
+    """Each mode's instantiation of csrc/extd2.cu on the host shim against
+    the plain version: p and ez bit-equal on the z-drop pairs and, in the
+    exact modes with z-drop, on the W = w + 48 + RB/2 case whose wrapped
+    lanes (H's among them) enter the band."""
+    am, rm, wc, zd, ad = mode
+    cases = [(256, 256, 256, 32, 150, ZLENS, zdrop_pairs())]
+    if not am and zd >= 0:
+        wl = [(600, 620), (300, 428), (428, 300), (200, 330), (640, 576)]
+        qr, sf, lens = make_pairs(3, wl, 640, 640)
+        sf[0, 200:620] = np.random.default_rng(5).integers(0, 4, 420)
+        cases.append((640, 640, 256, 64, 176, wl, (qr, sf, lens)))
+    for QP, TP, W, RB, w, lens_l, (qr, sf, lens) in cases:
+        RT = (QP + TP + RB - 1) // RB * RB
+        N = len(lens_l)
+        order = extend.job_order(torch.from_numpy(lens)).numpy()
+        p = np.full((N, RT, W) if wc else (1,), 0xA5, np.uint8)
+        ez = np.zeros((N, extend.EZ_N), np.int32)
+        ins = [np.ascontiguousarray(x) for x in (qr, sf, lens, order)]
+        sc = ZSC
+        assert extd2_host(
+            *[x.ctypes.data for x in ins], p.ctypes.data, ez.ctypes.data, N,
+            QP, TP, W, RB, RT, w, sc["q"], sc["e"], sc["q2"], sc["e2"],
+            *extend._long_gap(sc["q"], sc["e"], sc["q2"], sc["e2"]),
+            sc["sc_mch"], sc["sc_mis"], sc["sc_N"], int(wc), int(not am),
+            int(rm), int(ad), zd) == 0
+        pp, ezp = extend.extd2_batch2_plain(
+            *(torch.from_numpy(x) for x in (qr, sf, lens)), W=W, RB=RB,
+            RT=RT, w=w, with_cigar=wc, approx_max=am, approx_drop=ad,
+            right_mode=rm, zdrop=zd, **ZSC)
+        np.testing.assert_array_equal(ez, ezp.numpy())
+        if wc:
+            np.testing.assert_array_equal(p, pp.numpy())
+        else:
+            assert pp is None and p[0] == 0xA5

@@ -41,6 +41,7 @@ import __graft_entry__ as graft
 import minimap2_tpu.native as jax_native
 from minimap2_tpu.parallel import batch as jb
 from minimap2_tpu_torch import native
+from minimap2_tpu_torch.ops import sort as tsort
 from minimap2_tpu_torch.parallel import batch, ranks, sharded
 
 jax.config.update("jax_platforms", "cpu")
@@ -240,16 +241,44 @@ def test_merge_matches_jax_sort(worlds):
 def test_merge_in_groups_matches_one_sort(worlds, n):
     """More shards than one sort row takes (max_width 2A: two parts a
     row): merged in rounds of pairs, the result is the one sort's, on
-    every plane and lane; one part too wide to pair is refused."""
+    every plane and lane; parts too wide to pair (max_width A) go to one
+    sort of their concatenation, with the same result."""
     p = worlds[1][1][1]
     _planes, parts = _shard_parts(worlds[1][1], n)
     one = sharded.merge_anchors(parts, p.A)
     grouped = sharded.merge_anchors(parts, p.A, max_width=2 * p.A)
-    for q, (a, b) in enumerate(zip(grouped, one)):
+    unpaired = sharded.merge_anchors(parts, p.A, max_width=p.A)
+    for q, (a, b, c) in enumerate(zip(grouped, one, unpaired)):
         np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=str(q))
+        np.testing.assert_array_equal(c.numpy(), b.numpy(), err_msg=str(q))
     assert one[5].sum() > 200
-    with pytest.raises(ValueError, match="exceed"):
-        sharded.merge_anchors(parts, p.A, max_width=p.A)
+
+
+def test_merge_past_one_row_matches_one_sort():
+    """Two shards of A 16384 anchors (32768 lanes, past sort.MAX_WIDTH):
+    the merge takes the wide route and equals one plain sort of the
+    concatenated keys."""
+    rng = np.random.default_rng(18)
+    A, B = 16384, 2
+
+    def part():
+        av = torch.from_numpy(rng.random((B, A)) < 0.7)
+        rev = torch.from_numpy(rng.integers(0, 2, (B, A), dtype=np.int32))
+        rid = torch.from_numpy(rng.integers(0, 3, (B, A), dtype=np.int32))
+        rpos = torch.from_numpy(rng.integers(0, 1 << 20, (B, A),
+                                             dtype=np.int32))
+        qpos = torch.from_numpy(rng.integers(0, 1 << 14, (B, A),
+                                             dtype=np.int32))
+        return batch.anchor_keys(rev, rid, rpos, qpos,
+                                 torch.full_like(rpos, 15), av)
+    parts = [part(), part()]
+    got = sharded.merge_anchors(parts, A)
+    keys = [torch.cat([p[j] for p in parts], dim=1) for j in range(3)]
+    want = batch.anchors_of_keys(
+        *(x[:, :A] for x in tsort.sort3_rows_plain(*keys)))
+    for q, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=str(q))
+    assert got[5].all()
 
 
 # ---------------------------------------------------------------------------

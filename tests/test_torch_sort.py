@@ -63,6 +63,27 @@ def test_sort3_chunked_matches_pallas(monkeypatch):
     _check(got, want)
 
 
+@pytest.mark.parametrize("A", [32768, 24576])
+def test_sort3_wide_matches_plain(A):
+    """The wide route (three stable sorts) on rows past sort.MAX_WIDTH:
+    the plain network's planes, at a power of two and, through the
+    anchor sort's sort_keys, at a width it pads (the sentinel lanes sort
+    last, so the first A lanes agree)."""
+    from minimap2_tpu_torch.parallel import batch as tbatch
+    k1, k2, k3 = _planes(A, 4, A)
+    keys = [_t(k1), _t(k2), _t(k3)]
+    got = tbatch.sort_keys(keys)
+    Ap = 1 << (A - 1).bit_length()
+    padded = [torch.cat([x, x.new_full((4, Ap - A), -1)], dim=1)
+              for x in keys]
+    want = tsort.sort3_rows_plain(*padded)
+    assert got[0].shape == (4, A)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w[:, :A].numpy())
+    for g, w in zip(tsort.sort3_wide(*keys), got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
 def test_sort3_rows_is_a_sort():
     k1, k2, k3 = _planes(5, 4, 1024)
     got = [g.numpy().view(np.uint32)

@@ -172,6 +172,10 @@ def test_decode_ops_leading_intron():
 
 
 def test_exts2_modes_off_the_path_raise():
+    """Every mode of the JAX kernel runs (test_exts2_modes_match_jax);
+    what still raises is a shape the kernel does not take: W not a
+    multiple of 128, W < QP + 32, W past 4096 (the port kernel's own
+    limit), and planes that are not (N, QP), (N, TP)."""
     x = torch.zeros((1, 96), dtype=torch.uint8)
     t = torch.zeros((1, 128), dtype=torch.uint8)
     d = torch.zeros((1, 128), dtype=torch.int8)
@@ -179,13 +183,79 @@ def test_exts2_modes_off_the_path_raise():
     kw = dict(G=8, W=128, RB=32, R=224, QP=96, TP=128, q=Q, e=E, q2=Q2,
               zdrop=-1, right_mode=False, approx_max=True, approx_drop=False,
               sc_mch=1, sc_mis=-2, sc_N=-1)
-    for bad in (dict(zdrop=200), dict(approx_max=False),
-                dict(right_mode=True), dict(approx_drop=True),
-                dict(with_cigar=False)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            exts.exts2_batch(x, t, d, d, lens, **{**kw, **bad})
+    for mode in (dict(zdrop=200), dict(approx_max=False),
+                 dict(right_mode=True), dict(approx_drop=True),
+                 dict(with_cigar=False)):
+        p, ez = exts.exts2_batch(x, t, d, d, lens, **{**kw, **mode})
+        assert (p is None) == ("with_cigar" in mode)
     with pytest.raises(ValueError, match="W >= QP"):
         exts.exts2_batch(x, t, d, d, lens, **{**kw, "QP": 100})
+    for bad in (dict(W=192), dict(W=4224, QP=96), dict(TP=100)):
+        with pytest.raises(ValueError):
+            exts.exts2_batch(x, t, d, d, lens, **{**kw, **bad})
+
+
+# the mode grid: approx_max x right_mode x with_cigar x zdrop, and
+# approx_drop (with approx_max) x right_mode x with_cigar.  Under the
+# splice scoring an intron caps a row's drop (H at t stays within q2 + a
+# site penalty of the maximum while the target lasts), so a z-drop needs a
+# query tail past the target: zdrop 60 here, where 200 would need a
+# longer query than these widths.
+MODES = [(am, rm, wc, zd, False) for am in (True, False)
+         for rm in (False, True) for wc in (True, False) for zd in (-1, 60)] \
+    + [(True, rm, wc, 60, True) for rm in (False, True) for wc in (True, False)]
+ZLENS = [(180, 250), (170, 230), (150, 256), (192, 192), (120, 240),
+         (60, 150), (1, 1), (190, 200), (80, 177)]
+
+
+def zdrop_spliced_pairs():
+    """ZLENS spliced pairs; in #0-#3 and #7 the query turns random
+    partway, so the exact and approx-drop modes z-drop there."""
+    qr, sf, lens = _spliced_pairs(3, ZLENS, 192, 256)
+    rng = np.random.default_rng(4)
+    for n, k in ((0, 80), (1, 70), (2, 50), (3, 100), (7, 60)):
+        ql = ZLENS[n][0]
+        qr[n, :ql - k] = rng.integers(0, 4, ql - k)     # its last ql - k
+    dn, ac = exts.splice_site_arrays(sf, lens[:, 1], True, NONCAN, True,
+                                     False)
+    return qr, sf, dn, ac, lens
+
+
+def _mode_id(m):
+    am, rm, wc, zd, ad = m
+    return (("approx" if am else "exact") + ("-right" if rm else "-left")
+            + ("-cigar" if wc else "-nocigar") + f"-z{zd}"
+            + ("-adrop" if ad else ""))
+
+
+@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+def test_exts2_modes_match_jax(mode):
+    """Each mode of the JAX kernel (exact-max with its H row, z-drop,
+    approx-drop, right-align, no-cigar): p and ez bit-equal."""
+    am, rm, wc, zd, ad = mode
+    planes = zdrop_spliced_pairs()
+    QP, TP, W, RB, G = 192, 256, 256, 32, 4
+    kw = dict(G=G, W=W, RB=RB, R=QP + TP, QP=QP, TP=TP, q=Q, e=E, q2=Q2,
+              zdrop=zd, right_mode=rm, approx_max=am, approx_drop=ad,
+              sc_mch=1, sc_mis=-2, sc_N=-1, with_cigar=wc)
+    jp, jez = exts_pallas.exts2_batch(*planes, interpret=True, **kw)
+    p, ez = exts.exts2_batch(*(torch.from_numpy(x) for x in planes), **kw)
+    np.testing.assert_array_equal(ez.numpy(), np.asarray(jez))
+    if wc:
+        np.testing.assert_array_equal(p.numpy(), _jax_p(jp, len(ZLENS)))
+    else:
+        assert p is None
+    ezn = ez.numpy()
+    dropped = ezn[:, exts_pallas.EZ_ZDROP] == 1
+    if zd >= 0 and (not am or ad):
+        assert dropped[[0, 1, 2, 7]].all() and (ezn[dropped, exts_pallas.EZ_DEAD]
+                                                == 1).all()
+        assert (ezn[dropped, exts_pallas.EZ_NR] < planes[4].sum(1)[dropped] - 1
+                ).all()
+    else:
+        assert not dropped.any()
+    if not am:
+        assert (ezn[:, exts_pallas.EZ_MAX] > 0).sum() >= 7
 
 
 COMP = bytes.maketrans(b"ACGT", b"TGCA")
@@ -420,12 +490,15 @@ extern "C" int emu_exts2(const void* qr, const void* sf, const void* dn,
                          const void* ac, const void* lens, const void* order,
                          void* p, void* ez, int N, int QP, int TP, int W,
                          int RT, int q, int e, int q2, int long_thres,
-                         int long_diff, int sc_mch, int sc_mis, int sc_N) {
+                         int long_diff, int sc_mch, int sc_mis, int sc_N,
+                         int with_cigar, int exact, int right, int adrop,
+                         int zdrop) {
+  const Exts2Fn fn = exts2_variant(exact, right, adrop);
   emu_launch(N, (W / GL + 31) / 32 * 32, [=] {
-    exts2_kernel((const uint8_t*)qr, (const uint8_t*)sf, (const int8_t*)dn,
-                 (const int8_t*)ac, (const int*)lens, (const int*)order,
-                 (uint8_t*)p, (int*)ez, QP, TP, W, RT, q, e, q2, long_thres,
-                 long_diff, sc_mch, sc_mis, sc_N);
+    fn((const uint8_t*)qr, (const uint8_t*)sf, (const int8_t*)dn,
+       (const int8_t*)ac, (const int*)lens, (const int*)order, (uint8_t*)p,
+       (int*)ez, QP, TP, W, RT, q, e, q2, long_thres, long_diff, sc_mch,
+       sc_mis, sc_N, with_cigar, zdrop);
   });
   return 0;
 }
@@ -438,7 +511,7 @@ def exts2_host(tmp_path_factory):
     points) on the host shim, as a ctypes function."""
     fn = build_on_host("exts2", _EMU_RUNNER,
                        tmp_path_factory.mktemp("exts2_host")).emu_exts2
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 18
     fn.restype = ctypes.c_int
     return fn
 
@@ -483,9 +556,49 @@ def test_exts2_cuda_source_on_host_matches_plain(exts2_host, case):
     ins = [np.ascontiguousarray(x) for x in (qr, sf, dn, ac, lens, order)]
     assert exts2_host(*[x.ctypes.data for x in ins], p.ctypes.data,
                       ez.ctypes.data, N, QP, TP, W, RT, q, e, q2,
-                      *exts.long_thres_of(q, e, q2), mch, mis, sc_n) == 0
+                      *exts.long_thres_of(q, e, q2), mch, mis, sc_n, 1, 0, 0,
+                      0, -1) == 0
     pp, ezp = exts.exts2_batch_plain(
         *(torch.from_numpy(x) for x in (qr, sf, dn, ac, lens)), W=W, RT=RT,
         QP=QP, q=q, e=e, q2=q2, sc_mch=mch, sc_mis=mis, sc_N=sc_n)
     np.testing.assert_array_equal(ez, ezp.numpy())
     np.testing.assert_array_equal(p, pp.numpy())
+
+
+@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+def test_exts2_modes_cuda_source_on_host_matches_plain(exts2_host, mode):
+    """Each mode's instantiation of csrc/exts2.cu on the host shim against
+    the plain version: p and ez bit-equal on the z-drop pairs (window
+    steps, a chunk of wrapped slots a step) and, in the exact modes, on
+    the reverse-strand sites of the case with the longest query."""
+    am, rm, wc, zd, ad = mode
+    cases = [(192, 256, zdrop_spliced_pairs())]
+    if not am:
+        lens_l = [(224, 384), (200, 380), (224, 100), (150, 150), (1, 300)]
+        qr, sf, lens = _spliced_pairs(9, lens_l, 224, 384)
+        qr[0, :124] = np.random.default_rng(6).integers(0, 4, 124)
+        dn, ac = exts.splice_site_arrays(sf, lens[:, 1], False, NONCAN,
+                                         False, False)
+        cases.append((224, 384, (qr, sf, dn, ac, lens)))
+    for QP, TP, planes in cases:
+        W = (QP + 32 + 127) // 128 * 128
+        RT = (QP + TP + 31) // 32 * 32
+        lens = planes[4]
+        N = lens.shape[0]
+        order = exts.job_order(torch.from_numpy(lens)).numpy()
+        p = np.zeros((N, RT, W) if wc else (1,), np.uint8)
+        ez = np.zeros((N, exts.EZ_N), np.int32)
+        ins = [np.ascontiguousarray(x) for x in (*planes, order)]
+        assert exts2_host(*[x.ctypes.data for x in ins], p.ctypes.data,
+                          ez.ctypes.data, N, QP, TP, W, RT, Q, E, Q2,
+                          *exts.long_thres_of(Q, E, Q2), 1, -2, -1, int(wc),
+                          int(not am), int(rm), int(ad), zd) == 0
+        pp, ezp = exts.exts2_batch_plain(
+            *(torch.from_numpy(x) for x in planes), W=W, RT=RT, QP=QP, q=Q,
+            e=E, q2=Q2, sc_mch=1, sc_mis=-2, sc_N=-1, with_cigar=wc,
+            approx_max=am, approx_drop=ad, right_mode=rm, zdrop=zd)
+        np.testing.assert_array_equal(ez, ezp.numpy())
+        if wc:
+            np.testing.assert_array_equal(p, pp.numpy())
+        else:
+            assert pp is None and p[0] == 0
