@@ -143,6 +143,14 @@ seconds):
      pairs proper and of fragments on the host path and run (b)'s share
      of true introns matched exactly against SSR_FLOORS (run (a)'s is
      printed: its extd2 does not splice); reads/s of both runs;
+  6c. the wide shapes (the JAX kernels' own, past the defaults): phase 4's
+     reads through ``cli.main(["--batch", "-a", "-x", "map-ont", "-r",
+     "1000,20000", ...])`` with run_batched_align_cli at align_kw W 1152
+     (extd2's band 1000), phase 4's gates; phase 6's reads against
+     splice.mmi at L 4096 and align_kw QP 4096, sub 128 (exts2 at W 4224),
+     phase 6's gates; phase 3's first 512 reads through a PafStep at
+     chain_window 128 (the chain kernel's WND 128, no WND 64 launch),
+     phase 3's gates; reads/s of each;
   7. each kernel against its plain PyTorch version on the card at its
      path's shapes (bit-equal; the sketch on random codes, on the first
      batch of phases 3 (k15 w10), 5 (k19 w10, HPC-compacted codes) and 6
@@ -184,7 +192,20 @@ seconds):
      approx-drop right-aligned without p; at least one z-drop each, the
      count logged; and the wide route past one sort3 row (three stable
      torch.sort passes): the anchor sort at 64 x 32768 and a two-shard
-     merge at A 16384, against the plain sort),
+     merge at A 16384, against the plain sort; the wide shapes, each
+     through its entry point with its launch counted, bit-equal and its
+     own row: extd2 at W 2048 and 4096 (the register route), 8192 (the
+     slab route, approx and exact) on 16 ONT-like jobs and at W 640 on
+     planes of QP = TP = 114688 (planes from device memory); exts2 at W
+     8320 (approx; exact on the slab route) and 16512 (slab) on cDNA-like
+     jobs and at TP 131072 on two jobs with an 80-120 kb intron, each
+     launch's plain check on 1-4 of its jobs whose DP reaches a lane past
+     the row's mark (lane_reach, wide_jobs), p and ez sliced from that
+     launch (job_slice); the chain at WND 32, 128, 1000 and 5000 on phase
+     3's first batch's anchors (plain on its first 32 reads); extd2 and
+     the traceback on phase 6c's -a W 1152 first launch, exts2 and the
+     splice traceback on its splice QP 4096 first launch (plain on 32 of
+     its jobs past lane 1024 and 16 past lane 2176, sliced likewise)),
      timed with CUDA events;
      extd2's DP cell-updates/s as bench.py defines them;
      blocks per SM of every kernel, and the sketch's, sort3's and sort1's
@@ -216,12 +237,17 @@ seconds):
  10. the deferred checks: phase 7's plain versions that pay per
      anti-diagonal (the -a, sr, splice:sr and lr:hqae extd2 and traceback
      launches, the splice phase's whole exts2 launch and splice traceback,
-     and the whole mode part) run in two child processes
+     the whole mode part and the wide rows) run in four child processes
      (``chip_smoke.py --checks``, stopped if the run fails) beside phases
-     9-9c, whose load is the host's; any mismatch there fails the run
-     before the ``kernels`` JSON line, then the ``ok`` line.
+     9-9a, whose load is the host's; any mismatch there fails the run
+     before the ``kernels`` JSON line, then the ``ok`` line.  The checks
+     of the wide rows and of the three wide paths compare jobs sliced
+     from the timed launch (its p rows and ez rows, and its traceback's
+     ops and fin), chosen among the jobs whose DP reaches the row's wide
+     lanes.
 """
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -244,6 +270,13 @@ SR_PAIRS, SR_LEN = 2048, 150
 SSR_PAIRS = 2048
 MB_READS, HOST_CUT, HOST_READS = 512, 10_000_000, 128
 OFFDIST_READS, MAPPY_READS = 256, 16
+# the kernels line's rows of phase 7's wide part at shapes no CLI preset
+# passes (the three new paths' rows count their own runs' launches)
+WIDE_ROWS = ("extd2_w2048", "extd2_w4096", "extd2_w8192", "extd2_exact_w8192",
+             "extd2_gp", "exts2_w8320", "exts2_exact_w8320", "exts2_w16512",
+             "exts2_gp", "chain_w32", "chain_w128", "chain_w1000",
+             "chain_w5000", "extd2_w1152", "traceback_w1152", "exts2_w4224",
+             "traceback_splice_w4224")
 # the kernels line's rows of phase 7's mode part (no CLI path runs them)
 MODE_ROWS = ("extd2_exact_right", "extd2_exact", "extd2_approx_right_adrop",
              "exts2_exact", "exts2_approx_right_adrop_nocigar", "sort3_wide",
@@ -393,10 +426,11 @@ def library_sort3(k1, k2, k3):
 class Deferred:
     """Plain-version checks of phase 7 that pay per anti-diagonal (the -a,
     sr and lr:hqae extd2 + traceback launches, the splice phase's whole
-    exts2 launch, the mode part) run in two child processes
-    (``chip_smoke.py --checks``) beside the card-vs-CPU phases, which load
-    the host, not the card: each job's inputs go to a file, a child runs
-    the kernel and the plain version on them and compares, and the results
+    exts2 launch, the mode part, the wide rows) run in four child
+    processes (``chip_smoke.py --checks``) beside the card-vs-CPU phases:
+    each job's inputs go to a file (and, for a check of jobs sliced from a
+    timed launch, that launch's outputs for them), a child runs the kernel
+    (where no outputs came) and the plain version and compares, and the results
     fill the kernel rows before the kernels line (a mismatch fails the run
     there), each row's max_abs_err then the largest of its parts'.  A
     dict of a row that waits for a result carries ``deferred: key:part``
@@ -415,7 +449,7 @@ class Deferred:
         self.jobs.append((cost, path))
         return key
 
-    def start(self, n_proc=2):
+    def start(self, n_proc=4):
         """The jobs, largest first, each to the child with less so far."""
         lists = [[0, []] for _ in range(n_proc)]
         for cost, path in sorted(self.jobs, reverse=True):
@@ -497,14 +531,22 @@ def run_checks(out, jobs):
         spec = torch.load(path)
         t = time.time()
         if spec["kind"] == "extd2_tb":
-            ext, tb = _extd2_tb_plain(spec["args"], spec["kw"], spec["n_p"])
+            ext, tb = _extd2_tb_plain(spec["args"], spec["kw"], spec["n_p"],
+                                      sl=spec.get("sl"))
             r = dict(ext=ext, tb=tb)
         elif spec["kind"] == "exts2_launch":
-            ext, tb = _exts2_launch_plain(spec["args"], spec["kw"])
+            ext, tb = _exts2_launch_plain(spec["args"], spec["kw"],
+                                          sl=spec.get("sl"))
             r = dict(launch_ext=ext, launch_tb=tb)
+        elif spec["kind"] == "slice":
+            r = dict(dp=_slice_plain(spec["dp"], spec["args"], spec["kw"],
+                                     spec["m"], spec["sl"]))
+        elif spec["kind"] == "chain":
+            r = dict(chain=_chain_plain(spec["args"], spec["kw"]))
         else:
             r = dict(dp=_mode_plain(spec["dp"], spec["args"], spec["kw"],
-                                    spec["m"], ez_main=spec["ez"]))
+                                    spec["m"], ez_main=spec["ez"],
+                                    plain_dev=spec.get("plain_dev")))
         results.append(dict(r, key=spec["key"]))
         log(f"[deferred] {spec['key']}: {time.time() - t:.1f}s "
             + ", ".join(f"{k} {v}" for k, v in r.items()))
@@ -1827,10 +1869,10 @@ def _build_timer():
     return cli, "MiniIndex", TimedIndex
 
 
-def _run_cli(argv, hooks):
-    """cli.main(argv) with the hooks in place (see _hooked) and the host
-    index build timed.  Returns (rc, launches, seconds, host path {reads,
-    seconds})."""
+def _run_cli(argv, hooks, call=None):
+    """cli.main(argv), or call() in its place, with the hooks in place (see
+    _hooked) and the host index build timed.  Returns (rc, launches,
+    seconds, host path {reads, seconds})."""
     from minimap2_tpu_torch import cli
     from minimap2_tpu_torch.ops._build import launches
     from minimap2_tpu_torch.parallel import engine
@@ -1838,7 +1880,7 @@ def _run_cli(argv, hooks):
     engine.host_path.clear()
     t1 = time.time()
     with _hooked([_build_timer(), *hooks]):
-        rc = cli.main(argv)
+        rc = cli.main(argv) if call is None else call()
     host = {"reads": engine.host_path["reads"],
             "seconds": engine.host_path["seconds"]}
     return rc, dict(launches), time.time() - t1, host
@@ -1904,12 +1946,13 @@ def _paf_run(tag, argv, kernels, hooks=()):
     return dict(seen, launches=counts, reads_per_s=reads_per_s, host=host)
 
 
-def _align_run(tag, argv, kernels, hooks=()):
-    """cli.main(argv) on an -a path with its align loop timed, each
-    primary's Reg extent recorded (the device path's, and the host path's
-    for a fallback read) and the SAM's primary records read back; fails
-    unless every kernel named launched.  Returns the step, batcher, index,
-    options, launches, reads/s, fallback reads and host-path seconds."""
+def _align_run(tag, argv, kernels, hooks=(), call=None):
+    """cli.main(argv) on an -a path (or call(), which writes the SAM that
+    argv's -o names) with its align loop timed, each primary's Reg extent
+    recorded (the device path's, and the host path's for a fallback read)
+    and the SAM's primary records read back; fails unless every kernel
+    named launched.  Returns the step, batcher, index, options, launches,
+    reads/s, fallback reads and host-path seconds."""
     from minimap2_tpu_torch.parallel import engine
     seen, prim_regs = {}, {}
     align_queries = engine.align_queries
@@ -1943,7 +1986,7 @@ def _align_run(tag, argv, kernels, hooks=()):
     rc, counts, total_s, host = _run_cli(
         argv, [(engine, "align_queries", timed),
                (engine, "batch_build_regs", recording),
-               (engine, "map_fragment", recording_host), *hooks])
+               (engine, "map_fragment", recording_host), *hooks], call)
     require(rc == 0, f"{tag}: cli.main returned {rc}")
     n_reads, fallbacks = seen["res"]
     reads_per_s = n_reads / seen["align_s"]
@@ -2012,61 +2055,7 @@ def phase_splice_path(main, tmp):
          "traceback_splice"),
         [_capture_first(align_batch, "exts2_batch", first),
          _capture_first(engine, "sketch_batch", sk)])
-    prim, prim_regs = run["prim"], run["prim_regs"]
-    n_ok = n_q60 = n_q60_wrong = n_in = n_in_ok = 0
-    bad_cigar = []
-    missed = Counter()      # why a true intron has no exact N op
-    for nm in main["gnames"]:
-        true_in = main["introns"][nm]
-        n_in += len(true_in)
-        t = prim.get(nm)
-        if t is None:
-            missed["read without a primary"] += len(true_in)
-            continue
-        _, chrom, st, en, _ = nm.split("!")
-        q_len, r_len, ops = _cigar_spans(t[5])
-        rs, re_, qlen = prim_regs[nm]
-        pos = int(t[3]) - 1
-        if q_len != qlen or r_len != re_ - rs or pos != rs:
-            bad_cigar.append(nm)
-        ok = t[2] == chrom and pos < int(en) and pos + r_len > int(st)
-        n_ok += ok
-        if int(t[4]) == 60:
-            n_q60 += 1
-            n_q60_wrong += not ok
-        got_in, x = set(), pos
-        for n_, o in ops:
-            if o == "N":
-                got_in.add((x, x + int(n_)))
-            if o in "MDN=X":
-                x += int(n_)
-        n_in_ok += sum(iv in got_in for iv in true_in)
-        for a, b in true_in:
-            if (a, b) in got_in:
-                continue
-            if not ok:
-                missed["primary off its gene"] += 1
-            elif a < pos or b > pos + r_len:
-                missed["outside the aligned interval"] += 1
-            else:
-                missed["inside it, not matched"] += 1
-    frac = n_ok / len(main["gnames"])
-    in_frac = n_in_ok / max(n_in, 1)
-    log(f"[splice] {n_ok}/{len(main['gnames'])} primaries on their gene "
-        f"({100 * frac:.1f}%), {n_q60} at mapq 60 of which {n_q60_wrong} "
-        f"wrong; {n_in_ok}/{n_in} true introns matched exactly by an N op "
-        f"({100 * in_frac:.1f}%); {len(prim) - len(bad_cigar)}/{len(prim)} "
-        "CIGARs span read and reference interval")
-    log(f"[splice] true introns without an exact N op, by where they lie: "
-        f"{dict(missed)}")
-    gates = [(not bad_cigar, f"splice CIGAR lengths disagree for "
-              f"{bad_cigar[:5]}"),
-             (frac >= 0.90, f"only {100 * frac:.1f}% of splice primaries "
-              "on their gene"),
-             (n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 splice "
-              "primaries"),
-             (in_frac >= 0.80, f"only {100 * in_frac:.1f}% of the true "
-              "introns matched")]
+    gates, in_frac = _splice_gates("splice", run, main)
     return dict(run, first=first, gates=gates, intron_share=in_frac,
                 rd=main["spl_rd"], sketch_in=sk["args"], mmi=mmi)
 
@@ -2293,32 +2282,46 @@ def phase_splice_sr_kernels(ssr, rows):
                                       e["max_abs_err"])
 
 
-def _exts2_plain(args, kw, RT):
+def _exts2_plain(args, kw, RT, sl=None):
     """exts2's plain version on args at the launch's kw, with the
-    kernel's EZ_DEAD group rule applied."""
+    kernel's EZ_DEAD group rule applied (by the groups of the launch of
+    the job_slice sl where given)."""
     from minimap2_tpu_torch.ops import exts
     pp, ezp = exts.exts2_batch_plain(
         *args, W=kw["W"], RT=RT, QP=args[0].shape[1], q=kw["q"], e=kw["e"],
         q2=kw["q2"], sc_mch=kw["sc_mch"], sc_mis=kw["sc_mis"],
         sc_N=kw["sc_N"])
+    if sl is not None:
+        return pp, ez_dead_in(ezp, sl, kw["G"], kw["RB"]).to(pp.device)
     return pp, exts._ez_dead(ezp, args[4], kw["G"], kw["RB"], RT)
 
 
-def _exts2_launch_plain(args, kw, p=None, ez=None):
+def _exts2_launch_plain(args, kw, p=None, ez=None, sl=None):
     """exts2 and the splice traceback against their plain versions on one
     whole launch (args: qr, sf, dn, ac, lens; the kernel runs here unless
-    its outputs are given), compared 16 jobs at a time: ({max_abs_err,
-    plain_ms} of exts2, of the traceback)."""
+    its outputs are given), or, given sl, on args, the jobs of the
+    job_slice sl of a timed launch (with its traceback's ops and fin rows;
+    the plain versions on the card), compared 16 jobs at a time:
+    ({max_abs_err, plain_ms} of exts2, of the traceback)."""
     from minimap2_tpu_torch.ops import exts, traceback
+    ops = None
+    if sl is not None:
+        args = [x.cuda() for x in args]
+        p, ez = unslice(sl, "cuda"), sl["ez"].cuda()
+        ops, fin = sl["ops"].cuda(), sl["fin"].cuda()
     if p is None:
         p, ez = exts.exts2_batch(*args, **kw)
     N, RT = p.shape[:2]
-    (pp, ezp), ms = timed_once(lambda: _exts2_plain(args, kw, RT))
+    if sl is None:
+        (pp, ezp), ms = timed_once(lambda: _exts2_plain(args, kw, RT))
+    else:
+        (pp, ezp), ms = timed_once(lambda: _exts2_plain(args, kw, RT, sl))
     err = max([max_abs_err_u8([p[i:i + 16]], [pp[i:i + 16]])
                for i in range(0, N, 16)] + [max_abs_err([ez], [ezp])])
     del pp
     tkw = dict(RB=kw["RB"], w=0, splice=True, QP=args[0].shape[1])
-    ops, fin = traceback.traceback_batch(p, args[4], **tkw)
+    if ops is None:
+        ops, fin = traceback.traceback_batch(p, args[4], **tkw)
     (ops2, fin2), tb_ms = timed_once(
         lambda: traceback.traceback_batch_plain(p, args[4], **tkw))
     err_t = max(max_abs_err_u8([ops], [ops2]), max_abs_err([fin], [fin2]))
@@ -2602,7 +2605,7 @@ def phase_kernels(main, hpc, spl, dvb, g38):
     bms, by = bound(B * A * (21 + 16), n_anchor * p.chain_window * 30)
     n_max = chain.last_valid(planes_[5])
     ch_ms = cuda_ms(lambda: chain.chain_batch(*planes_, **kw))
-    per_sm = _build.blocks_per_sm("chain")
+    per_sm = _build.blocks_per_sm("chain", 64)
     log(f"[kernels] chain at {B} x {A} ({n_anchor} valid anchors, the "
         f"longest read's n {n_max}, {per_sm} blocks per SM): {ch_ms:.3f} "
         f"ms, {1e6 * ch_ms / max(n_max, 1):.1f} ns a step of the longest "
@@ -2621,15 +2624,23 @@ def phase_kernels(main, hpc, spl, dvb, g38):
     return rows
 
 
-def _extd2_tb_plain(args, ext_kw, n_p, p=None, ez=None, ops=None, fin=None):
+def _extd2_tb_plain(args, ext_kw, n_p, p=None, ez=None, ops=None, fin=None,
+                    sl=None):
     """extd2 and the traceback against their plain versions on the first
     n_p jobs of one launch (args: qr, sf, lens; ext_kw the launch's; the
-    kernels run here unless their outputs are given): bit-equal.  Returns
-    ({max_abs_err, plain_ms, plain_jobs} of extd2, of the traceback)."""
+    kernels run here unless their outputs are given), or, given sl, on
+    args, the jobs of the job_slice sl of a timed launch (with its
+    traceback's ops and fin rows; the plain versions on the card):
+    bit-equal.  Returns ({max_abs_err, plain_ms, plain_jobs} of extd2, of
+    the traceback)."""
     from minimap2_tpu_torch.ops import extend, traceback
-    qr, sf, lens = args
     k = ext_kw
     W, RB, w, G = k["W"], k["RB"], k["w"], k["G"]
+    if sl is not None:
+        args = [x.cuda() for x in args]
+        p, ez = unslice(sl, "cuda"), sl["ez"].cuda()
+        ops, fin = sl["ops"].cuda(), sl["fin"].cuda()
+    qr, sf, lens = args
     if p is None:
         p, ez = extend.extd2_batch2(qr, sf, lens, **k)
     RT = p.shape[1]
@@ -2639,6 +2650,8 @@ def _extd2_tb_plain(args, ext_kw, n_p, p=None, ez=None, ops=None, fin=None):
             qr[:n_p], sf[:n_p], lens[:n_p], W=W, RB=RB, RT=RT, q=k["q"],
             e=k["e"], q2=k["q2"], e2=k["e2"], w=w, sc_mch=k["sc_mch"],
             sc_mis=k["sc_mis"], sc_N=k["sc_N"])
+        if sl is not None:
+            return pp, ez_dead_in(ezp, sl, G, RB).cuda()
         return pp, extend._ez_dead(ezp, lens[:n_p], G, RB, RT)
     (pp, ezp), ext_ms = timed_once(extd2_plain)
     err = max([max_abs_err_u8([p[i:i + 16]], [pp[i:i + 16]])
@@ -2655,14 +2668,100 @@ def _extd2_tb_plain(args, ext_kw, n_p, p=None, ez=None, ops=None, fin=None):
             dict(max_abs_err=err_t, plain_ms=tb_ms, plain_jobs=n_p))
 
 
-def _extd2_traceback(job, n_first=64, n_plain=None):
+def lane_reach(lens, w=None, RB=None, QP=None, nr=None):
+    """The widest window lane each job's DP reaches: 1 + the largest en0 -
+    ws over the diagonals it runs (up to its EZ_NR where nr is given), for
+    extd2 (band w, window wstart_chunk(r, w, RB)) or, with w None, exts2
+    (window wstart_q(r, QP)).  (N,) int64."""
+    lh = lens.cpu().numpy().astype(np.int64)
+    ql, tl = lh[:, 0], lh[:, 1]
+    end = ql + tl - 1
+    if nr is not None:
+        end = np.minimum(end, nr.cpu().numpy().astype(np.int64))
+    r = np.arange(int(end.max(initial=0)))
+    if w is None:
+        ws = np.maximum(0, r - QP + 1) // 16 * 16
+    else:
+        ws = np.maximum(0, ((r // RB * RB) - w + 1) >> 1) // 16 * 16
+    out = np.zeros(len(lh), np.int64)
+    for i in range(len(lh)):
+        rr = r[:end[i]]
+        st0 = np.maximum(0, rr - ql[i] + 1)
+        en0 = np.minimum(tl[i] - 1, rr)
+        if w is not None:
+            st0 = np.maximum(st0, (rr - w + 1) >> 1)
+            en0 = np.minimum(en0, (rr + w) >> 1)
+        ok = st0 <= en0
+        if ok.any():
+            out[i] = int((en0 - ws[:end[i]])[ok].max()) + 1
+    return out
+
+
+def wide_jobs(lens, n, reach, past, least=None):
+    """Indices of up to n jobs of a launch for its plain check: of those
+    whose DP reaches a lane past ``past`` (reach: lane_reach's), the ones
+    with the fewest diagonals (the plain versions pay per anti-diagonal);
+    fails where fewer than ``least`` (n by default) reach it."""
+    rstar = (lens[:, 0].long() + lens[:, 1].long() - 1).cpu().numpy()
+    far = np.flatnonzero(reach > past)
+    least = n if least is None else least
+    require(len(far) >= least, f"only {len(far)} jobs of the launch reach "
+            f"a lane past {past} (widest {int(reach.max(initial=0))}), "
+            f"{least} wanted")
+    pick = far[np.argsort(rstar[far], kind="stable")[:n]]
+    return torch.from_numpy(np.sort(pick)).to(lens.device)
+
+
+def job_slice(p, ez, lens, sub, RT):
+    """Jobs sub of a timed DP launch's outputs, for a plain check of them
+    (jobs are independent): their p rows up to their last diagonal (the
+    rows past it must be 0, which is checked here), their ez rows, the
+    launch's lens (EZ_DEAD's group rule) and RT, on the host."""
+    Rc = int((lens[sub].long().sum(1) - 1).max())
+    if p is not None:
+        require(not bool(p[sub, Rc:].any()), "a DP launch wrote p past "
+                "its jobs' last diagonal")
+    return dict(p=None if p is None else p[sub, :Rc].cpu(),
+                ez=ez[sub].cpu(), lens_all=lens.cpu(), sub=sub.cpu(), RT=RT)
+
+
+def unslice(sl, dev):
+    """The whole (n, RT, W) p of a job_slice on dev."""
+    c = sl["p"]
+    p = torch.zeros((c.shape[0], sl["RT"], c.shape[2]), dtype=torch.uint8,
+                    device=dev)
+    p[:, :c.shape[1]] = c.to(dev)
+    return p
+
+
+def ez_dead_in(ezp, sl, G, RB):
+    """EZ_DEAD on a plain version's ez rows of the jobs of a job_slice,
+    by the G-groups of their launch."""
+    from minimap2_tpu_torch.ops import extend
+    full = torch.zeros((len(sl["lens_all"]), extend.EZ_N),
+                       dtype=torch.int32)
+    full[sl["sub"]] = ezp.cpu()
+    return extend._ez_dead(full, sl["lens_all"], G, RB, sl["RT"])[sl["sub"]]
+
+
+def p_err(p_c, pp):
+    """max |p - pp| of a job_slice's p rows against a plain version's
+    whole p (whose rows past the slice's must be 0)."""
+    pp = pp.cpu()
+    Rc = p_c.shape[1]
+    return max(max_abs_err_u8([p_c], [pp[:, :Rc]]),
+               int(pp[:, Rc:].max()) if pp.shape[1] > Rc else 0)
+
+
+def _extd2_traceback(job, n_first=64, n_plain=None, subset=None):
     """extd2 against its plain version on one captured align launch (the
     whole launch, or its first n_plain jobs: n_plain a multiple of G, so
-    that EZ_DEAD's group rule is the launch's), timed on the whole launch
-    and on its first n_first jobs, and the traceback likewise on that
-    launch's p: bit-equal, timed with CUDA events, each beside its bound;
-    the plain versions in the deferred checks when main runs them.
-    Returns (extd2 dict, traceback dict, the ext_kw of the launch)."""
+    that EZ_DEAD's group rule is the launch's; or the jobs of subset, a
+    launch of their own), timed on the whole launch and on its first
+    n_first jobs, and the traceback likewise on that launch's p:
+    bit-equal, timed with CUDA events, each beside its bound; the plain
+    versions in the deferred checks when main runs them.  Returns (extd2
+    dict, traceback dict, the ext_kw of the launch)."""
     from minimap2_tpu_torch.ops import _build, extend, traceback
     qr, sf, lens = job["args"]
     kw = job["kw"]
@@ -2681,7 +2780,25 @@ def _extd2_traceback(job, n_first=64, n_plain=None):
     held = "the whole first launch" if n_p == N else (
         f"the first launch's first {n_p} jobs")
     ops, fin = traceback.traceback_batch(p, lens, RB=RB, w=w)
-    if DEFER is not None:
+    if subset is not None:
+        held = f"{len(subset)} jobs of the first launch"
+        sl = dict(job_slice(p, ez, lens, subset, RT), ops=ops[subset].cpu(),
+                  fin=fin[subset].cpu())
+        sub_args = [qr[subset].cpu(), sf[subset].cpu(), lens[subset].cpu()]
+    if subset is not None and DEFER is not None:
+        key = DEFER.add("extd2_tb", int((lens[subset].sum(1) - 1).max()),
+                        args=sub_args, kw=ext_kw, n_p=len(subset), sl=sl)
+        ext_res, tb_res = (dict(max_abs_err=None, plain_ms=None,
+                                plain_jobs=len(subset),
+                                deferred=f"{key}:{part}")
+                           for part in ("ext", "tb"))
+    elif subset is not None:
+        ext_res, tb_res = _extd2_tb_plain(sub_args, ext_kw, len(subset),
+                                          sl=sl)
+        require(ext_res["max_abs_err"] == 0 and tb_res["max_abs_err"] == 0,
+                f"extd2 or the traceback differs from its plain version on "
+                f"{held} ({ext_res}, {tb_res}; W={W})")
+    elif DEFER is not None:
         key = DEFER.add("extd2_tb", int((lens[:n_p].sum(1) - 1).max()),
                         args=[qr, sf, lens], kw=ext_kw, n_p=n_p)
         ext_res, tb_res = (dict(max_abs_err=None, plain_ms=None,
@@ -3294,16 +3411,537 @@ def phase_new_kernels(hpc, spl):
     return rows
 
 
-def _mode_ont_jobs(rng, n, QP, TP):
-    """n ONT-like extension jobs of 900-1400 query bases (5%
-    substitutions, 2.5% insertions and deletions each); in every other job
-    the target turns random after 30-60% of its length, so the exact and
-    approx-drop modes z-drop there."""
+def _wide_call(run, sam, L=None, **align_kw):
+    """A call for _align_run: engine.run_batched_align_cli on an earlier
+    -a phase's index (its host MiniIndex: no .mmi load) and reads, at
+    these align_kw (and L), writing sam; the options are run's, or
+    run["wide_opt"] where given."""
+    from minimap2_tpu_torch.parallel import engine
+
+    def call():
+        kw = {} if L is None else {"L": L}
+        with open(sam, "w") as out:
+            engine.run_batched_align_cli(
+                run["mi"], run.get("wide_opt", run["opt"]), [run["rd"]],
+                out, align_kw=align_kw, **kw)
+        return 0
+    return call
+
+
+def phase_wide_align(aln, main, tmp):
+    """-a at the full band of 1000 (as the asm presets and -r 1000 users
+    get it from the reference): phase 4's reads and index through
+    engine.run_batched_align_cli with phase 4's options at -r 1000,20000
+    and align_kw W 1152, so extd2 runs a band of 1000 lanes (at the
+    default W 640 the batcher clamps it to 560).  Phase 4's gates; the
+    first align launch is recorded for phase 7."""
+    from minimap2_tpu_torch.parallel import align_batch
+    sam = os.path.join(tmp, "wide.sam")
+    opt = copy.copy(aln["opt"])
+    opt.bw, opt.bw_long = 1000, 20000          # -r 1000,20000
+    first_job = {}
+    run = _align_run(
+        "align W1152", ["-o", sam],
+        ("sketch", "sort3", "sort3_merge", "chain", "extd2", "traceback"),
+        [_capture_first(align_batch, "_align_step", first_job)],
+        _wide_call(dict(aln, wide_opt=opt), sam, W=1152))
+    ab = run["ab"]
+    require(ab.W == 1152 and ab.w == 1000, f"the -a W 1152 run's batcher "
+            f"took W {ab.W}, band {ab.w}")
+    gates, mean_ident = _align_gates("align W1152", run, main["rnames"],
+                                     0.03)
+    return dict(run, first_job=first_job, mean_identity=mean_ident,
+                gates=gates)
+
+
+def _splice_gates(tag, run, main):
+    """The splice path's gates on an _align_run of phase 6's reads: every
+    primary CIGAR spans its read and its Reg's reference interval, >= 90%
+    of primaries on their gene, no wrong mapq-60 primary, >= 80% of the
+    true introns matched exactly by an N op.  Returns (gates, the share of
+    introns matched)."""
+    prim, prim_regs = run["prim"], run["prim_regs"]
+    n_ok = n_q60 = n_q60_wrong = n_in = n_in_ok = 0
+    bad_cigar = []
+    missed = Counter()      # why a true intron has no exact N op
+    for nm in main["gnames"]:
+        true_in = main["introns"][nm]
+        n_in += len(true_in)
+        t = prim.get(nm)
+        if t is None:
+            missed["read without a primary"] += len(true_in)
+            continue
+        _, chrom, st, en, _ = nm.split("!")
+        q_len, r_len, ops = _cigar_spans(t[5])
+        rs, re_, qlen = prim_regs[nm]
+        pos = int(t[3]) - 1
+        if q_len != qlen or r_len != re_ - rs or pos != rs:
+            bad_cigar.append(nm)
+        ok = t[2] == chrom and pos < int(en) and pos + r_len > int(st)
+        n_ok += ok
+        if int(t[4]) == 60:
+            n_q60 += 1
+            n_q60_wrong += not ok
+        got_in, x = set(), pos
+        for n_, o in ops:
+            if o == "N":
+                got_in.add((x, x + int(n_)))
+            if o in "MDN=X":
+                x += int(n_)
+        n_in_ok += sum(iv in got_in for iv in true_in)
+        for a, b in true_in:
+            if (a, b) in got_in:
+                continue
+            if not ok:
+                missed["primary off its gene"] += 1
+            elif a < pos or b > pos + r_len:
+                missed["outside the aligned interval"] += 1
+            else:
+                missed["inside it, not matched"] += 1
+    frac = n_ok / len(main["gnames"])
+    in_frac = n_in_ok / max(n_in, 1)
+    log(f"[{tag}] {n_ok}/{len(main['gnames'])} primaries on their gene "
+        f"({100 * frac:.1f}%), {n_q60} at mapq 60 of which {n_q60_wrong} "
+        f"wrong; {n_in_ok}/{n_in} true introns matched exactly by an N op "
+        f"({100 * in_frac:.1f}%); {len(prim) - len(bad_cigar)}/{len(prim)} "
+        "CIGARs span read and reference interval")
+    log(f"[{tag}] true introns without an exact N op, by where they lie: "
+        f"{dict(missed)}")
+    gates = [(not bad_cigar, f"{tag} CIGAR lengths disagree for "
+              f"{bad_cigar[:5]}"),
+             (frac >= 0.90, f"only {100 * frac:.1f}% of {tag} primaries "
+              "on their gene"),
+             (n_q60_wrong == 0, f"{n_q60_wrong} wrong mapq-60 {tag} "
+              "primaries"),
+             (in_frac >= 0.80, f"only {100 * in_frac:.1f}% of the true "
+              f"introns matched ({tag})")]
+    return gates, in_frac
+
+
+def phase_wide_splice(spl, main, tmp):
+    """The spliced -a path at QP 4096 (the read bucket of full-length cDNA
+    and Iso-Seq-like reads of 2-4 kb): phase 6's reads and index through
+    engine.run_batched_align_cli at L 4096 and align_kw QP 4096, sub 128,
+    so exts2 runs at W 4224 (both strand rounds of 128 jobs a launch).
+    Phase 6's gates; the first exts2 launch is recorded for phase 7."""
+    from minimap2_tpu_torch.parallel import align_batch
+    sam = os.path.join(tmp, "wide_splice.sam")
+    first = {}
+    run = _align_run(
+        "splice QP4096", ["-o", sam],
+        # (at L 4096 the compaction keys fit one sort3 row: no merge)
+        ("sketch", "sort3", "chain", "exts2", "traceback_splice"),
+        [_capture_first(align_batch, "exts2_batch", first)],
+        _wide_call(spl, sam, L=4096, QP=4096, sub=128))
+    require(run["ab"].W == 4224, f"the splice QP 4096 run's batcher took W "
+            f"{run['ab'].W}")
+    gates, in_frac = _splice_gates("splice QP4096", run, main)
+    return dict(run, first=first, gates=gates, intron_share=in_frac)
+
+
+def phase_wide_chain(main, tmp):
+    """PAF at chain_window 128: phase 3's first 512 reads through a
+    PafStep of phase 3's widths (B 512, A 4096: the chain kernel's route)
+    whose BatchParams take chain_window 128; phase 3's accuracy gates on
+    those reads."""
+    from minimap2_tpu_torch.io.fastx import read_fasta
+    from minimap2_tpu_torch.parallel import engine
+    step0 = main["step"]
+    step = engine.PafStep(step0.di, dataclasses.replace(
+        step0.p, chain_window=128), step0.K, step0.min_sc, step0.with_sec,
+        step0.with_wp)
+    names, seqs = read_fasta(main["rd"])
+    rd, paf = (os.path.join(tmp, f) for f in ("w128.fa", "w128.paf"))
+    with open(rd, "wb") as f:
+        for nm, sq in zip(names[:512], seqs[:512]):
+            f.write(b">" + nm.encode() + b"\n" + sq + b"\n")
+    run = _map_on_card("paf WND128", step, main["mi"], rd, paf, 512,
+                       ("sketch", "sort3", "sort3_merge", "chain_w128"))
+    require(run["launches"].get("chain", 0) == 0, "the chain_window 128 "
+            "run launched the WND 64 kernel")
+    paf_accuracy("paf WND128", paf, main["rnames"][:512])
+    return dict(run, step=step)
+
+
+def _launch_counted(name, fn):
+    """fn() with the launches it made counted (a Counter of kernel names);
+    fails unless it launched ``name`` once."""
+    from minimap2_tpu_torch.ops import _build
+    before = Counter(_build.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    made = Counter(_build.launches) - before
+    require(made.get(name, 0) == 1, f"{name} did not launch once "
+            f"({dict(made)})")
+    return out, made[name]
+
+
+def _wide_cdna_jobs(rng, n, QP, TP, qlen, intron, n_in):
+    """n cDNA-like splice jobs: a query of qlen = (lo, hi) bases (1%
+    substitutions) against its genomic span, with n_in GT..AG introns of
+    intron = (lo, hi) bases."""
     qr = np.zeros((n, QP), np.uint8)
     sf = np.zeros((n, TP), np.uint8)
     lens = np.zeros((n, 2), np.int32)
     for i in range(n):
-        ql = int(rng.integers(900, min(QP, 1400) + 1))
+        ql = int(rng.integers(qlen[0], qlen[1] + 1))
+        q = rng.integers(0, 4, ql).astype(np.uint8)
+        cuts = np.sort(rng.choice(np.arange(100, ql - 100), n_in,
+                                  replace=False))
+        parts, prev = [], 0
+        for c in list(cuts) + [ql]:
+            parts.append(q[prev:c])
+            if c < ql:
+                iv = rng.integers(0, 4, int(rng.integers(intron[0],
+                                                         intron[1] + 1)))
+                iv[:2], iv[-2:] = (2, 3), (0, 2)
+                parts.append(iv.astype(np.uint8))
+            prev = c
+        t = np.concatenate(parts)[:TP]
+        mm = rng.random(ql) < 0.01
+        q[mm] = (q[mm] + 1) % 4
+        qr[i, :ql] = q[::-1]
+        sf[i, :len(t)] = t
+        lens[i] = (ql, len(t))
+    return qr, sf, lens
+
+
+def _chain_ops(av, WND):
+    """Window slots the chain DP scores on these anchors: each read's
+    anchors up to its last valid one, each against min(a, WND) earlier
+    slots."""
+    n = torch.where(av, torch.arange(av.shape[1], device=av.device),
+                    -1).amax(1).cpu().numpy().astype(np.int64) + 1
+    return int(sum(int(np.minimum(np.arange(k), WND).sum()) for k in n))
+
+
+def phase_wide_dp(rows):
+    """Phase 7's wide DP rows: each DP kernel's routes past one block and
+    past one block's shared memory through its entry point, on jobs whose
+    DP reaches the row's wide lanes, each launch counted around its call
+    and timed beside its bound; the jobs of that launch that reach a lane
+    past the row's mark with the fewest diagonals are held against the
+    plain version (p and ez sliced from the counted launch, bit-equal; in
+    the deferred checks when main runs them)."""
+    from minimap2_tpu_torch.ops import _build, exts, extend
+    for src in ("extd2.cu", "exts2.cu", "chain.cu"):
+        for ln in ptxas_usage(src):
+            log(f"[kernels] {src}: {ln}")
+    rng = np.random.default_rng(19)
+    # extd2 (-a scoring): W 2048, 4096 on the register route, 8192 past
+    # one block (the slab route: a band of ~4040 lanes is ~1010 groups of
+    # four for its 512 threads) in the approx and exact modes, and W 640
+    # on planes past one block's shared memory (QP = TP = 114688, jobs of
+    # 900-1400 bases); the check takes n_chk jobs whose DP reaches a lane
+    # past `past`
+    ek = dict(q=4, e=2, q2=24, e2=1, sc_mch=2, sc_mis=-4, sc_N=-1)
+    approx = dict(approx_max=True, right_mode=False, approx_drop=False,
+                  with_cigar=True)
+    exact = dict(approx_max=False, right_mode=False, approx_drop=False,
+                 with_cigar=True)
+    dspecs = []
+    for name, W, n, QP, lo, hi, m, n_chk, past in (
+            ("extd2_w2048", 2048, 16, 2560, 1700, 2100, approx, 4, 1536),
+            ("extd2_w4096", 4096, 16, 4096, 3300, 3800, approx, 2, 3072),
+            ("extd2_w8192", 8192, 16, 6144, 4600, 5400, approx, 2, 4096),
+            ("extd2_exact_w8192", 8192, 16, 6144, 4600, 5400, exact, 2,
+             4096),
+            ("extd2_gp", 640, 16, 114688, 900, 1400, approx, 4, 0)):
+        TP, RB = QP, 128
+        d_in = [torch.from_numpy(a).cuda()
+                for a in _mode_ont_jobs(rng, n, QP, TP, lo, hi)]
+        drift = -(-(RB // 2) // 16) * 16
+        kw = dict(G=16, W=W, RB=RB, R=QP + TP, QP=QP, TP=TP,
+                  w=min(W - 48 - drift, 500 if W == 640 else W), zdrop=400,
+                  **ek)
+        dspecs.append((name, "extd2", d_in, kw, m, n_chk, past))
+    # exts2 (splice scoring): W 8320 on the register route (queries of
+    # 4500-5200 bases) and past one block in the exact mode (6300-7000
+    # bases: more 16-lane groups than its threads), 16512 past one block
+    # (8500-9500 bases), and W 2176 on planes past one block's shared
+    # memory (TP 131072, introns of 80-120 kb)
+    sk = dict(q=2, e=1, q2=32, sc_mch=1, sc_mis=-2, sc_N=-1)
+    for name, QP, TP, n, ql, intr, n_in, m, n_chk, past in (
+            ("exts2_w8320", 8192, 8192, 4, (4500, 5200), (300, 800), 2,
+             approx, 2, 4096),
+            ("exts2_exact_w8320", 8192, 9216, 4, (6300, 7000), (300, 800),
+             2, exact, 2, 6144),
+            ("exts2_w16512", 16384, 12288, 2, (8500, 9500), (300, 800), 2,
+             approx, 1, 8320),
+            ("exts2_gp", 2048, 131072, 2, (1500, 2000), (80000, 120000),
+             1, approx, 1, 0)):
+        qr, sf, lens = _wide_cdna_jobs(rng, n, QP, TP, ql, intr, n_in)
+        dn, ac = exts.splice_site_arrays(sf, lens[:, 1], True, 9, True,
+                                         False)
+        s_in = [torch.from_numpy(x).cuda() for x in (qr, sf, dn, ac, lens)]
+        kw = dict(G=8, W=(QP + 32 + 127) // 128 * 128, RB=64, R=QP + TP,
+                  QP=QP, TP=TP, zdrop=200, **sk)
+        dspecs.append((name, "exts2", s_in, kw, m, n_chk, past))
+    torch.cuda.synchronize()
+    for name, kind, args, kw, m, n_chk, past in dspecs:
+        fn = extend.extd2_batch2 if kind == "extd2" else exts.exts2_batch
+        mode = (int(not m["approx_max"]) | int(m["right_mode"]) << 1
+                | int(m["approx_drop"]) << 2)
+        plan = _build.dp_plan(kind, kw["W"], kw["QP"], kw["TP"], mode)
+        lname = (extend.launch_name(m["approx_max"], False, False,
+                                    plan["route"]) if kind == "extd2"
+                 else exts.launch_name(m["approx_max"], False, False, True,
+                                       plan["route"]))
+        (p, ez), n_launch = _launch_counted(
+            lname, lambda: fn(*args, **kw, **m))
+        lens_t = args[2] if kind == "extd2" else args[4]
+        N, W = lens_t.shape[0], kw["W"]
+        nr = ez[:, extend.EZ_NR]
+        reach = (lane_reach(lens_t, kw["w"], kw["RB"], nr=nr)
+                 if kind == "extd2" else lane_reach(lens_t, QP=kw["QP"],
+                                                    nr=nr))
+        sub = wide_jobs(lens_t, n_chk, reach, past)
+        sl = job_slice(p, ez, lens_t, sub, p.shape[1])
+        del p
+        s_args = [a[sub].cpu() for a in args]
+        if DEFER is not None:
+            key = DEFER.add("slice", int((lens_t[sub].sum(1) - 1).max()),
+                            dp=kind, args=s_args, kw=kw, m=m, sl=sl)
+            res = dict(max_abs_err=None, plain_ms=None, plain_jobs=n_chk,
+                       deferred=f"{key}:dp")
+        else:
+            res = _slice_plain(kind, s_args, kw, m, sl)
+            require(res["max_abs_err"] == 0, f"{name} differs from its "
+                    f"plain version ({res['max_abs_err']})")
+        del sl
+        ex = not m["approx_max"]
+        nr = nr.cpu().numpy()
+        if kind == "extd2":
+            cells, bms, bby = _extd2_bound(lens_t, kw["w"], nr, 40 + 8 * ex)
+        else:
+            cells, bms, bby = _exts2_bound(lens_t, nr, 45 + 8 * ex)
+        ms = cuda_ms(lambda: fn(*args, **kw, **m), reps=3)
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"minimap2_tpu_torch/ops/csrc/{kind}.cu",
+            replaces=("minimap2_tpu/ops/extend_pallas2.py:658"
+                      if kind == "extd2"
+                      else "minimap2_tpu/ops/exts_pallas.py:525"),
+            launches=n_launch, **res, ms=ms, bound_ms=bms, bound_by=bby,
+            library_ms=None, counter=lname, kernel_route=plan["route"],
+            threads=plan["threads"], smem=plan["smem"],
+            scratch_per_job=plan["scratch"],
+            blocks_per_sm=plan["blocks_per_sm"],
+            shape=[N, kw["QP"], kw["TP"], W], band=kw.get("w"),
+            widest_lane=int(reach.max()),
+            checked_jobs=[[int(x) for x in lens_t[i].tolist()]
+                          + [int(reach[i])] for i in sub.tolist()],
+            dp_cells=cells, dp_cells_per_s=cells / (ms / 1e3),
+            z_dropped=_zdropped(ez, lens_t, kw.get("w"))))
+        r = rows[-1]
+        log(f"[kernels] {name} ({N} jobs, QP={kw['QP']}, TP={kw['TP']}, "
+            f"W={W}, band {kw.get('w')}; route {plan['route']}, "
+            f"{plan['threads']} threads, {plan['smem']} bytes of shared "
+            f"memory, {plan['scratch']} bytes of rows a job, "
+            f"{plan['blocks_per_sm']} blocks per SM; {cells} DP cells; "
+            f"widest lane {r['widest_lane']}; checked jobs (qlen, tlen, "
+            f"widest lane) {r['checked_jobs']}): "
+            f"{ms:.3f} ms = {r['dp_cells_per_s']:.4g} cell-updates/s, "
+            f"{plain_note(r)}, bound {bms:.4f} ms ({bby})")
+    del dspecs
+    torch.cuda.empty_cache()
+
+
+def _chain_plain(args, kw):
+    """The chain kernel against its plain version on the same anchor
+    planes: f, pred, qs and rs bit-equal.  Returns {max_abs_err, plain_ms,
+    plain_jobs}."""
+    from minimap2_tpu_torch.ops import chain
+    got = chain.chain_batch(*args, **kw)
+    want, plain_ms = timed_once(lambda: chain.chain_batch_plain(*args, **kw))
+    return dict(max_abs_err=max_abs_err(got, want), plain_ms=plain_ms,
+                plain_jobs=args[0].shape[0])
+
+
+def wide_chain_rows(planes, p, rows, w128_launches=None):
+    """The chain at WND 32, 128 (registers: 1 and 4 slots a lane), 1000 and
+    5000 (the ring in shared memory) on anchor planes (B, A), through its
+    entry point at BatchParams p's band, each launch counted around its
+    call, timed beside its bound and held bit-equal to the plain version
+    on the first 32 reads.  The WND 128 row counts the launches
+    w128_launches gives (the PAF WND 128 run's) where given."""
+    from minimap2_tpu_torch.ops import _build, chain
+    B, A = planes[0].shape
+    first = [x[:32] for x in planes]
+    for WND in (32, 128, 1000, 5000):
+        kw = dict(WND=WND, max_dist_x=p.max_dist_x, max_dist_y=p.max_dist_y,
+                  bw=p.bw, chn_pen_gap=p.chn_pen_gap,
+                  chn_pen_skip=p.chn_pen_skip)
+        lname = chain.launch_name(WND)
+        _, n_launch = _launch_counted(
+            lname, lambda: chain.chain_batch(*planes, **kw))
+        if DEFER is not None:
+            key = DEFER.add("chain", int(planes[5][:32].sum()),
+                            args=list(first), kw=kw)
+            res = dict(max_abs_err=None, plain_ms=None, plain_jobs=32,
+                       deferred=f"{key}:chain")
+        else:
+            res = _chain_plain(first, kw)
+            require(res["max_abs_err"] == 0, f"chain at WND {WND} differs "
+                    f"from its plain version ({res['max_abs_err']})")
+        ops = _chain_ops(planes[5], WND)
+        bms, by = bound(B * A * (21 + 16), ops * 30)
+        ms = cuda_ms(lambda: chain.chain_batch(*planes, **kw), reps=3)
+        n_max = chain.last_valid(planes[5])
+        rows.append(dict(
+            name=f"chain_w{WND}", route="cuda",
+            source="minimap2_tpu_torch/ops/csrc/chain.cu",
+            replaces="minimap2_tpu/ops/chain_pallas.py:166",
+            launches=(w128_launches if WND == 128
+                      and w128_launches is not None else n_launch),
+            **res, ms=ms, bound_ms=bms, bound_by=by, library_ms=None,
+            shape=[B, A],
+            window=WND, slots_a_lane=chain.slots_a_lane(WND),
+            window_slots_scored=ops, ns_per_step=1e6 * ms / max(n_max, 1),
+            blocks_per_sm=_build.blocks_per_sm("chain", WND)))
+        r = rows[-1]
+        log(f"[kernels] chain at WND {WND} ({B} x {A}, "
+            + (f"{r['slots_a_lane']} slots a lane" if r["slots_a_lane"]
+               else "the window in a shared ring") + ", "
+            f"{r['blocks_per_sm']} blocks per SM): {ms:.3f} ms "
+            f"({r['ns_per_step']:.1f} ns a step of the longest read), "
+            f"{plain_note(r)}, bound {bms:.4f} ms ({by})")
+    chain_64 = next((x for x in rows if x["name"] == "chain"), None)
+    if chain_64 is not None:
+        w128 = next(x for x in rows if x["name"] == "chain_w128")
+        log(f"[kernels] chain at WND 128 {w128['ms']:.3f} ms against WND "
+            f"64 (phase 3's) {chain_64['ms']:.3f} ms")
+
+
+def phase_wide_kernels(main, wal, wsp, wch, rows):
+    """Phase 7's wide part: the wide DP rows (phase_wide_dp), the chain at
+    other windows on phase 3's first batch's anchors (wide_chain_rows),
+    then the rows of the three new paths: extd2 and the traceback on the
+    -a W 1152 run's first launch, exts2 and the splice traceback on the
+    splice QP 4096 run's first launch, each timed beside the paths' own
+    launch at the default widths."""
+    from minimap2_tpu_torch.ops import _build, extend, exts, traceback
+    phase_wide_dp(rows)
+    step = main["step"]
+    with torch.no_grad():
+        planes = step.seed(*(x.cuda() for x in
+                             _first_batch(step, main["rd"], 512)))[:6]
+    wide_chain_rows(planes, step.p, rows,
+                    wch["launches"].get("chain_w128", 0))
+    del planes
+
+    # the three new paths: -a at W 1152, splice at QP 4096; each check
+    # takes the jobs of the timed launch that reach past the lanes of the
+    # earlier limit (W 1024) or bucket (W 2176)
+    lens_a, kw_a = wal["first_job"]["args"][2], wal["first_job"]["kw"]
+    reach = lane_reach(lens_a, kw_a["w"], kw_a["RB"])
+    ext, tb, ext_kw = _extd2_traceback(
+        wal["first_job"], subset=wide_jobs(lens_a, 32, reach, 1024))
+    _log_extd2_traceback("-a W1152", ext, tb, ext_kw)
+    log(f"[kernels] -a W1152: {int((reach > 1024).sum())} of "
+        f"{len(reach)} jobs of its first launch reach a lane past 1024, "
+        f"the widest {int(reach.max())}")
+    rows.append(dict(
+        name="extd2_w1152", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/extd2.cu",
+        replaces="minimap2_tpu/ops/extend_pallas2.py:658",
+        launches=wal["launches"].get("extd2", 0), **ext, library_ms=None,
+        band=ext_kw["w"], widest_lane=int(reach.max()),
+        jobs_past_1024=int((reach > 1024).sum())))
+    rows.append(dict(
+        name="traceback_w1152", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/traceback.cu",
+        replaces="minimap2_tpu/ops/traceback_pallas.py:155",
+        launches=wal["launches"].get("traceback", 0), **tb,
+        library_ms=None))
+    x640 = next((x for x in rows if x["name"] == "extd2"), None)
+    if x640 is not None:
+        log(f"[kernels] extd2 on the -a W 1152 run's first launch "
+            f"{ext['ms']:.3f} ms against phase 4's at W 640 "
+            f"{x640['ms']:.3f} ms")
+    launch = wsp["first"]["args"]        # qr, sf, dn, ac, lens
+    kw = wsp["first"]["kw"]
+    N, QP = launch[0].shape
+    W, RB, TP = kw["W"], kw["RB"], kw["TP"]
+    pl, ezl = exts.exts2_batch(*launch, **kw)
+    RT = pl.shape[1]
+    tkw = dict(RB=RB, w=0, splice=True, QP=QP)
+    ops, fin = traceback.traceback_batch(pl, launch[4], **tkw)
+    # the plain check on up to 16 of its jobs (both rounds' rows) that
+    # reach a lane past the QP 2048 bucket's W 2176 (its reads are cDNA
+    # of at most 2000 bases: their lanes past it are target positions
+    # past 2176 on the diagonals before 4096), sliced from this launch
+    reach = lane_reach(launch[4], QP=QP, nr=ezl[:, extend.EZ_NR])
+    sub = wide_jobs(launch[4], 16, reach, 2176, least=4)
+    n_p = len(sub)
+    sl = dict(job_slice(pl, ezl, launch[4], sub, RT), ops=ops[sub].cpu(),
+              fin=fin[sub].cpu())
+    s_args = [x[sub].cpu() for x in launch]
+    log(f"[kernels] splice QP4096: {int((reach > 2176).sum())} of {N} jobs "
+        f"of its first launch reach a lane past 2176, "
+        f"{int((reach > 4096).sum())} past 4096, the widest "
+        f"{int(reach.max())}; longest query {int(launch[4][:, 0].max())}")
+    if DEFER is not None:
+        key = DEFER.add("exts2_launch",
+                        int((launch[4][sub].sum(1) - 1).max()),
+                        args=s_args, kw=kw, sl=sl)
+        res_e, res_t = (dict(max_abs_err=None, plain_ms=None,
+                             plain_jobs=n_p, deferred=f"{key}:{part}")
+                        for part in ("launch_ext", "launch_tb"))
+    else:
+        res_e, res_t = (dict(x, plain_jobs=n_p) for x in
+                        _exts2_launch_plain(s_args, kw, sl=sl))
+        require(res_e["max_abs_err"] == 0 and res_t["max_abs_err"] == 0,
+                f"exts2 or the splice traceback at W {W} differs from its "
+                f"plain version ({res_e}, {res_t})")
+    del sl
+    cells, bms, bby = _exts2_bound(launch[4])
+    ms = cuda_ms(lambda: exts.exts2_batch(*launch, **kw), reps=3)
+    plan = _build.dp_plan("exts2", W, QP, TP, 0)
+    rows.append(dict(
+        name="exts2_w4224", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/exts2.cu",
+        replaces="minimap2_tpu/ops/exts_pallas.py:525",
+        launches=wsp["launches"].get("exts2", 0), **res_e, ms=ms,
+        bound_ms=bms, bound_by=bby, library_ms=None,
+        shape=[N, QP, TP, W, RT], dp_cells=cells,
+        kernel_route=plan["route"], threads=plan["threads"],
+        blocks_per_sm=plan["blocks_per_sm"], widest_lane=int(reach.max()),
+        jobs_past_2176=int((reach > 2176).sum()),
+        longest_query=int(launch[4][:, 0].max())))
+    visited = int((ops != 0).sum())
+    tbms, tby = bound(visited + N * RT + N * 16, 0)
+    tb_ms = cuda_ms(lambda: traceback.traceback_batch(pl, launch[4], **tkw),
+                    reps=3)
+    rows.append(dict(
+        name="traceback_splice_w4224", route="cuda",
+        source="minimap2_tpu_torch/ops/csrc/traceback.cu",
+        replaces="minimap2_tpu/ops/traceback_pallas.py:155",
+        launches=wsp["launches"].get("traceback_splice", 0), **res_t,
+        ms=tb_ms, bound_ms=tbms, bound_by=tby, library_ms=None,
+        shape=[N, RT, W], visited=visited))
+    del pl, ezl, ops, fin
+    x2176 = next((x for x in rows if x["name"] == "exts2"), None)
+    log(f"[kernels] exts2 on the splice QP 4096 run's first launch ({N} "
+        f"jobs, W {W}, route {plan['route']}, {plan['threads']} threads, "
+        f"{cells} DP cells): {ms:.3f} ms, {plain_note(res_e)}, bound "
+        f"{bms:.4f} ms ({bby})"
+        + (f"; phase 6's launch at W 2176 {x2176['ms']:.3f} ms"
+           if x2176 else "")
+        + f"; the splice traceback on its p {tb_ms:.3f} ms, bound "
+        f"{tbms:.6f} ms ({tby})")
+
+
+def _mode_ont_jobs(rng, n, QP, TP, lo=900, hi=1400):
+    """n ONT-like extension jobs of lo-hi query bases (5% substitutions,
+    2.5% insertions and deletions each); in every other job the target
+    turns random after 30-60% of its length, so the exact and approx-drop
+    modes z-drop there."""
+    qr = np.zeros((n, QP), np.uint8)
+    sf = np.zeros((n, TP), np.uint8)
+    lens = np.zeros((n, 2), np.int32)
+    for i in range(n):
+        ql = int(rng.integers(lo, min(QP, hi) + 1))
         q = rng.integers(0, 4, ql).astype(np.uint8)
         t = np.where(rng.random(ql) < 0.05, (q + rng.integers(1, 4, ql)) % 4,
                      q)[rng.random(ql) >= 0.025]
@@ -3369,11 +4007,12 @@ def _zdropped(ez, lens, w):
                 & (st0 <= en0)).sum())
 
 
-def _mode_plain(kind, args, kw, m, outs=None, ez_main=None):
+def _mode_plain(kind, args, kw, m, outs=None, ez_main=None, plain_dev=None):
     """One extd2 or exts2 mode launch against its plain version on the
     same inputs: p (where the mode writes it) and ez bit-equal.  The
     kernel runs here unless its outputs are given; ez_main, the ez of the
-    launch that main counted and timed, must equal this launch's.
+    launch that main counted and timed, must equal this launch's; the
+    plain version runs on plain_dev (the inputs' device by default).
     Returns {max_abs_err, plain_ms}."""
     from minimap2_tpu_torch.ops import extend, exts
     fn, plain_fn = ((extend.extd2_batch2, extend.extd2_batch2_plain)
@@ -3396,8 +4035,12 @@ def _mode_plain(kind, args, kw, m, outs=None, ez_main=None):
         # job order gives the same rows
         pk.update(QP=kw["QP"])
         lens_t = args[4]
-    (pp, ezp), plain_ms = timed_once(lambda: plain_fn(*args, **pk))
-    ezp = extend._ez_dead(ezp, lens_t, kw["G"], RB, RT)
+    pargs = args if plain_dev is None else [a.to(plain_dev) for a in args]
+    (pp, ezp), plain_ms = timed_once(lambda: plain_fn(*pargs, **pk))
+    ezp = extend._ez_dead(ezp, lens_t.to(ezp.device), kw["G"], RB,
+                          RT).to(ez.device)
+    if pp is not None:
+        pp = pp.to(p.device)
     err = max_abs_err([ez], [ezp])
     if m["with_cigar"]:
         err = max(err, max_abs_err_u8([p], [pp]))
@@ -3405,6 +4048,31 @@ def _mode_plain(kind, args, kw, m, outs=None, ez_main=None):
         require(p is None and pp is None, f"{kind} {m} returned p")
     return dict(max_abs_err=err, plain_ms=plain_ms,
                 plain_jobs=len(lens_t))
+
+
+def _slice_plain(kind, args, kw, m, sl):
+    """The jobs of the job_slice sl of a timed extd2 or exts2 launch (kw,
+    m) against the plain version on their inputs args (host tensors; at
+    these few jobs the plain version's loop runs faster on the host than
+    as launches on the card): p and ez bit-equal.  Returns {max_abs_err,
+    plain_ms, plain_jobs}."""
+    from minimap2_tpu_torch.ops import extend, exts
+    plain_fn = (extend.extd2_batch2_plain if kind == "extd2"
+                else exts.exts2_batch_plain)
+    RB = kw["RB"]
+    pk = {k: kw[k] for k in ("W", "q", "e", "q2", "sc_mch", "sc_mis",
+                             "sc_N", "zdrop")}
+    pk.update(m, RT=sl["RT"])
+    if kind == "extd2":
+        pk.update(RB=RB, e2=kw["e2"], w=kw["w"])
+    else:
+        pk.update(QP=kw["QP"])
+    (pp, ezp), plain_ms = timed_once(lambda: plain_fn(*args, **pk))
+    err = max_abs_err([sl["ez"]], [ez_dead_in(ezp, sl, kw["G"], RB)])
+    if m["with_cigar"]:
+        err = max(err, p_err(sl["p"], pp))
+    return dict(max_abs_err=err, plain_ms=plain_ms,
+                plain_jobs=len(sl["sub"]))
 
 
 def phase_mode_kernels(rows, n_ext=64, n_spl=32, n_rows=64):
@@ -4056,6 +4724,9 @@ def main():
         hpc = timed("hpc", phase_hpc_path, main_, tmp)
         spl = timed("splice", phase_splice_path, main_, tmp)
         ssr = timed("splice:sr", phase_splice_sr, main_, spl, tmp)
+        wal = timed("align W1152", phase_wide_align, aln, main_, tmp)
+        wsp = timed("splice QP4096", phase_wide_splice, spl, main_, tmp)
+        wch = timed("paf WND128", phase_wide_chain, main_, tmp)
         rows = timed("kernels", phase_kernels, main_, hpc, spl, dvb, g38)
         rows += timed("align kernels", phase_align_kernels, aln)
         rows += timed("new kernels", phase_new_kernels, hpc, spl)
@@ -4066,11 +4737,13 @@ def main():
         timed("splice:sr kernels", phase_splice_sr_kernels, ssr, rows)
         timed("sharded kernels", phase_sharded_kernels, shd, rows)
         timed("mode kernels", phase_mode_kernels, rows)
+        timed("wide kernels", phase_wide_kernels, main_, wal, wsp, wch, rows)
         for r in rows:          # the PAF kernels also run on the other paths
             if r["name"] in ("extd2_score_only", "sort3_shard_merge") \
-                    or r["name"] in MODE_ROWS:
+                    or r["name"] in MODE_ROWS + WIDE_ROWS:
                 continue        # map_batch's mode, the sharded step's
-                                # merge, the modes off the CLI paths
+                                # merge, the modes and shapes off the CLI
+                                # paths' defaults
             r["launches_sharded"] = sum(
                 kernel_launches(c, r["name"])
                 + (c.get("sort3_shard_merge", 0) if r["name"] == "sort3"
@@ -4119,7 +4792,8 @@ def main():
         mpy = timed("mappy", phase_mappy, main_, tmp)
         reader_check("the whole run")
     for ok, msg in (aln["gates"] + spl["gates"] + srp["gates"]
-                    + lrq["gates"] + ssr["gates"]):
+                    + lrq["gates"] + ssr["gates"] + wal["gates"]
+                    + wsp["gates"]):
         require(ok, msg)
     kinds = torch.cuda.get_device_name(0)
     log(f"[main] card {card}: {main_['reads_per_s']:.1f} reads/s (PAF), "
@@ -4151,8 +4825,13 @@ def main():
         f"{ssr['pe']['reads_per_s']:.1f} reads/s (-ax splice:sr -j paired, "
         f"{100 * ssr['shares']['pe_host']:.1f}% of fragments on the host "
         f"path), {ssr['se']['reads_per_s']:.1f} reads/s (-ax splice:sr "
-        f"single-end) on the 100 Mb genome (its .mmi dumped in "
-        f"{main_['mmi_s']['dump']:.2f}s, loaded in "
+        f"single-end), {wal['reads_per_s']:.1f} reads/s (-a -r 1000 at W "
+        f"1152, mean identity {wal['mean_identity']:.4f}; host path "
+        f"{wal['host']['reads']} reads), {wsp['reads_per_s']:.1f} reads/s "
+        f"(-a -x splice at QP 4096, {100 * wsp['intron_share']:.1f}% of "
+        f"introns exact), {wch['reads_per_s']:.1f} reads/s (PAF at "
+        f"chain_window 128, 512 reads) on the 100 Mb genome (its .mmi "
+        f"dumped in {main_['mmi_s']['dump']:.2f}s, loaded in "
         f"{main_['mmi_s']['load']:.2f}s); {g38['map']['reads_per_s']:.1f} reads/s "
         f"(PAF) and {OFFDIST_READS / g38['offdist']['map_s']:.1f} reads/s "
         f"(the CLR-like reads at L 32768, one step) on the "

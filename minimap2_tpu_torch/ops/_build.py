@@ -10,6 +10,7 @@ path never needs a compiler.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,10 +40,13 @@ SIGNATURES = {
     "mm2_sort1_occupancy": [_I, _P],
     "mm2_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "mm2_chain_occupancy": [_P],
-    "mm2_extd2": [_P] * 6 + [_I] * 21 + [_P],
+    "mm2_chain_occupancy": [_I, _P],
+    "mm2_chain_max_window": [_P],
+    "mm2_extd2": [_P] * 7 + [_I] * 21 + [_P],
+    "mm2_extd2_plan": [_I, _I, _I, _I, _P],
     "mm2_extd2_occupancy": [_I, _I, _I, _I, _P],
-    "mm2_exts2": [_P] * 8 + [_I] * 18 + [_P],
+    "mm2_exts2": [_P] * 9 + [_I] * 18 + [_P],
+    "mm2_exts2_plan": [_I, _I, _I, _I, _P],
     "mm2_exts2_occupancy": [_I, _I, _I, _I, _P],
     "mm2_traceback": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "mm2_traceback_occupancy": [_I, _P],
@@ -134,14 +138,35 @@ def require_cuda(name: str, *tensors) -> None:
 def blocks_per_sm(kernel: str, *args: int) -> int:
     """Blocks of a kernel one SM holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the kernel's
-    ``mm2_<kernel>_occupancy``): extd2 and exts2 at widths (W, QP, TP)
-    and a mode (exact | right << 1 | adrop << 2, 0 for the paths' own),
-    the traceback in a mode (splice 0 or 1), sort3 and sort1 at a row
-    width, the sketch at (L, w), the chain without arguments."""
+    ``mm2_<kernel>_occupancy``), on the route the arguments take: extd2
+    and exts2 at widths (W, QP, TP) and a mode (exact | right << 1 |
+    adrop << 2, 0 for the paths' own), the traceback in a mode (splice 0
+    or 1), sort3 and sort1 at a row width, the sketch at (L, w), the chain
+    at a window."""
     name = f"mm2_{kernel}_occupancy"
-    n = ctypes.c_int(0)
-    check(getattr(lib(), name)(*args, ctypes.byref(n)), name)
-    return n.value
+    n = (ctypes.c_int * 2)()
+    check(getattr(lib(), name)(*args, n), name)
+    return n[0]
+
+
+ROUTES = ("reg", "reg_gp", "slab")
+
+
+@functools.lru_cache(maxsize=None)
+def dp_plan(kernel: str, W: int, QP: int, TP: int, mode: int) -> dict:
+    """The launch plan of extd2 or exts2 at widths (W, QP, TP) in a mode
+    (exact | right << 1 | adrop << 2) on this card: its route (``reg``:
+    the job's lanes in registers, its planes staged in shared memory;
+    ``reg_gp``: the planes read from device memory; ``slab``: the rows in
+    device memory, walked a group of lanes at a time), threads a block,
+    dynamic shared memory, device-memory scratch a job (bytes) and blocks
+    an SM holds at once.  Cached: it depends on the shapes and the card
+    alone (the wrappers ask it on every launch)."""
+    name = f"mm2_{kernel}_plan"
+    out = (ctypes.c_longlong * 5)()
+    check(getattr(lib(), name)(W, QP, TP, mode, out), name)
+    return dict(route=ROUTES[out[0]], threads=out[1], smem=out[2],
+                scratch=out[3], blocks_per_sm=out[4])
 
 
 def stream_ptr(t) -> int:

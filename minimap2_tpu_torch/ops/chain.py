@@ -16,6 +16,7 @@ runs ``chain_batch_plain`` for CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -145,8 +146,10 @@ def chain_batch(rev, rid, rpos, qpos, span, av, *, WND: int, max_dist_x: int,
     if any(x.dtype != torch.int32 or x.shape != (B, A) for x in planes) \
             or av.dtype != torch.bool or av.shape != (B, A):
         raise ValueError("chain_batch: five (B, A) int32 planes + bool av")
-    if WND != 64:
-        raise ValueError("chain_batch: the kernel holds WND = 64 slots")
+    if WND < 1 or WND > max_window():
+        raise ValueError(f"chain_batch: the kernel takes 1 <= WND <= "
+                         f"{max_window()} (the shared-memory ring's "
+                         f"ceiling), got {WND}")
     if A % 16 or any(x.data_ptr() % 16 for x in (*planes, av)):
         raise ValueError("chain_batch: the kernel stages anchors in 16-byte "
                          "pieces (A a multiple of 16, planes 16-byte "
@@ -158,5 +161,30 @@ def chain_batch(rev, rid, rpos, qpos, span, av, *, WND: int, max_dist_x: int,
         float(np.float32(chn_pen_gap)), float(np.float32(chn_pen_skip)),
         _build.stream_ptr(rpos))
     _build.check(err, "mm2_chain")
-    _build.launches["chain"] += 1
+    _build.launches[launch_name(WND)] += 1
     return tuple(outs)
+
+
+def slots_a_lane(WND: int) -> int:
+    """The kernel's route for a window: 1, 2, 4 or 8 slots a lane in
+    registers (WND <= 32, 64, 128, 256), else 0, the window in a ring in
+    shared memory (csrc/chain.cu)."""
+    for sl in (1, 2, 4, 8):
+        if WND <= 32 * sl:
+            return sl
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def max_window() -> int:
+    """The largest window the shared-memory ring takes on this card."""
+    n = ctypes.c_int(0)
+    _build.check(_build.lib().mm2_chain_max_window(ctypes.byref(n)),
+                 "mm2_chain_max_window")
+    return n.value
+
+
+def launch_name(WND: int) -> str:
+    """The launch counter of the window's instantiation: ``chain`` at the
+    paths' WND 64, else ``chain_w<WND>``."""
+    return "chain" if WND == 64 else f"chain_w{WND}"

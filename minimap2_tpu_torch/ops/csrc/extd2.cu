@@ -79,16 +79,51 @@
 // reversed query (zero outside [0, qlen)) sit in shared memory.  A job
 // stops at its first dead diagonal.  (8 and 16 lanes a thread were
 // slower on the card: fewer warps, each with a longer serial path.)
+//
+// Every W and every QP, TP: three routes, picked by the shapes alone
+// (plan_of, the first whose block holds the job):
+// - REG: the design above, W / 4 threads a block, as many as the
+//   instantiation's registers allow (cudaFuncGetAttributes'
+//   maxThreadsPerBlock: 1024 for the approx modes, capped at 64
+//   registers, fewer for the exact ones), planes staged in shared memory.
+// - REG_GP: the same with the target and query read from device memory
+//   (__ldg, a byte at a time with the bounds the staged planes had) when
+//   they pass the 227 KB a block may stage (QP + TP past ~225,000: reads
+//   past ~110 kb at QP = L, TP = L + 512).  The row buffers stay shared.
+// - SLAB: past the threads one block holds (W past 4096 in the approx
+//   modes).  The job's eight rows (u v x y x2 y2 s H) live in device
+//   memory, physical slots as above, and T threads walk the groups the
+//   diagonal changes -- those meeting [st, en] or [st0, s_hi], and the
+//   ones that wrap -- a group at a time: load its four lanes a row, run
+//   the same update, store them back, in place (one thread a group a
+//   diagonal).  A group's left neighbour as diagonal r - 1 left it is the
+//   edge that r - 1 wrote to device memory if r - 1 updated it, the fill
+//   values if it lies past r - 1's band (nothing has touched it since it
+//   last wrapped), else its rows, which nothing writes on diagonal r (it
+//   lies left of the band); the H0 walk's lanes in groups the diagonal
+//   leaves alone come from their rows the same way.  The planes come from
+//   device memory, and p comes zeroed from the wrapper (the walk stores
+//   band groups only).  Why not a thread-block cluster: 8 blocks (the
+//   portable cluster) of the exact instantiations' ~736 threads reach
+//   23,552 lanes, short of W 32768, and a bigger cluster is not portable;
+//   the slab route takes any W, its work a diagonal follows the band, not
+//   W, and a job's rows (36 W bytes with the edges) stay in L2 at the
+//   widths the presets reach.  It pays a load and a store of each band
+//   lane's rows a diagonal.
 // Resources (`nvcc -Xptxas -v` for sm_90a, printed by chip_smoke.py's
-// build phase), the -c/-a path's instantiation <false, false, false>: at
-// GL = 4, 64 registers a thread, no spills; 30,336 bytes
-// of dynamic shared memory a block at QP=12288, TP=12800, W=640 (2 W/GL
-// int4 + 64 + TP + QP + 64), so 6 blocks of 160 threads fit on an SM
-// (register-bound; cudaOccupancyMaxActiveBlocksPerMultiprocessor through
-// mm2_extd2_occupancy).  The exact instantiations add 2 x 8 x 2 ints of
-// shared memory for the warps' maxima; PERF.md lists every
-// instantiation's registers.
+// build phase), no spills in any instantiation
+// <EXACT, RIGHT, ADROP> on a route: REG approx 61-64 registers (the -c/-a
+// path's <0,0,0> 61), exact 77 and 80; REG_GP approx 59-64, exact 72;
+// SLAB approx 102-119 (bounded at 512 threads), exact 111 and 118.  The
+// -c/-a path's launch at QP=12288, TP=12800, W=640 takes 30,336 bytes of
+// dynamic shared memory a block (2 W/GL int4 + 64 + TP + QP + 64), so 6
+// blocks of 160 threads fit on an SM (register-bound;
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor through mm2_extd2_plan).
+// The exact instantiations add 2 x 32 x 2 ints for the warps' maxima;
+// REG_GP keeps the edge rows only, SLAB the scalars (64 or 576 bytes) and
+// 32 W + 8 W bytes of rows and edges a job in device memory.
 #include <climits>
+#include <cstddef>
 #include <cstdint>
 #include <cstdlib>
 #include <cuda_runtime.h>
@@ -97,14 +132,55 @@ namespace {
 
 constexpr int NEG_INF32 = -0x40000000;
 constexpr int EZ_N = 16;
-constexpr int GL = 4;           // lanes a thread
-constexpr int MAX_T = 256;      // threads a block: W <= 1024
+constexpr int GL = 4;           // lanes a thread (a group)
+constexpr int MAX_T = 1024;     // threads a block
 constexpr int QM = 16;          // zero bytes before the query in shared memory
 constexpr int QTAIL = 48;       // and after it
 constexpr int NX = 8;           // exported scalars a diagonal: 7 used, 8
                                 // keep the planes after them 16-byte aligned
 constexpr int NWARP = MAX_T / 32;
 constexpr int NRED = 2 * NWARP * 2;   // [2][warp] (max, key) of the H row
+constexpr int NROW = 8;         // the slab route's rows: U V X Y X2 Y2 S H
+
+// the routes: a job's lanes in registers with its planes staged in shared
+// memory, the same with the planes read from device memory, or the rows
+// in device memory, walked a group at a time (the slab route)
+enum Route { REG = 0, REG_GP = 1, SLAB = 2 };
+
+struct Extd2Args {
+  const uint8_t* qr;
+  const uint8_t* sf;
+  const int* lens;
+  const int* order;
+  uint8_t* p;
+  int* ez;
+  int* rows;          // the slab route's rows and edges, one slice a job
+  int QP, TP, W, RB, RT, w, q, e, q2, e2, long_thres, long_diff, sc_mch,
+      sc_mis, sc_N, with_cigar, zdrop;
+};
+
+// threads, dynamic shared memory and device-memory scratch (bytes a job)
+// of a launch on a route
+struct Plan {
+  int route, threads;
+  size_t smem, scratch;
+};
+
+// the route a shape takes: the first of REG, REG_GP, SLAB whose block
+// holds it.  tmax[route]: the threads an instantiation of the route takes
+// at most (a multiple of 32); smax: the shared memory a block may use
+__host__ __device__ inline Plan plan_of(int exact, int W, int QP, int TP,
+                                        const int* tmax, size_t smax) {
+  const int NG = W / GL;
+  const size_t xs = 2 * NX * 4 + (exact ? NRED * 4 : 0);
+  const size_t rows = (size_t)2 * NG * sizeof(int4) + xs;
+  const size_t planes = (size_t)((TP + 15) & ~15) + QP + QM + QTAIL;
+  if (NG <= tmax[REG] && rows + planes <= smax)
+    return {REG, NG, rows + planes, 0};
+  if (NG <= tmax[REG_GP] && rows <= smax) return {REG_GP, NG, rows, 0};
+  return {SLAB, NG < tmax[SLAB] ? NG : tmax[SLAB], xs,
+          ((size_t)NROW * W + (size_t)2 * NG * 4) * 4};
+}
 
 __device__ __forceinline__ int sext8(int v) {
   return (int)(signed char)(v & 255);
@@ -116,6 +192,17 @@ __device__ __forceinline__ int lane_of(const int (&a)[GL], unsigned i) {
 #pragma unroll
   for (int k = 1; k < GL; ++k)
     if (i == k) v = a[k];
+  return v;
+}
+
+// 4 plane bytes from j on, 0 outside [0, len) (read-only: __ldg)
+__device__ __forceinline__ uint32_t gbytes4(const uint8_t* base, int j,
+                                            int len) {
+  uint32_t v = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if ((unsigned)(j + i) < (unsigned)len)
+      v |= (uint32_t)__ldg(base + j + i) << (8 * i);
   return v;
 }
 
@@ -165,38 +252,31 @@ __device__ __forceinline__ bool apply_zdrop(int H, int t, int r, int zdrop,
   return mx - H > zdrop + l * e2;
 }
 
-// (the approx instantiations at most 64 registers, 4 blocks of MAX_T: the
-// -c/-a path's keeps its occupancy)
-template <bool EXACT, bool RIGHT, bool ADROP>
-__global__ void __launch_bounds__(MAX_T, EXACT ? 1 : 4) extd2_kernel(
-    const uint8_t* __restrict__ qr, const uint8_t* __restrict__ sf,
-    const int* __restrict__ lens, const int* __restrict__ order,
-    uint8_t* __restrict__ p, int* __restrict__ ez, int QP, int TP, int W,
-    int RB, int RT, int w, int q, int e, int q2, int e2, int long_thres,
-    int long_diff, int sc_mch, int sc_mis, int sc_N, int with_cigar,
-    int zdrop) {
+// a group's four lanes of one row from / to the slab route's rows
+__device__ __forceinline__ void ld4(int (&a)[GL], const int* p) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+__device__ __forceinline__ void st4(int* p, const int (&a)[GL]) {
+  *reinterpret_cast<int4*>(p) = make_int4(a[0], a[1], a[2], a[3]);
+}
+
+__device__ __forceinline__ uint4* dyn_smem() {
   extern __shared__ uint4 smem[];
-  const int NG = W / GL, TPP = (TP + 15) & ~15, NW = NG / 32;
-  int4* edge = reinterpret_cast<int4*>(smem);           // [2][NG] x, v, x2, H
-  int* xs = reinterpret_cast<int*>(edge + 2 * NG);      // [2][NX]
-  int* red = xs + 2 * NX;                               // [2][NW][2], EXACT
-  uint8_t* ts = reinterpret_cast<uint8_t*>(red + (EXACT ? NRED : 0));
-  uint8_t* qs = ts + TPP;                               // QM + QP + QTAIL
+  return smem;
+}
 
-  const int g = threadIdx.x;
-  const int n = order[blockIdx.x];
-  const int qlen = lens[2 * n], tlen = lens[2 * n + 1];
-  const int rstar = qlen + tlen - 1;
-  for (int i = g; i < TPP; i += NG)
-    ts[i] = i < TP ? sf[(size_t)n * TP + i] : 0;
-  for (int i = g; i < QP + QM + QTAIL; i += NG) {
-    const int j = i - QM;
-    qs[i] = (j >= 0 && j < qlen) ? qr[(size_t)n * QP + j] : 0;
-  }
-  uint8_t* prow = p + (size_t)n * RT * W;
-
-  const int qe = q + e, qe2 = q2 + e2;
-  int U[GL], V[GL], X[GL], Y[GL], X2[GL], Y2[GL], S[GL], H[GL];
+// fill values of a group's rows (the initial state and the lanes that
+// wrap on a chunk shift)
+__device__ __forceinline__ void fill_group(int (&U)[GL], int (&V)[GL],
+                                           int (&X)[GL], int (&Y)[GL],
+                                           int (&X2)[GL], int (&Y2)[GL],
+                                           int (&S)[GL], int (&H)[GL],
+                                           int qe, int qe2) {
 #pragma unroll
   for (int i = 0; i < GL; ++i) {
     U[i] = V[i] = X[i] = Y[i] = -qe;
@@ -204,7 +284,57 @@ __global__ void __launch_bounds__(MAX_T, EXACT ? 1 : 4) extd2_kernel(
     S[i] = 0;
     H[i] = NEG_INF32;
   }
-  edge[NG + g] = make_int4(-qe, -qe, -qe2, NEG_INF32);   // "before" r = 0
+}
+
+template <bool EXACT, bool RIGHT, bool ADROP, int ROUTE>
+__device__ __forceinline__ void extd2_body(const Extd2Args& A) {
+  constexpr bool SL = ROUTE == SLAB;
+  const int QP = A.QP, TP = A.TP, W = A.W, RB = A.RB, RT = A.RT, w = A.w;
+  const int e = A.e, e2 = A.e2, long_thres = A.long_thres;
+  const int long_diff = A.long_diff, sc_mch = A.sc_mch, sc_mis = A.sc_mis;
+  const int sc_N = A.sc_N, with_cigar = A.with_cigar, zdrop = A.zdrop;
+  uint4* smem = dyn_smem();
+  const int NG = W / GL, TPP = (TP + 15) & ~15;
+  const int T = blockDim.x, NW = T / 32;
+  int4* edge = reinterpret_cast<int4*>(smem);           // [2][NG] x, v, x2, H
+  int* xs = reinterpret_cast<int*>(edge + (SL ? 0 : 2 * NG));   // [2][NX]
+  int* red = xs + 2 * NX;                               // [2][NW][2], EXACT
+  uint8_t* ts = reinterpret_cast<uint8_t*>(red + (EXACT ? NRED : 0));
+  uint8_t* qs = ts + TPP;                               // QM + QP + QTAIL
+
+  const int g = threadIdx.x;
+  const int n = A.order[blockIdx.x];
+  const int qlen = A.lens[2 * n], tlen = A.lens[2 * n + 1];
+  const int rstar = qlen + tlen - 1;
+  const uint8_t* sfn = A.sf + (size_t)n * TP;
+  const uint8_t* qrn = A.qr + (size_t)n * QP;
+  if constexpr (ROUTE == REG) {
+    for (int i = g; i < TPP; i += T) ts[i] = i < TP ? sfn[i] : 0;
+    for (int i = g; i < QP + QM + QTAIL; i += T) {
+      const int j = i - QM;
+      qs[i] = (j >= 0 && j < qlen) ? qrn[j] : 0;
+    }
+  }
+  uint8_t* prow = A.p + (size_t)n * RT * W;
+  // the slab route's rows [NROW][W] (physical slots) and edges [2][NG]
+  int* rw = A.rows + (SL ? (size_t)n * (NROW * (size_t)W + 8 * (size_t)NG)
+                         : 0);
+  int4* gedge = reinterpret_cast<int4*>(rw + NROW * (size_t)W);
+
+  const int qe = A.q + e, qe2 = A.q2 + e2;
+  int U[GL], V[GL], X[GL], Y[GL], X2[GL], Y2[GL], S[GL], H[GL];
+  fill_group(U, V, X, Y, X2, Y2, S, H, qe, qe2);
+  if constexpr (SL) {
+    for (int i = g; i < NG; i += T)
+#pragma unroll
+      for (int k = 0; k < NROW; ++k) {
+        const int f = k < 4 ? -qe : k < 6 ? -qe2 : k == 6 ? 0 : NEG_INF32;
+        reinterpret_cast<int4*>(rw + (size_t)k * W)[i] =
+            make_int4(f, f, f, f);
+      }
+  } else {
+    edge[NG + g] = make_int4(-qe, -qe, -qe2, NEG_INF32);   // "before" r = 0
+  }
   int zdr = 0, last_st = 0, nr = 0, H0 = 0, h0t = 0, score = NEG_INF32;
   // ez lanes of the exact and approx-drop modes, and the z-drop flag
   int mx = 0, mxq = -1, mxt = -1, mqe = NEG_INF32, mqet = -1;
@@ -253,6 +383,7 @@ __global__ void __launch_bounds__(MAX_T, EXACT ? 1 : 4) extd2_kernel(
   int ws = 0, off = 0;        // window start and its physical slot
   int rc = 0;                 // r % RB
   int l0 = g * GL, t0 = l0;   // this thread's first logical lane, position
+  int pst = 0, pen = -1;      // [st, en] of the previous diagonal
   __syncthreads();
 
   int r = 0;
@@ -272,28 +403,23 @@ __global__ void __launch_bounds__(MAX_T, EXACT ? 1 : 4) extd2_kernel(
       break;
     }
     // chunk boundary: the window moves right by dsh lanes (chunk_shift,
-    // :186-200); the dsh slots that wrap take the fill values below.  On
-    // that diagonal the band ends at most w + 30 lanes past the new origin
-    // and the wrapped lanes start at W - dsh >= w + 48 + drift - dsh >
-    // w + 30 (_check: W >= w + 48 + drift, dsh <= drift + 15), so neither
-    // a band lane's left neighbour nor the boundary lane st - 1 has wrapped
+    // :186-200); the dsh slots that wrap take the fill values.  On that
+    // diagonal the band ends at most w + 30 lanes past the new origin and
+    // the wrapped lanes start at W - dsh >= w + 48 + drift - dsh > w + 30
+    // (_check: W >= w + 48 + drift, dsh <= drift + 15), so neither a band
+    // lane's left neighbour nor the boundary lane st - 1 has wrapped
+    int dsh = 0;
     if (rc == 0 && r > 0) {
       const int ws_new = wstart(r, w);
-      const int dsh = ws_new - ws;
+      dsh = ws_new - ws;
       ws = ws_new;
       off += dsh;
       if (off >= W) off -= W;
-      l0 = g * GL - off;
-      if (l0 < 0) l0 += W;
-      t0 = ws + l0;
-      if (l0 >= W - dsh) {        // the shift's fill values
-#pragma unroll
-        for (int i = 0; i < GL; ++i) {
-          U[i] = V[i] = X[i] = Y[i] = -qe;
-          X2[i] = Y2[i] = -qe2;
-          S[i] = 0;
-          H[i] = NEG_INF32;
-        }
+      if constexpr (!SL) {
+        l0 = g * GL - off;
+        if (l0 < 0) l0 += W;
+        t0 = ws + l0;
+        if (l0 >= W - dsh) fill_group(U, V, X, Y, X2, Y2, S, H, qe, qe2);
       }
     }
     if (++rc == RB) rc = 0;
@@ -309,145 +435,252 @@ __global__ void __launch_bounds__(MAX_T, EXACT ? 1 : 4) extd2_kernel(
                         : r < long_thres ? -e
                         : r == long_thres ? long_diff : -e2;
     const int s_hi = st0 + (((en0 - st0) >> 4) << 4) + 15;
-
-    if (t0 + GL - 1 >= st0 && t0 <= s_hi) {
-      // score row: only [st0, s_hi] is rewritten; other lanes keep stale s
-      const uint32_t Tw =
-          t0 < TPP ? *reinterpret_cast<const uint32_t*>(ts + t0) : 0u;
-      // reversed-query bytes qi0 .. qi0 + GL - 1, qi0 = t0 - r + qlen - 1
-      // >= -15 (the query position of lane t is r - t)
-      const int o = QM + t0 - r + qlen - 1;
-      const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qs + (o & ~3));
-      const uint32_t Qw = __funnelshift_r(q32[0], q32[1], (o & 3) * 8);
-      // lanes lo .. hi - 1 of the group lie in [st0, s_hi]
-      const int lo = max(st0 - t0, 0), hi = min(s_hi - t0 + 1, GL);
-      int sv[GL];
-#pragma unroll
-      for (int i = 0; i < GL; ++i) {
-        const int tq = (Tw >> (8 * i)) & 255, qq = (Qw >> (8 * i)) & 255;
-        sv[i] = (tq == 4 || qq == 4) ? sc_N : tq == qq ? sc_mch : sc_mis;
-      }
-      if (lo == 0 && hi == GL) {
-#pragma unroll
-        for (int i = 0; i < GL; ++i) S[i] = sv[i];
-      } else {
-#pragma unroll
-        for (int i = 0; i < GL; ++i)
-          if (i >= lo && i < hi) S[i] = sv[i];
-      }
-    }
-    uint32_t P = 0u;               // direction bytes: 0 off the band
     int hb = INT_MIN, hk = INT_MIN;  // EXACT: best H of [st0, en0], its key
     int* xc = xs + NX * cur;
-    if (t0 >= st && t0 <= en) {
-      // the left neighbour of lane l0: the boundary values at st, else the
-      // previous group's last lane (lane 0 in the band is lane st - ws, so
-      // l0 >= GL there)
-      // (the exact mode reads the previous group's H in either case)
-      int4 E;
-      if constexpr (EXACT) E = edge[NG * prv + (g == 0 ? NG - 1 : g - 1)];
-      int xl, vl, x2l;
-      if (t0 == st) {
-        xl = use_prev ? (pre_ok ? xp[0] : 0) : -qe;
-        vl = use_prev ? (pre_ok ? xp[1] : 0) : (st > 0 ? -qe : v1_edge);
-        x2l = use_prev ? (pre_ok ? xp[2] : 0) : -qe2;
-      } else {
-        if constexpr (!EXACT) E = edge[NG * prv + (g == 0 ? NG - 1 : g - 1)];
-        xl = E.x; vl = E.y; x2l = E.z;
-      }
-      // y, y2 and u reset at lane r (which lies in [st, en] when en >= r)
-      const int ir = r - t0;
-      if (en >= r && ir < GL) {
+    const int st0n = max(max(0, r + 2 - qlen), (r + 2 - w) >> 1);
+
+    // one group's diagonal (its lanes at positions t0 .. t0 + GL - 1;
+    // fetch_e: the left group's last x, v, x2 and H as diagonal r - 1 left
+    // them, fetched where the group needs them).  Returns the direction
+    // bytes (0 off the band).
+    auto group = [&](int (&U)[GL], int (&V)[GL], int (&X)[GL], int (&Y)[GL],
+                     int (&X2)[GL], int (&Y2)[GL], int (&S)[GL], int (&H)[GL],
+                     int t0, auto fetch_e) -> uint32_t {
+      if (t0 + GL - 1 >= st0 && t0 <= s_hi) {
+        // score row: only [st0, s_hi] is rewritten; other lanes keep stale s
+        uint32_t Tw, Qw;
+        if constexpr (ROUTE == REG) {
+          Tw = t0 < TPP ? *reinterpret_cast<const uint32_t*>(ts + t0) : 0u;
+          // reversed-query bytes qi0 .. qi0 + GL - 1, qi0 = t0 - r + qlen
+          // - 1 >= -15 (the query position of lane t is r - t)
+          const int o = QM + t0 - r + qlen - 1;
+          const uint32_t* q32 =
+              reinterpret_cast<const uint32_t*>(qs + (o & ~3));
+          Qw = __funnelshift_r(q32[0], q32[1], (o & 3) * 8);
+        } else {
+          Tw = gbytes4(sfn, t0, TP);
+          Qw = gbytes4(qrn, t0 - r + qlen - 1, qlen);
+        }
+        // lanes lo .. hi - 1 of the group lie in [st0, s_hi]
+        const int lo = max(st0 - t0, 0), hi = min(s_hi - t0 + 1, GL);
+        int sv[GL];
 #pragma unroll
         for (int i = 0; i < GL; ++i) {
-          if (i == ir) {
-            Y[i] = -qe;
-            Y2[i] = -qe2;
-            U[i] = v1_edge;
-          }
+          const int tq = (Tw >> (8 * i)) & 255, qq = (Qw >> (8 * i)) & 255;
+          sv[i] = (tq == 4 || qq == 4) ? sc_N : tq == qq ? sc_mch : sc_mis;
         }
-      }
-      // lanes from the last down, so lane i reads lane i - 1's old x, v, x2
+        if (lo == 0 && hi == GL) {
 #pragma unroll
-      for (int i = GL - 1; i >= 0; --i) {
-        const int xt1 = i ? X[i - 1] : xl, vt1 = i ? V[i - 1] : vl;
-        const int x2t1 = i ? X2[i - 1] : x2l;
-        const int y_p = Y[i], y2_p = Y2[i], u_p = U[i];
-        const int a = xt1 + vt1, b = y_p + u_p, a2 = x2t1 + vt1,
-                  b2 = y2_p + u_p;
-        int z = S[i], d = 0;
-        if constexpr (RIGHT) {
-          d = z > a ? 0 : 1;
-          z = max(z, a);
-          d = z > b ? d : 2;
-          z = max(z, b);
-          d = z > a2 ? d : 3;
-          z = max(z, a2);
-          d = z > b2 ? d : 4;
+          for (int i = 0; i < GL; ++i) S[i] = sv[i];
         } else {
-          if (a > z) d = 1;
-          z = max(z, a);
-          if (b > z) d = 2;
-          z = max(z, b);
-          if (a2 > z) d = 3;
-          z = max(z, a2);
-          if (b2 > z) d = 4;
-        }
-        z = min(max(z, b2), sc_mch);
-        U[i] = z - vt1;
-        V[i] = z - u_p;
-        // max(a - (z - q), 0) - q - e = max(a - z - e, -q - e), and the
-        // continuation bit a - (z - q) > 0 is x > -q - e (>= 0 under
-        // RIGHT: a - z - e >= -q - e before the max)
-        const int ze = -(z + e), ze2 = -(z + e2);
-        if constexpr (RIGHT) {
-          d |= (a + ze >= -qe ? 0x08 : 0) | (b + ze >= -qe ? 0x10 : 0)
-               | (a2 + ze2 >= -qe2 ? 0x20 : 0)
-               | (b2 + ze2 >= -qe2 ? 0x40 : 0);
-        }
-        X[i] = __viaddmax_s32(a, ze, -qe);
-        Y[i] = __viaddmax_s32(b, ze, -qe);
-        X2[i] = __viaddmax_s32(a2, ze2, -qe2);
-        Y2[i] = __viaddmax_s32(b2, ze2, -qe2);
-        if constexpr (!RIGHT)
-          d |= (X[i] > -qe ? 0x08 : 0) | (Y[i] > -qe ? 0x10 : 0)
-               | (X2[i] > -qe2 ? 0x20 : 0) | (Y2[i] > -qe2 ? 0x40 : 0);
-        P |= (uint32_t)d << (8 * i);
-      }
-      if constexpr (EXACT) {
-        // H row (:398-420): the body [st0, en0) adds v, en0 takes h_en0
-        if (t0 + GL - 1 >= st0 && t0 <= en0) {
-          int Hp[GL];
 #pragma unroll
-          for (int i = 0; i < GL; ++i) Hp[i] = H[i];
+          for (int i = 0; i < GL; ++i)
+            if (i >= lo && i < hi) S[i] = sv[i];
+        }
+      }
+      uint32_t P = 0u;
+      if (t0 >= st && t0 <= en) {
+        // the left neighbour of lane l0: the boundary values at st, else
+        // the previous group's last lane (lane 0 in the band is lane st -
+        // ws, so l0 >= GL there); the exact mode reads the previous
+        // group's H in either case
+        int4 E = make_int4(0, 0, 0, 0);
+        if constexpr (EXACT) E = fetch_e();
+        int xl, vl, x2l;
+        if (t0 == st) {
+          xl = use_prev ? (pre_ok ? xp[0] : 0) : -qe;
+          vl = use_prev ? (pre_ok ? xp[1] : 0) : (st > 0 ? -qe : v1_edge);
+          x2l = use_prev ? (pre_ok ? xp[2] : 0) : -qe2;
+        } else {
+          if constexpr (!EXACT) E = fetch_e();
+          xl = E.x; vl = E.y; x2l = E.z;
+        }
+        // y, y2 and u reset at lane r (which lies in [st, en] when en >= r)
+        const int ir = r - t0;
+        if (en >= r && ir < GL) {
 #pragma unroll
           for (int i = 0; i < GL; ++i) {
-            const int t = t0 + i;
-            if (t == en0) {
-              int h;
-              if (r == 0) {
-                h = V[i] - qe;
-              } else if (en0 > 0) {
-                const int hm1 = i ? Hp[i ? i - 1 : 0]
-                                  : (en0 - 1 - ws >= 0 ? E.w : 0);
-                h = hm1 + sext8(U[i]);
-              } else {
-                h = Hp[i] + sext8(V[i]);
-              }
-              H[i] = h;
-              xc[5] = h;
-            } else if (t >= st0 && t < en0) {
-              H[i] = Hp[i] + V[i];
+            if (i == ir) {
+              Y[i] = -qe;
+              Y2[i] = -qe2;
+              U[i] = v1_edge;
             }
-            if (t == st0) xc[6] = H[i];
-            if (t >= st0 && t <= en0) {
-              const int k = t == en0 ? INT_MAX : -t;
-              if (H[i] > hb || (H[i] == hb && k > hk)) {
-                hb = H[i];
-                hk = k;
+          }
+        }
+        // lanes from the last down, so lane i reads lane i - 1's old x, v,
+        // x2
+#pragma unroll
+        for (int i = GL - 1; i >= 0; --i) {
+          const int xt1 = i ? X[i - 1] : xl, vt1 = i ? V[i - 1] : vl;
+          const int x2t1 = i ? X2[i - 1] : x2l;
+          const int y_p = Y[i], y2_p = Y2[i], u_p = U[i];
+          const int a = xt1 + vt1, b = y_p + u_p, a2 = x2t1 + vt1,
+                    b2 = y2_p + u_p;
+          int z = S[i], d = 0;
+          if constexpr (RIGHT) {
+            d = z > a ? 0 : 1;
+            z = max(z, a);
+            d = z > b ? d : 2;
+            z = max(z, b);
+            d = z > a2 ? d : 3;
+            z = max(z, a2);
+            d = z > b2 ? d : 4;
+          } else {
+            if (a > z) d = 1;
+            z = max(z, a);
+            if (b > z) d = 2;
+            z = max(z, b);
+            if (a2 > z) d = 3;
+            z = max(z, a2);
+            if (b2 > z) d = 4;
+          }
+          z = min(max(z, b2), sc_mch);
+          U[i] = z - vt1;
+          V[i] = z - u_p;
+          // max(a - (z - q), 0) - q - e = max(a - z - e, -q - e), and the
+          // continuation bit a - (z - q) > 0 is x > -q - e (>= 0 under
+          // RIGHT: a - z - e >= -q - e before the max)
+          const int ze = -(z + e), ze2 = -(z + e2);
+          if constexpr (RIGHT) {
+            d |= (a + ze >= -qe ? 0x08 : 0) | (b + ze >= -qe ? 0x10 : 0)
+                 | (a2 + ze2 >= -qe2 ? 0x20 : 0)
+                 | (b2 + ze2 >= -qe2 ? 0x40 : 0);
+          }
+          X[i] = __viaddmax_s32(a, ze, -qe);
+          Y[i] = __viaddmax_s32(b, ze, -qe);
+          X2[i] = __viaddmax_s32(a2, ze2, -qe2);
+          Y2[i] = __viaddmax_s32(b2, ze2, -qe2);
+          if constexpr (!RIGHT)
+            d |= (X[i] > -qe ? 0x08 : 0) | (Y[i] > -qe ? 0x10 : 0)
+                 | (X2[i] > -qe2 ? 0x20 : 0) | (Y2[i] > -qe2 ? 0x40 : 0);
+          P |= (uint32_t)d << (8 * i);
+        }
+        if constexpr (EXACT) {
+          // H row (:398-420): the body [st0, en0) adds v, en0 takes h_en0
+          if (t0 + GL - 1 >= st0 && t0 <= en0) {
+            int Hp[GL];
+#pragma unroll
+            for (int i = 0; i < GL; ++i) Hp[i] = H[i];
+#pragma unroll
+            for (int i = 0; i < GL; ++i) {
+              const int t = t0 + i;
+              if (t == en0) {
+                int h;
+                if (r == 0) {
+                  h = V[i] - qe;
+                } else if (en0 > 0) {
+                  const int hm1 = i ? Hp[i ? i - 1 : 0]
+                                    : (en0 - 1 - ws >= 0 ? E.w : 0);
+                  h = hm1 + sext8(U[i]);
+                } else {
+                  h = Hp[i] + sext8(V[i]);
+                }
+                H[i] = h;
+                xc[5] = h;
+              } else if (t >= st0 && t < en0) {
+                H[i] = Hp[i] + V[i];
+              }
+              if (t == st0) xc[6] = H[i];
+              if (t >= st0 && t <= en0) {
+                const int k = t == en0 ? INT_MAX : -t;
+                if (H[i] > hb || (H[i] == hb && k > hk)) {
+                  hb = H[i];
+                  hk = k;
+                }
               }
             }
           }
+        }
+      }
+      return P;
+    };
+    // exports for the next diagonal from a group's registers: x, v, x2 at
+    // st(r + 1) - 1 (in this diagonal's window) and the H0 walk's v[t0],
+    // u[t0 + 1] of this one
+    const int lx = r == 0 ? 1 : h0t + 1 - ws;
+    const int iv = lx == 0 ? W - 1 : lx - 1;
+    auto exports = [&](const int (&U)[GL], const int (&V)[GL],
+                       const int (&X)[GL], const int (&X2)[GL], int l0,
+                       int t0) {
+      // (a thread's lanes are the logical lanes l0 .. l0 + GL - 1)
+      const unsigned ib = ((st0n >> 4) << 4) - 1 - t0;
+      if (ib < GL) {
+        xc[0] = sext8(lane_of(X, ib));
+        xc[1] = sext8(lane_of(V, ib));
+        xc[2] = sext8(lane_of(X2, ib));
+      }
+      if constexpr (!EXACT) {
+        if (lx >= 0 && lx < W) {
+          const unsigned jv = iv - l0, ju = lx - l0;
+          if (jv < GL) xc[3] = sext8(lane_of(V, jv));
+          if (ju < GL && r > 0) xc[4] = sext8(lane_of(U, ju));
+        }
+      }
+    };
+
+    if constexpr (!SL) {
+      const int4* ep = edge + NG * prv + (g == 0 ? NG - 1 : g - 1);
+      const uint32_t P =
+          group(U, V, X, Y, X2, Y2, S, H, t0, [&] { return *ep; });
+      if (with_cigar) *reinterpret_cast<uint32_t*>(prow + l0) = P;
+      edge[NG * cur + g] =
+          make_int4(X[GL - 1], V[GL - 1], X2[GL - 1], EXACT ? H[GL - 1] : 0);
+      exports(U, V, X, X2, l0, t0);
+    } else {
+      // the groups this diagonal changes, in logical groups: those that
+      // meet [st, en] or [st0, s_hi] (one run), and the ones that wrapped
+      const int jlo = max(st - ws, 0) / GL;
+      const int jhi = min(max(en, s_hi) - ws, W - 1) / GL;
+      const int jwr = dsh > 0 ? max((W - dsh) / GL, jhi + 1) : NG;
+      const int nA = jhi - jlo + 1, nall = nA + NG - jwr;
+      const int goff = off / GL;
+      for (int k = g; k < nall; k += T) {
+        const int j = k < nA ? jlo + k : jwr + k - nA;
+        const int G = j + goff < NG ? j + goff : j + goff - NG;
+        const int gl0 = j * GL, gt0 = ws + gl0;
+        int* base = rw + G * GL;
+        if (gl0 >= W - dsh) {
+          fill_group(U, V, X, Y, X2, Y2, S, H, qe, qe2);
+        } else {
+          ld4(U, base); ld4(V, base + W); ld4(X, base + 2 * W);
+          ld4(Y, base + 3 * W); ld4(X2, base + 4 * W); ld4(Y2, base + 5 * W);
+          ld4(S, base + 6 * W); ld4(H, base + 7 * W);
+        }
+        // the left group's last lane as diagonal r - 1 left it: its edge
+        // if r - 1 updated it, the fill values if it lies past r - 1's
+        // band (never updated since it last wrapped), else its rows, which
+        // nothing writes on this diagonal (it lies left of the band)
+        const int Gm = G == 0 ? NG - 1 : G - 1;
+        auto fetch = [&]() -> int4 {
+          const int tl = gt0 - 1;
+          if (tl >= pst && tl <= pen) return gedge[NG * prv + Gm];
+          if (tl > pen) return make_int4(-qe, -qe, -qe2, NEG_INF32);
+          const int ph = Gm * GL + GL - 1;
+          return make_int4(rw[2 * W + ph], rw[W + ph], rw[4 * W + ph],
+                           rw[7 * W + ph]);
+        };
+        const uint32_t P = group(U, V, X, Y, X2, Y2, S, H, gt0, fetch);
+        st4(base, U); st4(base + W, V); st4(base + 2 * W, X);
+        st4(base + 3 * W, Y); st4(base + 4 * W, X2); st4(base + 5 * W, Y2);
+        st4(base + 6 * W, S); st4(base + 7 * W, H);
+        if (gt0 >= st && gt0 <= en) {
+          if (with_cigar) *reinterpret_cast<uint32_t*>(prow + gl0) = P;
+          gedge[NG * cur + G] = make_int4(X[GL - 1], V[GL - 1], X2[GL - 1],
+                                          H[GL - 1]);
+        }
+        exports(U, V, X, X2, gl0, gt0);
+      }
+      if constexpr (!EXACT) {
+        // the H0 walk's lanes in groups this diagonal leaves alone: their
+        // rows, which nothing writes on this diagonal
+        if (g == 0 && lx >= 0 && lx < W) {
+          auto kept = [&](int l) {
+            const int j = l / GL;
+            return !(j >= jlo && j <= jhi) && j < jwr;
+          };
+          auto slot = [&](int l) { return l + off < W ? l + off : l + off - W; };
+          if (kept(iv)) xc[3] = sext8(rw[W + slot(iv)]);
+          if (kept(lx) && r > 0) xc[4] = sext8(rw[slot(lx)]);
         }
       }
     }
@@ -460,110 +693,145 @@ __global__ void __launch_bounds__(MAX_T, EXACT ? 1 : 4) extd2_kernel(
         red[2 * (NWARP * cur + (g >> 5)) + 1] = k;
       }
     }
-    if (with_cigar) *reinterpret_cast<uint32_t*>(prow + l0) = P;
-    edge[NG * cur + g] =
-        make_int4(X[GL - 1], V[GL - 1], X2[GL - 1], EXACT ? H[GL - 1] : 0);
-    // exports for the next diagonal: x, v, x2 at st(r + 1) - 1 (in this
-    // diagonal's window) and the H0 walk's v[t0], u[t0 + 1] of this one
-    const int st0n = max(max(0, r + 2 - qlen), (r + 2 - w) >> 1);
-    // (a thread's lanes are the logical lanes l0 .. l0 + GL - 1)
-    const unsigned ib = ((st0n >> 4) << 4) - 1 - t0;
-    if (ib < GL) {
-      xc[0] = sext8(lane_of(X, ib));
-      xc[1] = sext8(lane_of(V, ib));
-      xc[2] = sext8(lane_of(X2, ib));
-    }
-    if constexpr (!EXACT) {
-      const int lx = r == 0 ? 1 : h0t + 1 - ws;
-      if (lx >= 0 && lx < W) {
-        const unsigned iv = (lx == 0 ? W - 1 : lx - 1) - l0, iu = lx - l0;
-        if (iv < GL) xc[3] = sext8(lane_of(V, iv));
-        if (iu < GL && r > 0) xc[4] = sext8(lane_of(U, iu));
-      }
-    }
     prow += W;
     pw_r = r; pw_ws = ws; pw_st0 = st0; pw_en0 = en0;
     pw_fin = r == rstar - 1 && en0 == tlen - 1;
     last_st = st;
+    pst = st;
+    pen = en;
     nr = r + 1;
     __syncthreads();
   }
-  if (with_cigar) {          // rows past the job's end are 0
-    uint4* z4 = reinterpret_cast<uint4*>(prow);
+  if (with_cigar && !SL) {   // rows past the job's end are 0 (the slab
+    uint4* z4 = reinterpret_cast<uint4*>(prow);   // route's p comes zeroed)
     const size_t n16 = (size_t)(RT - r) * W / 16;
-    for (size_t i = g; i < n16; i += NG) z4[i] = make_uint4(0, 0, 0, 0);
+    for (size_t i = g; i < n16; i += T) z4[i] = make_uint4(0, 0, 0, 0);
   }
   if (pw_r >= 0)             // every diagonal was live: the last one's step
     step(xs + NX * ((r - 1) & 1), red + 2 * NWARP * ((r - 1) & 1));
   if (g == 0) {
-    int* o = ez + (size_t)n * EZ_N;
+    int* o = A.ez + (size_t)n * EZ_N;
     const int vals[EZ_N] = {mx, zdr, mxq, mxt, mqe, mqet, mte, mteq,
                             score, last_st, 0, nr, H0, h0t, zflag, 0};
     for (int i = 0; i < EZ_N; ++i) o[i] = vals[i];
   }
 }
 
-using Extd2Fn = void (*)(const uint8_t*, const uint8_t*, const int*,
-                         const int*, uint8_t*, int*, int, int, int, int, int,
-                         int, int, int, int, int, int, int, int, int, int,
-                         int, int);
+// the approx instantiations at most 64 registers (1024 threads a block)
+// on the register routes, 128 on the slab route (512 threads: its walk
+// keeps more live, and 64 spilled); the exact ones as many as they need,
+// so fewer threads
+template <bool RIGHT, bool ADROP, int ROUTE>
+__global__ void __launch_bounds__(ROUTE == SLAB ? MAX_T / 2 : MAX_T, 1)
+    extd2_approx(Extd2Args a) {
+  extd2_body<false, RIGHT, ADROP, ROUTE>(a);
+}
 
-// the instantiation of a mode (approx_drop counts only in the approx mode)
-inline Extd2Fn extd2_variant(int exact, int right, int adrop) {
+template <bool RIGHT, int ROUTE>
+__global__ void extd2_exact(Extd2Args a) {
+  extd2_body<true, RIGHT, false, ROUTE>(a);
+}
+
+using Extd2Fn = void (*)(Extd2Args);
+
+template <int ROUTE>
+inline Extd2Fn extd2_route_variant(int exact, int right, int adrop) {
   if (exact)
-    return right ? extd2_kernel<true, true, false>
-                 : extd2_kernel<true, false, false>;
+    return right ? extd2_exact<true, ROUTE> : extd2_exact<false, ROUTE>;
   if (adrop)
-    return right ? extd2_kernel<false, true, true>
-                 : extd2_kernel<false, false, true>;
-  return right ? extd2_kernel<false, true, false>
-               : extd2_kernel<false, false, false>;
+    return right ? extd2_approx<true, true, ROUTE>
+                 : extd2_approx<false, true, ROUTE>;
+  return right ? extd2_approx<true, false, ROUTE>
+               : extd2_approx<false, false, ROUTE>;
+}
+
+// the instantiation of a mode on a route (approx_drop counts only in the
+// approx mode)
+inline Extd2Fn extd2_variant(int exact, int right, int adrop, int route) {
+  return route == REG ? extd2_route_variant<REG>(exact, right, adrop)
+         : route == REG_GP ? extd2_route_variant<REG_GP>(exact, right, adrop)
+                           : extd2_route_variant<SLAB>(exact, right, adrop);
 }
 
 }  // namespace
 
-// threads and dynamic shared memory of a launch at these widths (W % 128
-// == 0 keeps the shared planes 16-byte aligned)
-static int launch_shape(Extd2Fn fn, int exact, int W, int QP, int TP,
-                        int* threads, size_t* smem) {
-  if (W % 128 || W / GL > MAX_T) return (int)cudaErrorInvalidValue;
-  *threads = W / GL;
-  *smem = (size_t)2 * *threads * sizeof(int4) + 2 * NX * 4
-          + (exact ? NRED * 4 : 0)
-          + (size_t)((TP + 15) & ~15) + QP + QM + QTAIL;
+namespace {
+
+// the launch plan of a mode at these widths on this card, its dynamic
+// shared memory granted
+int launch_plan(int exact, int right, int adrop, int W, int QP, int TP,
+                Plan* pl) {
+  if (W % 128 || W <= 0) return (int)cudaErrorInvalidValue;
+  int dev, smax;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err)
+    err = cudaDeviceGetAttribute(
+        &smax, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int tmax[3];
+  for (int rt = 0; rt < 3 && !err; ++rt) {
+    cudaFuncAttributes at;
+    err = cudaFuncGetAttributes(
+        &at, (const void*)extd2_variant(exact, right, adrop, rt));
+    tmax[rt] = at.maxThreadsPerBlock / 32 * 32;
+  }
+  if (err) return (int)err;
+  *pl = plan_of(exact, W, QP, TP, tmax, (size_t)smax);
+  if (pl->smem > (size_t)smax) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+      (const void*)extd2_variant(exact, right, adrop, pl->route),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl->smem);
+}
+
+}  // namespace
+
+// route, threads, dynamic shared memory and scratch bytes a job of a mode
+// (exact | right << 1 | adrop << 2) at these widths, and its blocks an SM
+// holds at once
+extern "C" int mm2_extd2_plan(int W, int QP, int TP, int mode, long long* out) {
+  Plan pl;
+  const int exact = mode & 1, right = mode >> 1 & 1, adrop = mode >> 2 & 1;
+  int err = launch_plan(exact, right, adrop, W, QP, TP, &pl);
+  if (err) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, extd2_variant(exact, right, adrop, pl.route), pl.threads,
+      pl.smem);
+  out[0] = pl.route;
+  out[1] = pl.threads;
+  out[2] = (long long)pl.smem;
+  out[3] = (long long)pl.scratch;
+  out[4] = blocks;
+  return err;
 }
 
 extern "C" int mm2_extd2(const void* qr, const void* sf, const void* lens,
-                         const void* order, void* p, void* ez, int N, int QP,
-                         int TP, int W, int RB, int RT, int w, int q, int e,
-                         int q2, int e2, int long_thres, int long_diff,
-                         int sc_mch, int sc_mis, int sc_N, int with_cigar,
-                         int exact, int right, int adrop, int zdrop,
-                         void* stream) {
+                         const void* order, void* p, void* ez, void* rows,
+                         int N, int QP, int TP, int W, int RB, int RT, int w,
+                         int q, int e, int q2, int e2, int long_thres,
+                         int long_diff, int sc_mch, int sc_mis, int sc_N,
+                         int with_cigar, int exact, int right, int adrop,
+                         int zdrop, void* stream) {
   if (N == 0) return 0;
-  const Extd2Fn fn = extd2_variant(exact, right, adrop);
-  int threads;
-  size_t smem;
-  const int err = launch_shape(fn, exact, W, QP, TP, &threads, &smem);
+  Plan pl;
+  const int err = launch_plan(exact, right, adrop, W, QP, TP, &pl);
   if (err) return err;
-  fn<<<N, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)qr, (const uint8_t*)sf, (const int*)lens,
-      (const int*)order, (uint8_t*)p, (int*)ez, QP, TP, W, RB, RT, w, q, e,
-      q2, e2, long_thres, long_diff, sc_mch, sc_mis, sc_N, with_cigar, zdrop);
+  if (pl.route == SLAB && rows == nullptr) return (int)cudaErrorInvalidValue;
+  const Extd2Args a = {(const uint8_t*)qr, (const uint8_t*)sf,
+                       (const int*)lens, (const int*)order, (uint8_t*)p,
+                       (int*)ez, (int*)rows, QP, TP, W, RB, RT, w, q, e, q2,
+                       e2, long_thres, long_diff, sc_mch, sc_mis, sc_N,
+                       with_cigar, zdrop};
+  extd2_variant(exact, right, adrop, pl.route)<<<N, pl.threads, pl.smem,
+                                                 (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// blocks of a mode's kernel one SM holds at once at these widths (mode =
-// exact | right << 1 | adrop << 2)
+// blocks of a mode's kernel one SM holds at once at these widths, on the
+// route the widths take (mode = exact | right << 1 | adrop << 2)
 extern "C" int mm2_extd2_occupancy(int W, int QP, int TP, int mode,
                                    int* blocks) {
-  const Extd2Fn fn = extd2_variant(mode & 1, mode >> 1 & 1, mode >> 2 & 1);
-  int threads;
-  size_t smem;
-  const int err = launch_shape(fn, mode & 1, W, QP, TP, &threads, &smem);
-  if (err) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fn, threads, smem);
+  long long out[5];
+  const int err = mm2_extd2_plan(W, QP, TP, mode, out);
+  *blocks = (int)out[4];
+  return err;
 }

@@ -84,14 +84,19 @@ def _sext8(x):
     return (((x & 255) + 128) & 255) - 128
 
 
+# the widest window the kernel takes: its lane offsets inside a job's rows
+# are int (ROADMAP Queue 3); the JAX kernel asserts no ceiling
+MAX_W = 1 << 24
+
+
 def _check(W, RB, w):
     """The shapes the kernel takes: the JAX kernel's (W % 128, W >= w + 48
-    + drift, RB <= 128), and W <= 1024, the port kernel's own limit (one
-    block of W / 4 threads; ROADMAP Queue 3)."""
+    + drift, RB <= 128), and W <= MAX_W."""
     drift = -(-(RB // 2) // 16) * 16
-    if W % 128 or W < w + 48 + drift or RB > 128 or W > 1024:
+    if W % 128 or W < w + 48 + drift or RB > 128 or W > MAX_W:
         raise ValueError(f"extd2: need W % 128 == 0, W >= w + 48 + {drift}, "
-                         f"W <= 1024 and RB <= 128 (W={W}, w={w}, RB={RB})")
+                         f"W <= {MAX_W} and RB <= 128 (W={W}, w={w}, "
+                         f"RB={RB})")
 
 
 def job_order(lens: torch.Tensor) -> torch.Tensor:
@@ -401,28 +406,41 @@ def extd2_batch2(qr, sf, lens, *, G, W, RB, R, QP, TP, q, e, q2, e2, w,
     if qr.dtype != torch.uint8 or sf.dtype != torch.uint8 \
             or lens.dtype != torch.int32:
         raise ValueError("extd2: uint8 qr/sf and int32 lens")
-    # the kernel writes every byte of p (0 off the band and past a job)
-    p = torch.empty((N, RT, W) if with_cigar else (0,), dtype=torch.uint8,
-                    device=qr.device)
+    mode = int(not approx_max) | int(right_mode) << 1 | int(approx_drop) << 2
+    plan = _build.dp_plan("extd2", W, QP, TP, mode)
+    slab = plan["route"] == "slab"
+    # the register routes write every byte of p (0 off the band and past a
+    # job); the slab route writes the band's bytes only
+    p = (torch.zeros if slab else torch.empty)(
+        (N, RT, W) if with_cigar else (0,), dtype=torch.uint8,
+        device=qr.device)
     ez = torch.empty((N, EZ_N), dtype=torch.int32, device=qr.device)
+    rows = torch.empty((N * plan["scratch"] // 4 if slab else 0,),
+                       dtype=torch.int32, device=qr.device)
     order = job_order(lens)
     err = _build.lib().mm2_extd2(
         qr.data_ptr(), sf.data_ptr(), lens.data_ptr(), order.data_ptr(),
-        p.data_ptr(), ez.data_ptr(), N, QP, TP, W, RB, RT, w, q, e, q2, e2,
-        *_long_gap(q, e, q2, e2), sc_mch, sc_mis, sc_N, int(with_cigar),
-        int(not approx_max), int(right_mode), int(approx_drop), zdrop,
-        _build.stream_ptr(qr))
+        p.data_ptr(), ez.data_ptr(), rows.data_ptr() if slab else None, N,
+        QP, TP, W, RB, RT, w, q, e, q2, e2, *_long_gap(q, e, q2, e2), sc_mch,
+        sc_mis, sc_N, int(with_cigar), int(not approx_max), int(right_mode),
+        int(approx_drop), zdrop, _build.stream_ptr(qr))
     _build.check(err, "mm2_extd2")
-    _build.launches[launch_name(approx_max, right_mode, approx_drop)] += 1
+    _build.launches[launch_name(approx_max, right_mode, approx_drop,
+                                plan["route"])] += 1
     return (p if with_cigar else None), _ez_dead(ez, lens, G, RB, RT)
 
 
-def launch_name(approx_max, right_mode, approx_drop):
-    """The launch counter of a mode's kernel instantiation: ``extd2`` for
-    the -c/-a path's (approx-max, left-align, no approx-drop), else
-    ``extd2_<exact|approx>[_right][_adrop]``."""
+def launch_name(approx_max, right_mode, approx_drop, route="reg"):
+    """The launch counter of a mode's kernel instantiation on a route:
+    ``extd2`` for the -c/-a path's (approx-max, left-align, no
+    approx-drop, lanes in registers, planes in shared memory), else
+    ``extd2_<exact|approx>[_right][_adrop]``; ``_gp`` or ``_slab`` after
+    either for the planes-in-device-memory and the slab routes
+    (``_build.dp_plan``)."""
     if approx_max and not right_mode and not approx_drop:
-        return "extd2"
-    return ("extd2_" + ("approx" if approx_max else "exact")
-            + ("_right" if right_mode else "")
-            + ("_adrop" if approx_drop else ""))
+        name = "extd2"
+    else:
+        name = ("extd2_" + ("approx" if approx_max else "exact")
+                + ("_right" if right_mode else "")
+                + ("_adrop" if approx_drop else ""))
+    return name + {"reg": "", "reg_gp": "_gp", "slab": "_slab"}[route]

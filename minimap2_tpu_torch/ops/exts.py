@@ -48,7 +48,9 @@ from . import _build
 from .extend import (EZ_N, NEG_INF32, _ez_dead, _ez_out, _h_row, _sext8,
                      _zdrop_step, job_order)
 
-MAX_W = 4096          # 16 lanes a thread, 256 threads (csrc/exts2.cu)
+# the widest window the kernel takes: its lane offsets inside a job's rows
+# are int (ROADMAP Queue 3); the JAX kernel asserts no ceiling
+MAX_W = 1 << 24
 
 
 def wstart_q(r: int, QP: int) -> int:
@@ -121,7 +123,7 @@ def splice_site_arrays(tseqs: np.ndarray, tlens: np.ndarray, flag_for: bool,
 
 def _check(W, QP):
     """The shapes the kernel takes: the JAX kernel's (W % 128, W >= QP +
-    32), and W <= MAX_W, the port kernel's own limit (ROADMAP Queue 3)."""
+    32), and W <= MAX_W."""
     if W % 128 or W < QP + 32 or W > MAX_W:
         raise ValueError(f"exts2: need W % 128 == 0, W >= QP + 32 and "
                          f"W <= {MAX_W} (W={W}, QP={QP})")
@@ -348,29 +350,41 @@ def exts2_batch(qr, sf, dn, ac, lens, *, G, W, RB, R, QP, TP, q, e, q2,
             or dn.dtype != torch.int8 or ac.dtype != torch.int8 \
             or lens.dtype != torch.int32:
         raise ValueError("exts2: uint8 qr/sf, int8 dn/ac and int32 lens")
+    mode = int(not approx_max) | int(right_mode) << 1 | int(approx_drop) << 2
+    plan = _build.dp_plan("exts2", W, QP, TP, mode)
+    slab = plan["route"] == "slab"
     # the kernel stores band rows only: every other byte of p is 0
     p = torch.zeros((N, RT, W) if with_cigar else (0,), dtype=torch.uint8,
                     device=qr.device)
     ez = torch.empty((N, EZ_N), dtype=torch.int32, device=qr.device)
+    rows = torch.empty((N * plan["scratch"] // 4 if slab else 0,),
+                       dtype=torch.int32, device=qr.device)
     err = _build.lib().mm2_exts2(
         qr.data_ptr(), sf.data_ptr(), dn.data_ptr(), ac.data_ptr(),
-        lens.data_ptr(), order.data_ptr(), p.data_ptr(), ez.data_ptr(), N,
-        QP, TP, W, RT, q, e, q2, *long_thres_of(q, e, q2), sc_mch, sc_mis,
-        sc_N, int(with_cigar), int(not approx_max), int(right_mode),
-        int(approx_drop), zdrop, _build.stream_ptr(qr))
+        lens.data_ptr(), order.data_ptr(), p.data_ptr(), ez.data_ptr(),
+        rows.data_ptr() if slab else None, N, QP, TP, W, RT, q, e, q2,
+        *long_thres_of(q, e, q2), sc_mch, sc_mis, sc_N, int(with_cigar),
+        int(not approx_max), int(right_mode), int(approx_drop), zdrop,
+        _build.stream_ptr(qr))
     _build.check(err, "mm2_exts2")
     _build.launches[launch_name(approx_max, right_mode, approx_drop,
-                                with_cigar)] += 1
+                                with_cigar, plan["route"])] += 1
     return (p if with_cigar else None), _ez_dead(ez, lens, G, RB, RT)
 
 
-def launch_name(approx_max, right_mode, approx_drop, with_cigar):
-    """The launch counter of a mode's kernel instantiation: ``exts2`` for
-    the splice path's (approx-max, left-align, no approx-drop, with p),
-    else ``exts2_<exact|approx>[_right][_adrop][_nocigar]``."""
+def launch_name(approx_max, right_mode, approx_drop, with_cigar,
+                route="reg"):
+    """The launch counter of a mode's kernel instantiation on a route:
+    ``exts2`` for the splice path's (approx-max, left-align, no
+    approx-drop, with p, lanes in registers, planes in shared memory),
+    else ``exts2_<exact|approx>[_right][_adrop][_nocigar]``; ``_gp`` or
+    ``_slab`` after either for the planes-in-device-memory and the slab
+    routes (``_build.dp_plan``)."""
     if approx_max and not right_mode and not approx_drop and with_cigar:
-        return "exts2"
-    return ("exts2_" + ("approx" if approx_max else "exact")
-            + ("_right" if right_mode else "")
-            + ("_adrop" if approx_drop else "")
-            + ("" if with_cigar else "_nocigar"))
+        name = "exts2"
+    else:
+        name = ("exts2_" + ("approx" if approx_max else "exact")
+                + ("_right" if right_mode else "")
+                + ("_adrop" if approx_drop else "")
+                + ("" if with_cigar else "_nocigar"))
+    return name + {"reg": "", "reg_gp": "_gp", "slab": "_slab"}[route]

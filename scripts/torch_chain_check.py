@@ -104,7 +104,7 @@ def main():
     planes = anchor_planes(np.random.default_rng(1))
     n_max = chain.last_valid(planes[5])
     print(f"{B} x {A} planes, {int(planes[5].sum())} valid anchors, longest "
-          f"read n = {n_max}; {_build.blocks_per_sm('chain')} blocks per SM")
+          f"read n = {n_max}; {_build.blocks_per_sm('chain', 64)} blocks per SM")
     p = BatchParams()
     ok = True
     for bw in (p.bw, 20000):

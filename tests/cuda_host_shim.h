@@ -20,6 +20,7 @@ using std::max;
 using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
@@ -38,6 +39,7 @@ static std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 static uint64_t emu_xchg[32][32];                   // [warp][lane]
 alignas(16) static uint4 emu_smem[232448 / 16];    // a block's maximum
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+template <class T> inline T __ldg(const T* p) { return *p; }
 
 // run kernel(...) as an N-block grid of T threads
 template <class F> void emu_launch(int N, int T, F kernel) {

@@ -324,6 +324,28 @@ def test_run_batched_align_cli_matches_jax(monkeypatch, tmp_path, sam, kw):
         assert sec and all(int(t[0][2:]) % 6 == 5 for t in sec)    # rd5
 
 
+def test_run_batched_align_cli_full_band_matches_jax(monkeypatch, tmp_path):
+    """-a at the full band of 1000 (asm presets, -r 1000): W 1152 gives
+    extd2 a band of 1000 lanes (at the default W the batcher clamps it to
+    W - 48 - drift); the SAM is the JAX package's byte for byte."""
+    ref, dup = _worlds()
+    reads = _align_reads(ref, dup)
+    kw = {"QP": 768, "TP": 1280, "W": 1152, "sub": 4}
+    _, pmi, _, pmo = _indexes(["chrT", "chrD"], [ref, dup],
+                              _align_flag(True), bw=1000)
+    assert align_batch.AlignBatcher(pmi, pmo, device="cpu", **kw).w == 1000
+    want, host, got, (n, fallbacks) = _run_both(
+        monkeypatch, tmp_path, ["chrT", "chrD"], [ref, dup], reads,
+        _align_flag(True), 1536, kw, bw=1000)
+    assert got == want
+    assert n == len(reads)
+    assert [name for name, _ in fallbacks] == host
+    lines = [ln.split("\t") for ln in got.splitlines()
+             if not ln.startswith("@")]
+    assert {"rd0", "rd1", "rd3", "rd5"} <= {t[0] for t in lines
+                                            if not int(t[1]) & 4}
+
+
 @pytest.mark.parametrize("sam", [False, True], ids=["paf", "sam"])
 def test_run_batched_align_cli_unpatched_matches_jax(tmp_path, sam):
     """No patch on the JAX package: its whole output, host-path records of

@@ -98,10 +98,12 @@ def test_extd2_matches_jax(RB, G, with_cigar, sc_N):
 
 
 def test_extd2_other_modes_raise():
-    """Every mode of the JAX kernel runs (test_extd2_modes_match_jax);
-    what still raises is a shape the kernel does not take: W not a
-    multiple of 128, W < w + 48 + drift, W past 1024 (the port kernel's
-    own limit), RB past 128, and planes that are not (N, QP), (N, TP)."""
+    """Every mode of the JAX kernel runs (test_extd2_modes_match_jax), and
+    so does W past 1024 (the port kernel's limit before its slab route),
+    bit-equal to the JAX kernel; what still raises is a shape the kernel
+    does not take: W not a multiple of 128, W < w + 48 + drift, W past
+    MAX_W (the port kernel's ceiling), RB past 128, and planes that are
+    not (N, QP), (N, TP)."""
     z = torch.zeros((1, 128), dtype=torch.uint8)
     lens = torch.ones((1, 2), dtype=torch.int32)
     kw = dict(G=1, W=128, RB=32, R=256, QP=128, TP=128, q=Q, e=E, q2=Q2,
@@ -110,10 +112,47 @@ def test_extd2_other_modes_raise():
     for mode in (dict(approx_max=False), dict(zdrop=400, approx_drop=True),
                  dict(right_mode=True, with_cigar=False)):
         extend.extd2_batch2(z, z, lens, **{**kw, **mode})
-    for bad in (dict(w=100), dict(W=192), dict(W=1152, w=40),
+    wide = {**kw, "W": 1152, "w": 40}
+    jp, jez = jax_extd2(jnp.asarray(z.numpy()), jnp.asarray(z.numpy()),
+                        jnp.asarray(lens.numpy()), interpret=True, **wide)
+    p, ez = extend.extd2_batch2(z, z, lens, **wide)
+    np.testing.assert_array_equal(ez.numpy(), np.asarray(jez))
+    np.testing.assert_array_equal(
+        p.numpy(), np.asarray(jp).transpose(0, 3, 1, 2, 4).reshape(
+            p.shape))
+    for bad in (dict(w=100), dict(W=192), dict(W=extend.MAX_W + 128, w=40),
                 dict(RB=256, W=1024), dict(QP=64)):
         with pytest.raises(ValueError):
             extend.extd2_batch2(z, z, lens, **{**kw, **bad})
+
+
+@pytest.mark.parametrize("W,w,approx_max", [
+    (1152, 1000, True), (1152, 1000, False), (2048, 1900, True),
+    (2048, 1900, False)], ids=["W1152-approx", "W1152-exact",
+                               "W2048-approx", "W2048-exact"])
+def test_extd2_wide_matches_jax(W, w, approx_max):
+    """Windows past one block of the port kernel's earlier 256 threads:
+    the full band of 1000 (asm presets, -r 1000) at W 1152, and W 2048,
+    in the -a path's approx mode and in the exact mode with z-drop; p and
+    ez bit-equal to the JAX kernel's."""
+    QP, TP, RB, G = 640, 896, 64, 4
+    lens_l = [(600, 880), (640, 640), (300, 896), (1, 1), (520, 100)]
+    qr, sf, lens = make_pairs(W + w, lens_l, QP, TP)
+    kw = dict(G=G, W=W, RB=RB, R=QP + TP, QP=QP, TP=TP, q=Q, e=E, q2=Q2,
+              e2=E2, w=w, zdrop=-1 if approx_max else 400, right_mode=False,
+              approx_max=approx_max, approx_drop=False, sc_mch=2, sc_mis=-4,
+              sc_N=0, with_cigar=True)
+    jp, jez = jax_extd2(jnp.asarray(qr), jnp.asarray(sf), jnp.asarray(lens),
+                        interpret=True, **kw)
+    p, ez = extend.extd2_batch2(torch.from_numpy(qr), torch.from_numpy(sf),
+                                torch.from_numpy(lens), **kw)
+    N = len(lens_l)
+    np.testing.assert_array_equal(ez.numpy(), np.asarray(jez))
+    NG, RC = jp.shape[:2]
+    want = np.asarray(jp).transpose(0, 3, 1, 2, 4).reshape(
+        NG * G, RC * RB, W)[:N]
+    np.testing.assert_array_equal(p.numpy(), want)
+    assert (ez.numpy()[:, extend.EZ_SCORE] > 0).sum() >= 3
 
 
 # the mode grid: approx_max x right_mode x with_cigar x zdrop, and
@@ -189,20 +228,40 @@ def test_extd2_modes_match_jax(mode):
 
 
 _EMU_RUNNER = r"""
+// the launch on the route plan_of picks when an instantiation takes at
+// most tmax threads (the slab route at least 32) and a block at most smax
+// bytes of shared memory
+extern "C" int emu_extd2_route(const void* qr, const void* sf,
+                               const void* lens, const void* order, void* p,
+                               void* ez, int N, int QP, int TP, int W, int RB,
+                               int RT, int w, int q, int e, int q2, int e2,
+                               int long_thres, int long_diff, int sc_mch,
+                               int sc_mis, int sc_N, int with_cigar,
+                               int exact, int right, int adrop, int zdrop,
+                               int tmax, int smax) {
+  const int tm[3] = {tmax, tmax, tmax > 32 ? tmax : 32};
+  const Plan pl = plan_of(exact, W, QP, TP, tm, (size_t)smax);
+  std::vector<int> rows(pl.scratch / 4 * N);
+  const Extd2Args a = {(const uint8_t*)qr, (const uint8_t*)sf,
+                       (const int*)lens, (const int*)order, (uint8_t*)p,
+                       (int*)ez, rows.data(), QP, TP, W, RB, RT, w, q, e, q2,
+                       e2, long_thres, long_diff, sc_mch, sc_mis, sc_N,
+                       with_cigar, zdrop};
+  const Extd2Fn fn = extd2_variant(exact, right, adrop, pl.route);
+  emu_launch(N, pl.threads, [=] { fn(a); });
+  return pl.route;
+}
+
 extern "C" int emu_extd2(const void* qr, const void* sf, const void* lens,
                          const void* order, void* p, void* ez, int N, int QP,
                          int TP, int W, int RB, int RT, int w, int q, int e,
                          int q2, int e2, int long_thres, int long_diff,
                          int sc_mch, int sc_mis, int sc_N, int with_cigar,
                          int exact, int right, int adrop, int zdrop) {
-  const Extd2Fn fn = extd2_variant(exact, right, adrop);
-  emu_launch(N, W / GL, [=] {
-    fn((const uint8_t*)qr, (const uint8_t*)sf, (const int*)lens,
-       (const int*)order, (uint8_t*)p, (int*)ez, QP, TP, W, RB, RT, w, q, e,
-       q2, e2, long_thres, long_diff, sc_mch, sc_mis, sc_N, with_cigar,
-       zdrop);
-  });
-  return 0;
+  return emu_extd2_route(qr, sf, lens, order, p, ez, N, QP, TP, W, RB, RT, w,
+                         q, e, q2, e2, long_thres, long_diff, sc_mch, sc_mis,
+                         sc_N, with_cigar, exact, right, adrop, zdrop, 1024,
+                         232448);
 }
 """
 
@@ -211,10 +270,12 @@ extern "C" int emu_extd2(const void* qr, const void* sf, const void* lens,
 def extd2_host(tmp_path_factory):
     """The device half of csrc/extd2.cu (everything before its host entry
     points) on the host shim, as a ctypes function."""
-    fn = build_on_host("extd2", _EMU_RUNNER,
-                       tmp_path_factory.mktemp("extd2_host")).emu_extd2
+    lib = build_on_host("extd2", _EMU_RUNNER,
+                        tmp_path_factory.mktemp("extd2_host"))
+    fn, fn.route = lib.emu_extd2, lib.emu_extd2_route
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21
-    fn.restype = ctypes.c_int
+    fn.route.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 23
+    fn.restype = fn.route.restype = ctypes.c_int
     return fn
 
 
@@ -333,3 +394,56 @@ def test_extd2_modes_cuda_source_on_host_matches_plain(extd2_host, mode):
             np.testing.assert_array_equal(p, pp.numpy())
         else:
             assert pp is None and p[0] == 0xA5
+
+
+# every instantiation of the modes on the two routes past one block:
+# (approx_max, right_mode, approx_drop)
+ROUTE_MODES = [(True, False, False), (True, True, False), (True, False, True),
+               (True, True, True), (False, False, False), (False, True, False)]
+
+
+@pytest.mark.parametrize("route", ["gp", "slab"])
+@pytest.mark.parametrize("mode", ROUTE_MODES,
+                         ids=lambda m: _mode_id((m[0], m[1], True,
+                                                 400 if not m[0] or m[2]
+                                                 else -1, m[2])))
+def test_extd2_routes_cuda_source_on_host_matches_plain(extd2_host, mode,
+                                                        route):
+    """Each mode's instantiation on the route past one block's shared
+    memory (the planes read from device memory: a block holds the edge
+    rows and scalars and 64 bytes more here) and on the slab route (a
+    block of 32 threads takes the lanes of 64 or more, a group of four at
+    a time, its rows in device memory; p comes zeroed, as the wrapper
+    allocates it), against the plain version: p and ez bit-equal on the
+    z-drop pairs and on the W = w + 48 + RB/2 case whose wrapped lanes
+    enter the band."""
+    am, rm, ad = mode
+    zd = 400 if not am or ad else -1
+    wl = [(420, 440), (300, 428), (428, 300), (200, 330), (448, 400)]
+    qr, sf, lens = make_pairs(3, wl, 448, 448)
+    sf[0, 200:440] = np.random.default_rng(5).integers(0, 4, 240)
+    for QP, TP, W, RB, w, (qr, sf, lens) in (
+            (256, 256, 256, 32, 150, zdrop_pairs()),
+            (448, 448, 256, 64, 176, (qr, sf, lens))):
+        RT = (QP + TP + RB - 1) // RB * RB
+        N = lens.shape[0]
+        # a block holds the edge rows and scalars but not the planes
+        rows = 2 * W // 4 * 16 + 64 + (0 if am else 512)
+        tmax, smax = (1024, rows + 64) if route == "gp" else (32, 232448)
+        order = extend.job_order(torch.from_numpy(lens)).numpy()
+        p = np.zeros((N, RT, W), np.uint8)
+        ez = np.zeros((N, extend.EZ_N), np.int32)
+        ins = [np.ascontiguousarray(x) for x in (qr, sf, lens, order)]
+        sc = ZSC
+        assert extd2_host.route(
+            *[x.ctypes.data for x in ins], p.ctypes.data, ez.ctypes.data, N,
+            QP, TP, W, RB, RT, w, sc["q"], sc["e"], sc["q2"], sc["e2"],
+            *extend._long_gap(sc["q"], sc["e"], sc["q2"], sc["e2"]),
+            sc["sc_mch"], sc["sc_mis"], sc["sc_N"], 1, int(not am), int(rm),
+            int(ad), zd, tmax, smax) == (1 if route == "gp" else 2)
+        pp, ezp = extend.extd2_batch2_plain(
+            *(torch.from_numpy(x) for x in (qr, sf, lens)), W=W, RB=RB,
+            RT=RT, w=w, with_cigar=True, approx_max=am, approx_drop=ad,
+            right_mode=rm, zdrop=zd, **ZSC)
+        np.testing.assert_array_equal(ez, ezp.numpy())
+        np.testing.assert_array_equal(p, pp.numpy())

@@ -19,6 +19,7 @@ from minimap2_tpu.ops import sort_pallas
 from minimap2_tpu.ops.chain_pallas import chain_batch as jax_chain_batch
 from minimap2_tpu.parallel import batch as jb
 from minimap2_tpu_torch.index.index import MiniIndex
+from minimap2_tpu_torch.ops import chain as chain_mod
 from minimap2_tpu_torch.ops.chain import NEG_INF, chain_batch
 from minimap2_tpu_torch.parallel import batch as tb
 from cuda_host import build_on_host
@@ -260,19 +261,30 @@ def test_chain_routes_break_ties_differently():
 
 
 _CHAIN_RUNNER = r"""
+extern "C" int emu_chain_wnd(const void* rev, const void* rid,
+                             const void* rpos, const void* qpos,
+                             const void* span, const void* av, void* f,
+                             void* pred, void* qs, void* rs, int B, int A,
+                             int max_dist_x, int max_dist_y, int bw,
+                             float gap, float skip, int wnd) {
+  const Params prm{std::max(0, std::min(max_dist_x, max_dist_y)), bw, gap,
+                   skip};
+  const ChainFn fn = chain_variant(wnd);
+  emu_launch(B, 32, [=] {
+    fn((const int32_t*)rev, (const int32_t*)rid, (const int32_t*)rpos,
+       (const int32_t*)qpos, (const int32_t*)span, (const uint8_t*)av,
+       (int32_t*)f, (int32_t*)pred, (int32_t*)qs, (int32_t*)rs, A, wnd, prm);
+  });
+  return slots_a_lane(wnd);
+}
+
 extern "C" int emu_chain(const void* rev, const void* rid, const void* rpos,
                          const void* qpos, const void* span, const void* av,
                          void* f, void* pred, void* qs, void* rs, int B,
                          int A, int max_dist_x, int max_dist_y, int bw,
                          float gap, float skip) {
-  const Params prm{std::max(0, std::min(max_dist_x, max_dist_y)), bw, gap,
-                   skip};
-  emu_launch(B, 32, [=] {
-    chain_kernel((const int32_t*)rev, (const int32_t*)rid,
-                 (const int32_t*)rpos, (const int32_t*)qpos,
-                 (const int32_t*)span, (const uint8_t*)av, (int32_t*)f,
-                 (int32_t*)pred, (int32_t*)qs, (int32_t*)rs, A, prm);
-  });
+  emu_chain_wnd(rev, rid, rpos, qpos, span, av, f, pred, qs, rs, B, A,
+                max_dist_x, max_dist_y, bw, gap, skip, 64);
   return 0;
 }
 """
@@ -281,22 +293,24 @@ extern "C" int emu_chain(const void* rev, const void* rid, const void* rpos,
 @pytest.fixture(scope="module")
 def chain_host(tmp_path_factory):
     """csrc/chain.cu's device code on the host shim."""
-    fn = build_on_host("chain", _CHAIN_RUNNER,
-                       tmp_path_factory.mktemp("chain_host")).emu_chain
+    lib = build_on_host("chain", _CHAIN_RUNNER,
+                        tmp_path_factory.mktemp("chain_host"))
+    fn, fn.wnd = lib.emu_chain, lib.emu_chain_wnd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
         + [ctypes.c_float] * 2
-    fn.restype = ctypes.c_int
+    fn.wnd.argtypes = fn.argtypes + [ctypes.c_int]
+    fn.restype = fn.wnd.restype = ctypes.c_int
     return fn
 
 
-def _host_chain_planes(seed, B, A):
+def _host_chain_planes(seed, B, A, wnd=64):
     """_anchor_planes plus the edges: row 1 the tie of
     test_chain_routes_break_ties_differently repeated along the read
     (equal candidates, the larger j must win), row 2 anchors every one
     barred from the others (windows of NEG_INF only), row 3 valid up to
     its last anchor (n = A), row 4 with invalid anchors inside its valid
     range, row 0 with no valid anchor; rows 5 and 6 the window's edge:
-    anchor 0 joins anchor 64 (64 back) but not anchor 65 (65 back), the
+    anchor 0 joins anchor wnd (wnd back) but not anchor wnd + 1, the
     anchors between being on another contig."""
     planes = [x.copy() for x in _anchor_planes(seed, B, A)]
     rev, rid, rpos, qpos, span, av = planes
@@ -311,7 +325,7 @@ def _host_chain_planes(seed, B, A):
     av[3] = True
     av[4, ::7] = False
     av[4, -3] = True
-    for b, far in ((5, 64), (6, 65)):
+    for b, far in ((5, wnd), (6, wnd + 1)):
         rid[b, :far + 1] = 1
         rid[b, [0, far]] = 0
         rpos[b, [0, far]] = [1000, 1100]
@@ -347,3 +361,55 @@ def test_chain_cuda_source_on_host_matches_plain(chain_host, bw, B, A):
     assert pred[5, 64] == 0 and pred[6, 65] == -1
     assert (pred[2] == -1).all() and (want[0].numpy()[0] == NEG_INF).all()
     assert int((pred >= 0).sum()) > A
+
+
+@pytest.mark.parametrize("WND", [1, 2, 17, 32, 128, 300])
+def test_chain_windows_match_pallas(WND):
+    """Any window the JAX kernel takes (its ring slot is a % WND): the
+    smallest ones (fewer than two older slots), one not a power of two,
+    one a lane's slot of the register ring (32), the PAF path's
+    chain_window 128 and one past the register ring (300)."""
+    planes = _anchor_planes(WND, 128, 384)
+    want = jax_chain_batch(*(jnp.asarray(x) for x in planes), BL=128,
+                           WND=WND, AC=384, k=15, interpret=True,
+                           **CHAIN_ARGS)
+    got = chain_batch(*(torch.from_numpy(x) for x in planes), WND=WND,
+                      **CHAIN_ARGS)
+    for name, g, w in zip(("f", "pred", "qs", "rs"), got, want):
+        _eq(g, w, name)
+    pred = np.asarray(want[1])
+    back = np.arange(pred.shape[1])[None, :] - pred
+    assert (pred >= 0).sum() > 1000 and back[pred >= 0].max() <= WND
+
+
+_WINDOW_CASES = [(1, 256), (2, 256), (17, 256), (32, 256), (100, 256),
+                 (128, 256), (200, 256), (256, 320), (300, 384), (5000, 256)]
+
+
+@pytest.mark.parametrize("WND,A", _WINDOW_CASES,
+                         ids=[f"WND{w}-A{a}" for w, a in _WINDOW_CASES])
+def test_chain_windows_cuda_source_on_host_matches_plain(chain_host, WND, A):
+    """The kernel's instantiation of each window against the plain
+    version, bit-equal: 1, 2, 4 and 8 slots a lane in registers (WND up to
+    32, 64, 128, 256, and windows that fill them partly) and the ring in
+    shared memory past 256 slots, with the window's edge (rows 5 and 6)
+    where A holds it."""
+    B, bw = 8, 500
+    planes = _host_chain_planes(WND + A, B, A, wnd=min(WND, A - 2))
+    args = dict(CHAIN_ARGS, bw=bw)
+    outs = [np.full((B, A), -7, np.int32) for _ in range(4)]
+    ins = [np.ascontiguousarray(x) for x in planes]
+    sl = chain_host.wnd(*[x.ctypes.data for x in ins],
+                        *[o.ctypes.data for o in outs], B, A,
+                        args["max_dist_x"], args["max_dist_y"], bw,
+                        float(np.float32(args["chn_pen_gap"])),
+                        float(np.float32(args["chn_pen_skip"])), WND)
+    assert sl == chain_mod.slots_a_lane(WND)
+    want = chain_batch(*(torch.from_numpy(x) for x in planes), WND=WND,
+                       **args)
+    for name, g, w in zip(("f", "pred", "qs", "rs"), outs, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    pred = want[1].numpy()
+    assert pred[1, 2] == 1                  # anchor 1 (the larger j)
+    if WND + 1 < A:
+        assert pred[5, WND] == 0 and pred[6, WND + 1] == -1

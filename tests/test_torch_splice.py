@@ -172,10 +172,11 @@ def test_decode_ops_leading_intron():
 
 
 def test_exts2_modes_off_the_path_raise():
-    """Every mode of the JAX kernel runs (test_exts2_modes_match_jax);
-    what still raises is a shape the kernel does not take: W not a
-    multiple of 128, W < QP + 32, W past 4096 (the port kernel's own
-    limit), and planes that are not (N, QP), (N, TP)."""
+    """Every mode of the JAX kernel runs (test_exts2_modes_match_jax), and
+    so does W past 4096 (the port kernel's limit before its slab route),
+    bit-equal to the JAX kernel; what still raises is a shape the kernel
+    does not take: W not a multiple of 128, W < QP + 32, W past MAX_W (the
+    port kernel's ceiling), and planes that are not (N, QP), (N, TP)."""
     x = torch.zeros((1, 96), dtype=torch.uint8)
     t = torch.zeros((1, 128), dtype=torch.uint8)
     d = torch.zeros((1, 128), dtype=torch.int8)
@@ -190,9 +191,40 @@ def test_exts2_modes_off_the_path_raise():
         assert (p is None) == ("with_cigar" in mode)
     with pytest.raises(ValueError, match="W >= QP"):
         exts.exts2_batch(x, t, d, d, lens, **{**kw, "QP": 100})
-    for bad in (dict(W=192), dict(W=4224, QP=96), dict(TP=100)):
+    wide = {**kw, "W": 4224}
+    jp, jez = exts_pallas.exts2_batch(
+        *(jnp.asarray(a.numpy()) for a in (x, t, d, d, lens)),
+        interpret=True, **wide)
+    p, ez = exts.exts2_batch(x, t, d, d, lens, **wide)
+    np.testing.assert_array_equal(ez.numpy(), np.asarray(jez))
+    np.testing.assert_array_equal(p.numpy(), _jax_p(jp, 1))
+    for bad in (dict(W=192), dict(W=exts.MAX_W + 128, QP=96), dict(TP=100)):
         with pytest.raises(ValueError):
             exts.exts2_batch(x, t, d, d, lens, **{**kw, **bad})
+
+
+@pytest.mark.parametrize("approx_max", [True, False],
+                         ids=["approx", "exact"])
+def test_exts2_wide_matches_jax(approx_max):
+    """exts2 at W 4224 (QP 4096's window, past the 256 threads of 16
+    lanes the port kernel held before), on jobs of QP <= 256: the splice
+    path's approx mode and the exact mode with z-drop; p and ez bit-equal
+    to the JAX kernel's."""
+    QP, TP, W, RB, G = 256, 512, 4224, 32, 4
+    lens_l = [(240, 500), (256, 256), (100, 512), (1, 1), (200, 90)]
+    qr, sf, lens = _spliced_pairs(W, lens_l, QP, TP)
+    dn, ac = exts.splice_site_arrays(sf, lens[:, 1], True, NONCAN, True,
+                                     False)
+    planes = (qr, sf, dn, ac, lens)
+    kw = dict(G=G, W=W, RB=RB, R=QP + TP, QP=QP, TP=TP, q=Q, e=E, q2=Q2,
+              zdrop=-1 if approx_max else 60, right_mode=False,
+              approx_max=approx_max, approx_drop=False, sc_mch=1, sc_mis=-2,
+              sc_N=-1, with_cigar=True)
+    jp, jez = exts_pallas.exts2_batch(*planes, interpret=True, **kw)
+    p, ez = exts.exts2_batch(*(torch.from_numpy(x) for x in planes), **kw)
+    np.testing.assert_array_equal(ez.numpy(), np.asarray(jez))
+    np.testing.assert_array_equal(p.numpy(), _jax_p(jp, len(lens_l)))
+    assert (ez.numpy()[:, exts_pallas.EZ_SCORE] > 0).sum() >= 3
 
 
 # the mode grid: approx_max x right_mode x with_cigar x zdrop, and
@@ -486,6 +518,30 @@ def test_splice_batcher_packing_matches_jax(monkeypatch, tmp_path, sub, sam):
 
 
 _EMU_RUNNER = r"""
+// the launch on the route plan_of picks when an instantiation takes at
+// most tmax threads (the slab route at least 32) and a block at most smax
+// bytes of shared memory
+extern "C" int emu_exts2_route(const void* qr, const void* sf, const void* dn,
+                               const void* ac, const void* lens,
+                               const void* order, void* p, void* ez, int N,
+                               int QP, int TP, int W, int RT, int q, int e,
+                               int q2, int long_thres, int long_diff,
+                               int sc_mch, int sc_mis, int sc_N,
+                               int with_cigar, int exact, int right,
+                               int adrop, int zdrop, int tmax, int smax) {
+  const int tm[3] = {tmax, tmax, tmax > 32 ? tmax : 32};
+  const Plan pl = plan_of(exact, W, QP, TP, tm, (size_t)smax);
+  std::vector<uint32_t> rows(pl.scratch / 4 * N);
+  const Exts2Args a = {(const uint8_t*)qr, (const uint8_t*)sf,
+                       (const int8_t*)dn, (const int8_t*)ac, (const int*)lens,
+                       (const int*)order, (uint8_t*)p, (int*)ez, rows.data(),
+                       QP, TP, W, RT, q, e, q2, long_thres, long_diff, sc_mch,
+                       sc_mis, sc_N, with_cigar, zdrop};
+  const Exts2Fn fn = exts2_variant(exact, right, adrop, pl.route);
+  emu_launch(N, pl.threads, [=] { fn(a); });
+  return pl.route;
+}
+
 extern "C" int emu_exts2(const void* qr, const void* sf, const void* dn,
                          const void* ac, const void* lens, const void* order,
                          void* p, void* ez, int N, int QP, int TP, int W,
@@ -493,14 +549,10 @@ extern "C" int emu_exts2(const void* qr, const void* sf, const void* dn,
                          int long_diff, int sc_mch, int sc_mis, int sc_N,
                          int with_cigar, int exact, int right, int adrop,
                          int zdrop) {
-  const Exts2Fn fn = exts2_variant(exact, right, adrop);
-  emu_launch(N, (W / GL + 31) / 32 * 32, [=] {
-    fn((const uint8_t*)qr, (const uint8_t*)sf, (const int8_t*)dn,
-       (const int8_t*)ac, (const int*)lens, (const int*)order, (uint8_t*)p,
-       (int*)ez, QP, TP, W, RT, q, e, q2, long_thres, long_diff, sc_mch,
-       sc_mis, sc_N, with_cigar, zdrop);
-  });
-  return 0;
+  return emu_exts2_route(qr, sf, dn, ac, lens, order, p, ez, N, QP, TP, W, RT,
+                         q, e, q2, long_thres, long_diff, sc_mch, sc_mis,
+                         sc_N, with_cigar, exact, right, adrop, zdrop, 1024,
+                         232448);
 }
 """
 
@@ -509,10 +561,12 @@ extern "C" int emu_exts2(const void* qr, const void* sf, const void* dn,
 def exts2_host(tmp_path_factory):
     """The device half of csrc/exts2.cu (everything before its host entry
     points) on the host shim, as a ctypes function."""
-    fn = build_on_host("exts2", _EMU_RUNNER,
-                       tmp_path_factory.mktemp("exts2_host")).emu_exts2
+    lib = build_on_host("exts2", _EMU_RUNNER,
+                        tmp_path_factory.mktemp("exts2_host"))
+    fn, fn.route = lib.emu_exts2, lib.emu_exts2_route
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 18
-    fn.restype = ctypes.c_int
+    fn.route.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 20
+    fn.restype = fn.route.restype = ctypes.c_int
     return fn
 
 
@@ -593,6 +647,61 @@ def test_exts2_modes_cuda_source_on_host_matches_plain(exts2_host, mode):
                           ez.ctypes.data, N, QP, TP, W, RT, Q, E, Q2,
                           *exts.long_thres_of(Q, E, Q2), 1, -2, -1, int(wc),
                           int(not am), int(rm), int(ad), zd) == 0
+        pp, ezp = exts.exts2_batch_plain(
+            *(torch.from_numpy(x) for x in planes), W=W, RT=RT, QP=QP, q=Q,
+            e=E, q2=Q2, sc_mch=1, sc_mis=-2, sc_N=-1, with_cigar=wc,
+            approx_max=am, approx_drop=ad, right_mode=rm, zdrop=zd)
+        np.testing.assert_array_equal(ez, ezp.numpy())
+        if wc:
+            np.testing.assert_array_equal(p, pp.numpy())
+        else:
+            assert pp is None and p[0] == 0
+
+
+# every instantiation of the modes on the two routes past one block:
+# (approx_max, right_mode, approx_drop, with_cigar)
+ROUTE_MODES = [(True, False, False, True), (True, True, False, True),
+               (True, False, True, True), (True, True, True, False),
+               (False, False, False, True), (False, True, False, True)]
+
+
+@pytest.mark.parametrize("route", ["gp", "slab"])
+@pytest.mark.parametrize("mode", ROUTE_MODES,
+                         ids=lambda m: _mode_id((m[0], m[1], m[3],
+                                                 60 if not m[0] or m[2]
+                                                 else -1, m[2])))
+def test_exts2_routes_cuda_source_on_host_matches_plain(exts2_host, mode,
+                                                        route):
+    """Each mode's instantiation on the route past one block's shared
+    memory (the target, donor, acceptor and query read from device
+    memory: a block holds the edge words and scalars and 64 bytes more
+    here) and on the slab route (a block of 32 threads takes the 64 groups
+    of 16 lanes of W 1024 in turn, its rows in device memory), against the
+    plain version: p and ez bit-equal on the z-drop pairs and on the
+    reverse-strand sites of the case with the longest query."""
+    am, rm, ad, wc = mode
+    zd = 60 if not am or ad else -1
+    lens_l = [(224, 384), (200, 380), (224, 100), (150, 150), (1, 300)]
+    qr, sf, lens = _spliced_pairs(9, lens_l, 224, 384)
+    qr[0, :124] = np.random.default_rng(6).integers(0, 4, 124)
+    dn, ac = exts.splice_site_arrays(sf, lens[:, 1], False, NONCAN, False,
+                                     False)
+    for QP, TP, W, planes in ((192, 256, 256, zdrop_spliced_pairs()),
+                              (224, 384, 1024, (qr, sf, dn, ac, lens))):
+        RT = (QP + TP + 31) // 32 * 32
+        lens_ = planes[4]
+        N = lens_.shape[0]
+        rows = 2 * (W // 16) * 4 * (1 if am else 2) + 64 + (0 if am else 512)
+        tmax, smax = (1024, rows + 64) if route == "gp" else (0, 232448)
+        order = exts.job_order(torch.from_numpy(lens_)).numpy()
+        p = np.zeros((N, RT, W) if wc else (1,), np.uint8)
+        ez = np.zeros((N, exts.EZ_N), np.int32)
+        ins = [np.ascontiguousarray(x) for x in (*planes, order)]
+        assert exts2_host.route(
+            *[x.ctypes.data for x in ins], p.ctypes.data, ez.ctypes.data, N,
+            QP, TP, W, RT, Q, E, Q2, *exts.long_thres_of(Q, E, Q2), 1, -2,
+            -1, int(wc), int(not am), int(rm), int(ad), zd, tmax,
+            smax) == (1 if route == "gp" else 2)
         pp, ezp = exts.exts2_batch_plain(
             *(torch.from_numpy(x) for x in planes), W=W, RT=RT, QP=QP, q=Q,
             e=E, q2=Q2, sc_mch=1, sc_mis=-2, sc_N=-1, with_cigar=wc,
