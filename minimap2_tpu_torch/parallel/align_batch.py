@@ -25,6 +25,7 @@ from ..map.hit import Extra, Reg
 from ..ops.extend import EZ_SCORE, extd2_batch2
 from ..ops.exts import exts2_batch, long_thres_of, splice_site_arrays
 from ..ops.traceback import decode_ops, traceback_batch
+from ..utils import trace
 from .engine import _mapq
 
 _COMP4 = np.array([3, 2, 1, 0, 4], np.uint8)
@@ -119,11 +120,14 @@ class AlignBatcher:
 
     def collect(self, fut, n):
         """Fetch a dispatched sub-batch and decode its n cigars: fin first,
-        then only the ops columns up to the last populated one."""
+        then only the ops columns up to the last populated one.  The time
+        blocked in the downloads goes to the open span's ``wait_ns``."""
         ops, fin = fut
+        tw = trace.clock()
         fin = fin.cpu().numpy()
         mx = _ops_extent(ops)
         ops = ops[:, :max(mx, 1)].cpu().numpy()
+        trace.charge("wait_ns", tw)
         return [decode_ops(ops[i], int(fin[i, 0]), int(fin[i, 1]))
                 for i in range(n)]
 
@@ -204,11 +208,15 @@ class SpliceAlignBatcher:
 
     def fetch(self, fut):
         """Download a dispatched sub-batch: fin and ez, then the ops columns
-        up to the last populated one."""
+        up to the last populated one (the time blocked goes to the open
+        span's ``wait_ns``)."""
         ops, fin, ez = fut
+        tw = trace.clock()
         fin = fin.cpu().numpy()
         mx = _ops_extent(ops)
-        return ops[:, :max(mx, 1)].cpu().numpy(), fin, ez.cpu().numpy()
+        out = ops[:, :max(mx, 1)].cpu().numpy(), fin, ez.cpu().numpy()
+        trace.charge("wait_ns", tw)
+        return out
 
     def pick(self, chunk, fetched):
         """[(cigar, trans_strand, score)] of a fetched sub-batch: per job

@@ -30,6 +30,7 @@ from ..ops.extend import EZ_SCORE, extd2_batch2
 from ..ops.sketch import hash64_t, sketch_batch
 from ..ops.sort import (KEY_NONE, MAX_WIDTH, sort1_ascending, sort3_chunked,
                         sort3_rows, sort3_wide)
+from ..utils import trace
 from ..utils.u32 import M32, i32, u32, umax_where
 
 
@@ -822,10 +823,12 @@ def _lookup_anchors(di: DeviceIndex, mh_hi, mh_lo, mz, mpos, mvalid, qlen,
     query span of each minimizer (k unless HPC).  Returns int32 anchor
     planes sorted by (rev, rid, rpos, qpos) -- rev, rid, rpos, qpos, span
     -- the valid mask, and the per-read rep_len."""
-    start, cnt, flt = probe_seeds(di, mh_hi, mh_lo, mvalid, p.occ_cap)
-    if mspan is None:
-        mspan = torch.full_like(mpos, p.k)
-    return _expand_anchors(di, start, cnt, flt, mz, mpos, mspan, qlen, p)
+    with trace.span("paf_step:probe"):
+        start, cnt, flt = probe_seeds(di, mh_hi, mh_lo, mvalid, p.occ_cap)
+    with trace.span("paf_step:anchors"):
+        if mspan is None:
+            mspan = torch.full_like(mpos, p.k)
+        return _expand_anchors(di, start, cnt, flt, mz, mpos, mspan, qlen, p)
 
 
 def _rid_of(di: DeviceIndex, gpos_u):

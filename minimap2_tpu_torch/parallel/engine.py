@@ -51,6 +51,7 @@ from ..map.pe import pair as pe_pair
 from ..map.pipeline import map_frag_core
 from ..ops.chain import chain_batch
 from ..ops.sketch import sketch_batch
+from ..utils import trace
 from ..utils.intfloat import SEQ_NT4
 from .batch import (BatchParams, DeviceIndex, _chain_scan,
                     _compact_minimizers, _lookup_anchors, chain_waypoints,
@@ -118,28 +119,30 @@ class PafStep(nn.Module):
         """Unpack, sketch, compact and probe: the anchor planes (rev, rid,
         rpos, qpos, span, av) and rep_len."""
         p = self.p
-        codes = unpack_codes(packed, nbits, p.L)
-        if p.hpc:       # homopolymer-compress, sketch the run stream
-            codes_s, hpos, lens_s = hpc_compact(codes, lens)
-        else:
-            codes_s, lens_s = codes, lens
-        hhi, hlo, z, is_mini = sketch_batch(codes_s, lens_s, p.k, p.w)
-        mh_hi, mh_lo, mz, mpos, mvalid = _compact_minimizers(
-            hhi, hlo, z, is_mini, p.M)
-        mspan = None
-        if p.hpc:
-            # minimizer slots back to read coordinates; the HPC span is
-            # hpos[mc] - hpos[mc - k], the k runs' lengths (sketch.c:
-            # 94-105), clipped to [1, 255] (engine.py:57-70)
-            L = codes.shape[1]
-            mc = torch.clamp(mpos, 0, L - 1).to(torch.int64)
-            end_orig = torch.gather(hpos, 1, mc)
-            prev_orig = torch.where(
-                mc >= p.k, torch.gather(hpos, 1, torch.clamp(mc - p.k, min=0)),
-                -1)
-            mspan = torch.where(mvalid, torch.clamp(end_orig - prev_orig, 1,
-                                                    255), p.k).to(torch.int32)
-            mpos = torch.where(mvalid, end_orig, L)
+        with trace.span("paf_step:sketch"):
+            codes = unpack_codes(packed, nbits, p.L)
+            if p.hpc:       # homopolymer-compress, sketch the run stream
+                codes_s, hpos, lens_s = hpc_compact(codes, lens)
+            else:
+                codes_s, lens_s = codes, lens
+            hhi, hlo, z, is_mini = sketch_batch(codes_s, lens_s, p.k, p.w)
+            mh_hi, mh_lo, mz, mpos, mvalid = _compact_minimizers(
+                hhi, hlo, z, is_mini, p.M)
+            mspan = None
+            if p.hpc:
+                # minimizer slots back to read coordinates; the HPC span is
+                # hpos[mc] - hpos[mc - k], the k runs' lengths (sketch.c:
+                # 94-105), clipped to [1, 255] (engine.py:57-70)
+                L = codes.shape[1]
+                mc = torch.clamp(mpos, 0, L - 1).to(torch.int64)
+                end_orig = torch.gather(hpos, 1, mc)
+                prev_orig = torch.where(
+                    mc >= p.k,
+                    torch.gather(hpos, 1, torch.clamp(mc - p.k, min=0)), -1)
+                mspan = torch.where(
+                    mvalid, torch.clamp(end_orig - prev_orig, 1, 255),
+                    p.k).to(torch.int32)
+                mpos = torch.where(mvalid, end_orig, L)
         return _lookup_anchors(self.di, mh_hi, mh_lo, mz, mpos, mvalid, lens,
                                p, mspan=mspan)
 
@@ -163,44 +166,50 @@ class PafStep(nn.Module):
         rev, rid, rpos, qpos, span, av, rep_len = self.seed(packed, nbits,
                                                             lens)
         planes = (rev, rid, rpos, qpos, span, av)
-        f, qs_a, rs_a = self.run_chain(planes, p.bw, p.max_dist_x)
-        recs = topk_chains(f, qs_a, rs_a, rev, rid, rpos, qpos, av, K, min_sc,
-                           with_sec=sec)
-        trig = None
-        if p.bw_long > p.bw:
-            # long-join rescue (map.c:283-292): reads whose best chain
-            # leaves > RESCUE_SIZE uncovered query (or spans > 10% of the
-            # read and has competitors) take a rechain of the SAME anchors
-            # with the wide band
-            sc0, qs0, qe0 = recs[0][0], recs[2][0], recs[3][0]
-            n_multi = (recs[0] >= min_sc).sum(0) > 1
-            span0 = qe0 - qs0
-            lq = lens.to(torch.int32)
-            ratio = torch.tensor(RESCUE_RATIO, device=lq.device)
-            trig = (sc0 > 0) & n_multi & (
-                (lq - span0 > RESCUE_SIZE)
-                | (span0.to(torch.float32) > lq.to(torch.float32) * ratio))
-            f2, qs2_a, rs2_a = self.run_chain(
-                planes, p.bw_long, max(p.max_dist_x, p.bw_long))
-            recs2 = topk_chains(f2, qs2_a, rs2_a, rev, rid, rpos, qpos, av,
-                                K, min_sc, with_sec=sec)
-            recs = [torch.where(trig[None, :], b, a)
-                    for a, b in zip(recs, recs2)]
-        recs.append(rep_len[None, :].expand(recs[0].shape[0], -1))
-        stack = torch.stack(recs)
-        if not self.with_wp:
-            return stack
-        # waypoints of the chosen chain, from the chain pass that produced
-        # the chosen record (engine.py:122-134 of the JAX package)
-        rec0 = (recs[2][0], recs[4][0], recs[6][0], recs[7][0])
-        wq, wr = chain_waypoints(qs_a, rs_a, rev, rid, rpos, qpos, av, rec0,
-                                 WAYPOINTS)
-        if trig is not None:
-            wq2, wr2 = chain_waypoints(qs2_a, rs2_a, rev, rid, rpos, qpos, av,
-                                       rec0, WAYPOINTS)
-            wq = torch.where(trig[:, None], wq2, wq)
-            wr = torch.where(trig[:, None], wr2, wr)
-        return stack, torch.stack([wq, wr])
+        rescue = p.bw_long > p.bw
+        with trace.span("paf_step:chain"):
+            f, qs_a, rs_a = self.run_chain(planes, p.bw, p.max_dist_x)
+            if rescue:      # the long-join rescue's rechain, wide band
+                f2, qs2_a, rs2_a = self.run_chain(
+                    planes, p.bw_long, max(p.max_dist_x, p.bw_long))
+        with trace.span("paf_step:select"):
+            recs = topk_chains(f, qs_a, rs_a, rev, rid, rpos, qpos, av, K,
+                               min_sc, with_sec=sec)
+            trig = None
+            if rescue:
+                # long-join rescue (map.c:283-292): reads whose best chain
+                # leaves > RESCUE_SIZE uncovered query (or spans > 10% of
+                # the read and has competitors) take the rechain of the
+                # SAME anchors with the wide band
+                sc0, qs0, qe0 = recs[0][0], recs[2][0], recs[3][0]
+                n_multi = (recs[0] >= min_sc).sum(0) > 1
+                span0 = qe0 - qs0
+                lq = lens.to(torch.int32)
+                ratio = torch.tensor(RESCUE_RATIO, device=lq.device)
+                trig = (sc0 > 0) & n_multi & (
+                    (lq - span0 > RESCUE_SIZE)
+                    | (span0.to(torch.float32)
+                       > lq.to(torch.float32) * ratio))
+                recs2 = topk_chains(f2, qs2_a, rs2_a, rev, rid, rpos, qpos,
+                                    av, K, min_sc, with_sec=sec)
+                recs = [torch.where(trig[None, :], b, a)
+                        for a, b in zip(recs, recs2)]
+            recs.append(rep_len[None, :].expand(recs[0].shape[0], -1))
+            stack = torch.stack(recs)
+            if not self.with_wp:
+                return stack
+            # waypoints of the chosen chain, from the chain pass that
+            # produced the chosen record (engine.py:122-134 of the JAX
+            # package)
+            rec0 = (recs[2][0], recs[4][0], recs[6][0], recs[7][0])
+            wq, wr = chain_waypoints(qs_a, rs_a, rev, rid, rpos, qpos, av,
+                                     rec0, WAYPOINTS)
+            if trig is not None:
+                wq2, wr2 = chain_waypoints(qs2_a, rs2_a, rev, rid, rpos, qpos,
+                                           av, rec0, WAYPOINTS)
+                wq = torch.where(trig[:, None], wq2, wq)
+                wr = torch.where(trig[:, None], wr2, wr)
+            return stack, torch.stack([wq, wr])
 
 
 def encode_batch(seqs: list[bytes], L: int):
@@ -300,20 +309,25 @@ def dispatch_batch(step: PafStep, seqs, p: BatchParams,
                    pad_to: int | None = None):
     """Encode, upload and enqueue one batch; returns the (10, K, B) device
     tensor without waiting for it.  Partial batches are padded with empty
-    reads up to ``pad_to`` (default: the next multiple of 8)."""
-    B = len(seqs)
-    tgt = pad_to if pad_to is not None else (B + 7) // 8 * 8
-    if tgt > B:
-        seqs = list(seqs) + [b""] * (tgt - B)
-    codes, lens = encode_batch(seqs, p.L)
-    packed, nbits = pack_codes(codes)
+    reads up to ``pad_to`` (default: the next multiple of 8).  Its spans
+    (``encode:pack``, then the step's) carry the thread's current batch id,
+    or a new one."""
     dev = step.di.device
 
     def up(a):
         t = torch.from_numpy(a)
         return t.pin_memory().to(dev, non_blocking=True) \
             if dev.type == "cuda" else t
-    return step(up(packed), up(nbits), up(lens))
+    with trace.batch():
+        with trace.span("encode:pack"):
+            B = len(seqs)
+            tgt = pad_to if pad_to is not None else (B + 7) // 8 * 8
+            if tgt > B:
+                seqs = list(seqs) + [b""] * (tgt - B)
+            codes, lens = encode_batch(seqs, p.L)
+            packed, nbits = pack_codes(codes)
+            planes = up(packed), up(nbits), up(lens)
+        return step(*planes)
 
 
 def map_batch_paf(mi, step: PafStep, names, seqs, p: BatchParams, out,
@@ -487,9 +501,11 @@ def _stitch_segments(ab, opt, mat, meta, segs, joints, seg_cigs, qseg_full):
     for si, ((qa, ra, qb, rb), cg) in enumerate(zip(segs, seg_cigs)):
         qseg_i = qseg_full[qa - meta["qs"]: qb - meta["qs"]]
         tseg_i = ab.S[off + ra: off + rb]
+        tk = trace.clock()
         q0, t0, q1, t1, _bsc, tcig = native.cigar_kadane_trim(
             qseg_i, tseg_i, list(cg), mat, 5, opt.q, opt.e, opt.q2,
             opt.e2, end_bonus=max(opt.end_bonus, 0))
+        trace.charge("trim_ns", tk)
         if not tcig:
             return None, meta
         if si > 0:
@@ -517,8 +533,10 @@ def _stitch_segments(ab, opt, mat, meta, segs, joints, seg_cigs, qseg_full):
             new_meta["qe"] = qa + q1
             new_meta["re"] = ra + t1
         if opt.zdrop > 0:
+            tk = trace.clock()
             mz, _pos = native.zdrop_scan(qseg_i[q0:q1], tseg_i[t0:t1],
                                          tcig, mat, 5, opt.q, opt.e)
+            trace.charge("trim_ns", tk)
             if mz > opt.zdrop:
                 return None, meta
         out.extend(tcig)
@@ -550,81 +568,85 @@ def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode,
     "kadane" (empty max-scoring trim), "zdrop" (internal z-drop) and "no
     primary"."""
     from .align_batch import build_reg, revcomp_codes, split_extent
-    wp = None
-    if isinstance(map_out, tuple):
-        map_out, wp_t = map_out
-        wp = wp_t.cpu().numpy()              # (2, B, WP) [wq, wr]
-    arr = map_out.cpu().numpy()
+    with trace.span("regs:fetch"):
+        wp = None
+        if isinstance(map_out, tuple):
+            map_out, wp_t = map_out
+            wp = wp_t.cpu().numpy()              # (2, B, WP) [wq, wr]
+        arr = map_out.cpu().numpy()
     sc, sub, qs, qe, rs, re_, rev, rid, cnt, rep = arr
     jobs, jmeta = [], []
     fallback, unmapped = [], []
-    for b, rec in enumerate(recs):
-        qlen = len(rec.seq)
-        if sc[0, b] <= 0:
-            unmapped.append(rec)
-            continue
-        codes_f = SEQ_NT4[np.frombuffer(rec.seq, np.uint8)]
-        codes_r = None
-        for k in range(arr.shape[1]):
-            is_sec = sec_mode and k % 2 == 1
-            if sc[k, b] <= 0:
-                if k == 0:
-                    break
-                continue    # empty interleaved slot
-            # mm_select_sub (hit.c:265): a secondary survives against its
-            # own parent slot's score, with the min_diff escape
-            if is_sec:
-                psc = int(sc[k - 1, b])
-                s_ = int(sc[k, b])
-                if not (s_ >= opt.pri_ratio * psc
-                        or s_ + 2 * mi.k >= psc):
-                    continue
-            r0 = (int(mi.seq[int(rid[k, b])].length)
-                  if int(rid[k, b]) < mi.n_seq else 0)
-            qs_, qe_ = int(max(qs[k, b], 0)), int(min(qe[k, b], qlen))
-            rs_, re2 = int(max(rs[k, b], 0)), int(min(re_[k, b], r0))
-            if qe_ <= qs_ or re2 <= rs_:
-                if k == 0:
-                    unmapped.append(rec)
-                    break
+    with trace.span("regs:jobs") as sp:
+        for b, rec in enumerate(recs):
+            qlen = len(rec.seq)
+            if sc[0, b] <= 0:
+                unmapped.append(rec)
                 continue
-            if rev[k, b]:
-                if codes_r is None:
-                    codes_r = revcomp_codes(codes_f)
-                codes = codes_r
-            else:
-                codes = codes_f
-            # extend the primary's chain extent to the read ends
-            # (align.c:779-890), clamped to the contig so the global band
-            # never force-inserts an overhang
-            if k == 0:
-                dl = min(qs_, rs_)
-                qs_, rs_ = qs_ - dl, rs_ - dl
-                dr = min(qlen - qe_, r0 - re2)
-                qe_, re2 = qe_ + dr, re2 + dr
-            # anchored decomposition (align.c:803-872): split the primary
-            # extent at waypoint diagonal jumps into band-sized segments
-            # joined by explicit I/D ops
-            segs, joints = [(qs_, rs_, qe_, re2)], []
-            if k == 0 and wp is not None:
-                segs, joints = split_extent(
-                    qs_, qe_, rs_, re2, wp[0, b], wp[1, b],
-                    max(ab.w // 2, 64), ab.QP, ab.TP)
-            if not all(ab.fits(qb - qa, rb - ra)
-                       for qa, ra, qb, rb in segs):
+            codes_f = SEQ_NT4[np.frombuffer(rec.seq, np.uint8)]
+            codes_r = None
+            for k in range(arr.shape[1]):
+                is_sec = sec_mode and k % 2 == 1
+                if sc[k, b] <= 0:
+                    if k == 0:
+                        break
+                    continue    # empty interleaved slot
+                # mm_select_sub (hit.c:265): a secondary survives against its
+                # own parent slot's score, with the min_diff escape
+                if is_sec:
+                    psc = int(sc[k - 1, b])
+                    s_ = int(sc[k, b])
+                    if not (s_ >= opt.pri_ratio * psc
+                            or s_ + 2 * mi.k >= psc):
+                        continue
+                r0 = (int(mi.seq[int(rid[k, b])].length)
+                      if int(rid[k, b]) < mi.n_seq else 0)
+                qs_, qe_ = int(max(qs[k, b], 0)), int(min(qe[k, b], qlen))
+                rs_, re2 = int(max(rs[k, b], 0)), int(min(re_[k, b], r0))
+                if qe_ <= qs_ or re2 <= rs_:
+                    if k == 0:
+                        unmapped.append(rec)
+                        break
+                    continue
+                if rev[k, b]:
+                    if codes_r is None:
+                        codes_r = revcomp_codes(codes_f)
+                    codes = codes_r
+                else:
+                    codes = codes_f
+                # extend the primary's chain extent to the read ends
+                # (align.c:779-890), clamped to the contig so the global band
+                # never force-inserts an overhang
                 if k == 0:
-                    fallback.append((rec, "oversize"))
-                    break
-                continue    # drop oversize secondaries only
-            for qa, ra, qb, rb in segs:
-                jobs.append((codes[qa:qb], int(rid[k, b]), ra, rb))
-            jmeta.append((rec, k, is_sec, codes[qs_:qe_],
-                          {"sc": int(sc[k, b]), "sub": int(sub[k, b]),
-                           "cnt": int(cnt[k, b]), "rev": int(rev[k, b]),
-                           "rid": int(rid[k, b]), "qs": qs_, "qe": qe_,
-                           "rs": rs_, "re": re2, "rep": int(rep[0, b])},
-                          segs, joints))
-    cigs = ab.align_jobs(jobs) if jobs else []
+                    dl = min(qs_, rs_)
+                    qs_, rs_ = qs_ - dl, rs_ - dl
+                    dr = min(qlen - qe_, r0 - re2)
+                    qe_, re2 = qe_ + dr, re2 + dr
+                # anchored decomposition (align.c:803-872): split the primary
+                # extent at waypoint diagonal jumps into band-sized segments
+                # joined by explicit I/D ops
+                segs, joints = [(qs_, rs_, qe_, re2)], []
+                if k == 0 and wp is not None:
+                    segs, joints = split_extent(
+                        qs_, qe_, rs_, re2, wp[0, b], wp[1, b],
+                        max(ab.w // 2, 64), ab.QP, ab.TP)
+                if not all(ab.fits(qb - qa, rb - ra)
+                           for qa, ra, qb, rb in segs):
+                    if k == 0:
+                        fallback.append((rec, "oversize"))
+                        break
+                    continue    # drop oversize secondaries only
+                for qa, ra, qb, rb in segs:
+                    jobs.append((codes[qa:qb], int(rid[k, b]), ra, rb))
+                jmeta.append((rec, k, is_sec, codes[qs_:qe_],
+                              {"sc": int(sc[k, b]), "sub": int(sub[k, b]),
+                               "cnt": int(cnt[k, b]), "rev": int(rev[k, b]),
+                               "rid": int(rid[k, b]), "qs": qs_, "qe": qe_,
+                               "rs": rs_, "re": re2, "rep": int(rep[0, b])},
+                              segs, joints))
+        sp.add(reads=len(recs), jobs=len(jobs))
+    with trace.span("regs:align"):
+        cigs = ab.align_jobs(jobs) if jobs else []
     by_read = {}        # id(rec) -> (rec, [Reg, ...])
     fb_ids = set()
 
@@ -633,88 +655,96 @@ def batch_build_regs(recs, map_out, ab, mi, opt, mat, sec_mode,
             fallback.append((rec, cause))
             fb_ids.add(id(rec))
 
-    ci_ = 0
-    for (rec, k, is_sec, qseg, meta, segs, joints) in jmeta:
-        n_seg = len(segs)
-        cres_list = cigs[ci_:ci_ + n_seg]
-        ci_ += n_seg
-        if splice_mode:         # one segment: (cigar, ts, device score)
-            cig, ts_, dsc_ = cres_list[0]
-            if meta["rev"] and ts_:
-                ts_ ^= 3        # flip to the read strand (align.c:907)
-            meta = dict(meta, ts=ts_, dsc=dsc_)
-        else:
-            cig = cres_list[0]
-            if any(not c for c in cres_list):
-                fall_back(rec, k, "empty cigar")
-                continue
-        if n_seg > 1:
-            cig, meta2 = _stitch_segments(ab, opt, mat, meta, segs, joints,
-                                          cres_list, qseg)
-            if cig is None:
-                fall_back(rec, k, "stitch")
-                continue
-            qseg = qseg[meta2["qs"] - meta["qs"]:
-                        len(qseg) - (meta["qe"] - meta2["qe"])]
-            meta = meta2
-        else:
-            tseg = ab.S[ab.seq_off[meta["rid"]] + meta["rs"]:
-                        ab.seq_off[meta["rid"]] + meta["re"]]
-            # 1) trim the forced global path at its max-scoring sub-path
-            #    (the reference's extensions STOP at the max score,
-            #    align.c:779-890): junk ends and over-extension fall off;
-            #    the intron penalty is the flat q2 (e2 = 0) in splice mode
-            q0, t0, q1, t1, _bsc, tcig = native.cigar_kadane_trim(
-                qseg, tseg, cig, mat, 5, opt.q, opt.e, opt.q2,
-                0 if splice_mode else opt.e2,
-                end_bonus=max(opt.end_bonus, 0))
-            if not tcig:
-                fall_back(rec, k, "kadane")
-                continue
-            if q1 > q0 and (q0 or t0 or q1 < len(qseg) or t1 < len(tseg)):
-                meta = dict(meta)
-                meta["qe"] = meta["qs"] + q1
-                meta["qs"] += q0
-                meta["re"] = meta["rs"] + t1
-                meta["rs"] += t0
-                qseg = qseg[q0:q1]
-                tseg = tseg[t0:t1]
-                cig = tcig
-            if k == 0 and id(rec) not in fb_ids and opt.zdrop > 0 \
-                    and not splice_mode:
-                # 2) post-hoc z-drop audit (mm_test_zdrop align.c:61-103,
-                #    applied at :843-868): an internal drop means the
-                #    reference would split the chain (not in splice mode:
-                #    the flat-gap scan would read introns as deletions)
-                mz, _pos = native.zdrop_scan(qseg, tseg, cig, mat, 5, opt.q,
-                                             opt.e)
-                if mz > opt.zdrop:
-                    fall_back(rec, k, "zdrop")
+    with trace.span("regs:finish"):
+        ci_ = 0
+        for (rec, k, is_sec, qseg, meta, segs, joints) in jmeta:
+            n_seg = len(segs)
+            cres_list = cigs[ci_:ci_ + n_seg]
+            ci_ += n_seg
+            if splice_mode:         # one segment: (cigar, ts, device score)
+                cig, ts_, dsc_ = cres_list[0]
+                if meta["rev"] and ts_:
+                    ts_ ^= 3        # flip to the read strand (align.c:907)
+                meta = dict(meta, ts=ts_, dsc=dsc_)
+            else:
+                cig = cres_list[0]
+                if any(not c for c in cres_list):
+                    fall_back(rec, k, "empty cigar")
                     continue
-        r = build_reg(mi, opt, mat, len(rec.seq), qseg, meta, cig,
-                      meta["rep"], reg_id=k, parent=k - 1 if is_sec else k)
-        r._rep_len = meta["rep"]
-        by_read.setdefault(id(rec), (rec, []))[1].append(r)
-    # dp_max2 / n_sub from the aligned secondaries (mm_set_parent
-    # hit.c:171-176, 226-237), then the DP-informed mm_set_mapq2
-    sub_diff = opt.a * 2 + opt.b
-    for _rec, regs in by_read.values():
-        by_id = {r.id: r for r in regs}
-        for r in regs:
-            if r.parent == r.id or r.parent not in by_id:
-                continue
-            rp = by_id[r.parent]
-            ident = (r.rid == rp.rid and r.rs == rp.rs and r.re == rp.re)
-            cnt_sub = 1 if r.cnt >= rp.cnt else 0
-            if rp.p is not None and r.p is not None and not ident:
-                rp.p.dp_max2 = max(rp.p.dp_max2, r.p.dp_max)
-                if rp.p.dp_max - r.p.dp_max <= sub_diff:
-                    cnt_sub = 1
-            if cnt_sub:
-                rp.n_sub += 1
-        hitmod.set_mapq(regs, opt.min_chain_score, opt.a,
-                        regs[0]._rep_len if regs else 0,
-                        bool(opt.flag & MM_F_SR), bool(opt.flag & MM_F_SPLICE))
+            if n_seg > 1:
+                cig, meta2 = _stitch_segments(ab, opt, mat, meta, segs,
+                                              joints, cres_list, qseg)
+                if cig is None:
+                    fall_back(rec, k, "stitch")
+                    continue
+                qseg = qseg[meta2["qs"] - meta["qs"]:
+                            len(qseg) - (meta["qe"] - meta2["qe"])]
+                meta = meta2
+            else:
+                tseg = ab.S[ab.seq_off[meta["rid"]] + meta["rs"]:
+                            ab.seq_off[meta["rid"]] + meta["re"]]
+                # 1) trim the forced global path at its max-scoring sub-path
+                #    (the reference's extensions STOP at the max score,
+                #    align.c:779-890): junk ends and over-extension fall off;
+                #    the intron penalty is the flat q2 (e2 = 0) in splice mode
+                tk = trace.clock()
+                q0, t0, q1, t1, _bsc, tcig = native.cigar_kadane_trim(
+                    qseg, tseg, cig, mat, 5, opt.q, opt.e, opt.q2,
+                    0 if splice_mode else opt.e2,
+                    end_bonus=max(opt.end_bonus, 0))
+                trace.charge("trim_ns", tk)
+                if not tcig:
+                    fall_back(rec, k, "kadane")
+                    continue
+                if q1 > q0 and (q0 or t0 or q1 < len(qseg) or t1 < len(tseg)):
+                    meta = dict(meta)
+                    meta["qe"] = meta["qs"] + q1
+                    meta["qs"] += q0
+                    meta["re"] = meta["rs"] + t1
+                    meta["rs"] += t0
+                    qseg = qseg[q0:q1]
+                    tseg = tseg[t0:t1]
+                    cig = tcig
+                if k == 0 and id(rec) not in fb_ids and opt.zdrop > 0 \
+                        and not splice_mode:
+                    # 2) post-hoc z-drop audit (mm_test_zdrop align.c:61-103,
+                    #    applied at :843-868): an internal drop means the
+                    #    reference would split the chain (not in splice mode:
+                    #    the flat-gap scan would read introns as deletions)
+                    tk = trace.clock()
+                    mz, _pos = native.zdrop_scan(qseg, tseg, cig, mat, 5,
+                                                 opt.q, opt.e)
+                    trace.charge("trim_ns", tk)
+                    if mz > opt.zdrop:
+                        fall_back(rec, k, "zdrop")
+                        continue
+            r = build_reg(mi, opt, mat, len(rec.seq), qseg, meta, cig,
+                          meta["rep"], reg_id=k,
+                          parent=k - 1 if is_sec else k)
+            r._rep_len = meta["rep"]
+            by_read.setdefault(id(rec), (rec, []))[1].append(r)
+    with trace.span("regs:mapq"):
+        # dp_max2 / n_sub from the aligned secondaries (mm_set_parent
+        # hit.c:171-176, 226-237), then the DP-informed mm_set_mapq2
+        sub_diff = opt.a * 2 + opt.b
+        for _rec, regs in by_read.values():
+            by_id = {r.id: r for r in regs}
+            for r in regs:
+                if r.parent == r.id or r.parent not in by_id:
+                    continue
+                rp = by_id[r.parent]
+                ident = (r.rid == rp.rid and r.rs == rp.rs and r.re == rp.re)
+                cnt_sub = 1 if r.cnt >= rp.cnt else 0
+                if rp.p is not None and r.p is not None and not ident:
+                    rp.p.dp_max2 = max(rp.p.dp_max2, r.p.dp_max)
+                    if rp.p.dp_max - r.p.dp_max <= sub_diff:
+                        cnt_sub = 1
+                if cnt_sub:
+                    rp.n_sub += 1
+            hitmod.set_mapq(regs, opt.min_chain_score, opt.a,
+                            regs[0]._rep_len if regs else 0,
+                            bool(opt.flag & MM_F_SR),
+                            bool(opt.flag & MM_F_SPLICE))
     return by_read, fallback, unmapped, fb_ids
 
 
@@ -775,12 +805,13 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
     n_reads = 0
     fallbacks = []
 
-    def emit_batch(recs, map_out):
+    def emit_batch(bid, recs, map_out):
         nonlocal n_reads
         n_reads += len(recs)
-        by_read, fallback, unmapped, fb_ids = batch_build_regs(
-            recs, map_out, ab, mi, opt, mat, step.with_sec,
-            bool(opt.flag & MM_F_SPLICE))
+        with trace.batch(bid):
+            by_read, fallback, unmapped, fb_ids = batch_build_regs(
+                recs, map_out, ab, mi, opt, mat, step.with_sec,
+                bool(opt.flag & MM_F_SPLICE))
         for rec, regs in by_read.values():
             if id(rec) in fb_ids or not regs:
                 continue
@@ -808,11 +839,12 @@ def align_queries(step: PafStep, ab, mi, opt, queries, out,
                                         opt.flag, 0, rg_id=rg_id))
                 out.write("\n")
 
-    pending = []    # [(recs, map output)]
+    pending = []    # [(batch id, recs, map output)]
 
     def queue_batch(recs):
-        pending.append((recs, dispatch_batch(step, [r.seq for r in recs],
-                                             step.p, pad_to=batch_reads)))
+        with trace.batch(trace.new_batch()) as bid:
+            pending.append((bid, recs, dispatch_batch(
+                step, [r.seq for r in recs], step.p, pad_to=batch_reads)))
         while len(pending) > 1:
             emit_batch(*pending.pop(0))
 
@@ -888,7 +920,8 @@ def pair_and_write(out, mi, opt, frag, regss, flips):
     """A device fragment's output: mm_pair on its per-end regions (for two
     ends), which max_chain_gap_ref (map.c:266-271) bounds as at map.c:354,
     then each reverse-complemented end's regions back to its read strand,
-    then its records."""
+    then its records (their formatting time goes to the open span's
+    ``sam_ns``)."""
     n_seg = len(frag)
     if n_seg == 2:
         qlens = [len(r.seq) for r in frag]
@@ -902,7 +935,9 @@ def pair_and_write(out, mi, opt, frag, regss, flips):
     for j in range(n_seg):
         if flips[j]:
             flip_back(regss[j], len(frag[j].seq))
+    ts = trace.clock()
     write_fragment(out, mi, opt, frag, regss, [0] * n_seg)
+    trace.charge("sam_ns", ts)
 
 
 def align_pairs(step: PafStep, ab, mi, opt, queries, out, batch_frags: int):
@@ -926,9 +961,14 @@ def align_pairs(step: PafStep, ab, mi, opt, queries, out, batch_frags: int):
     n_reads = 0
     fallbacks = []
 
-    def emit(frags, recs, flips, map_out):
-        by_read, fallback, _unm, fb_ids = batch_build_regs(
-            recs, map_out, ab, mi, opt, mat, step.with_sec, False)
+    def emit(bid, frags, recs, flips, map_out):
+        with trace.batch(bid):
+            by_read, fallback, _unm, fb_ids = batch_build_regs(
+                recs, map_out, ab, mi, opt, mat, step.with_sec, False)
+            with trace.span("pairing:batch"):
+                emit_pairs(frags, recs, flips, by_read, fallback, fb_ids)
+
+    def emit_pairs(frags, recs, flips, by_read, fallback, fb_ids):
         cause = {id(rec): c for rec, c in fallback}
         idx = 0
         for frag in frags:
@@ -950,9 +990,11 @@ def align_pairs(step: PafStep, ab, mi, opt, queries, out, batch_frags: int):
                 fallbacks.append((frag[0].name, why))
                 t = time.perf_counter()
                 results = map_fragment(mi, opt, frag)
+                ts = trace.clock()
                 write_fragment(out, mi, opt, frag,
                                [res.regs for res in results],
                                [res.rep_len for res in results])
+                trace.charge("sam_ns", ts)
                 host_path["reads"] += n_seg
                 host_path["seconds"] += time.perf_counter() - t
                 continue
@@ -960,25 +1002,40 @@ def align_pairs(step: PafStep, ab, mi, opt, queries, out, batch_frags: int):
                            flips[idx:idx + n_seg])
             idx += n_seg
 
-    pending = []    # [(frags, recs, flips, map output)]
+    pending = []    # [(batch id, frags, recs, flips, map output)]
 
-    def queue_batch(frags):
+    def queue_batch(bid, frags, rd):
         nonlocal n_reads
         recs, flips = flatten_fragments(frags, opt.pe_ori)
+        rd.add(reads=len(recs))
+        rd.close()
         n_reads += len(recs)
-        pending.append((frags, recs, flips, dispatch_batch(
-            step, [r.seq for r in recs], step.p, pad_to=B)))
+        with trace.batch(bid):
+            map_out = dispatch_batch(step, [r.seq for r in recs], step.p,
+                                     pad_to=B)
+        pending.append((bid, frags, recs, flips, map_out))
         while len(pending) > 1:
             emit(*pending.pop(0))
 
+    def read_span():
+        # a batch's id and its span, from the first fragment it reads to
+        # its flatten_fragments
+        bid = trace.new_batch()
+        return bid, trace.span("encode:read", batch=bid)
+
     buf = []
-    for frag in iter_fragments(queries, True):
-        buf.append(frag)
-        if len(buf) >= batch_frags:
-            queue_batch(buf)
-            buf = []
-    if buf:
-        queue_batch(buf)
+    bid, rd = read_span()
+    try:
+        for frag in iter_fragments(queries, True):
+            buf.append(frag)
+            if len(buf) >= batch_frags:
+                queue_batch(bid, buf, rd)
+                buf = []
+                bid, rd = read_span()
+        if buf:
+            queue_batch(bid, buf, rd)
+    finally:
+        rd.close()
     while pending:
         emit(*pending.pop(0))
     dt = time.time() - t0
